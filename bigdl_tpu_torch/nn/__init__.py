@@ -1,0 +1,11 @@
+"""Layers of the port (``bigdl_tpu.nn`` counterparts), as ``nn.Module``s."""
+
+from bigdl_tpu_torch.nn.activations import LogSoftMax
+from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+from bigdl_tpu_torch.nn.containers import Container, Sequential
+from bigdl_tpu_torch.nn.linear import Linear
+from bigdl_tpu_torch.nn.misc import LookupTable
+from bigdl_tpu_torch.nn.module import AbstractModule
+
+__all__ = ["AbstractModule", "Container", "Sequential", "Linear",
+           "LookupTable", "LogSoftMax", "MultiHeadAttention"]

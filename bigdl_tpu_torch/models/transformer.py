@@ -43,6 +43,7 @@ from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.misc import LookupTable
 from bigdl_tpu_torch.nn.module import AbstractModule, new_param
 from bigdl_tpu_torch.utils.device import resolve_device
+from bigdl_tpu_torch.utils.params_tree import named_leaves
 
 
 def layer_norm(x, weight, bias, eps: float):
@@ -99,12 +100,13 @@ class TransformerBlock(Container):
     fc1, fc2."""
 
     def __init__(self, hidden_size: int, n_heads: int, mlp_ratio: int = 4,
-                 causal: bool = True, device=None,
+                 causal: bool = True, use_flash: str = "auto", device=None,
                  generator: torch.Generator = None) -> None:
         super().__init__()
         self.add(LayerNorm(hidden_size, device=device))
         self.add(MultiHeadAttention(hidden_size, n_heads, causal=causal,
-                                    device=device, generator=generator))
+                                    use_flash=use_flash, device=device,
+                                    generator=generator))
         self.add(LayerNorm(hidden_size, device=device))
         self.add(Linear(hidden_size, mlp_ratio * hidden_size,
                         device=device, generator=generator))
@@ -126,17 +128,24 @@ class TransformerBlock(Container):
 def TransformerLM(vocab_size: int, hidden_size: int = 256, n_heads: int = 8,
                   n_layers: int = 4, max_len: int = 1024,
                   mlp_ratio: int = 4, causal: bool = True,
-                  output: str = "logprobs", device=None,
-                  seed: int = 0) -> Sequential:
+                  output: str = "logprobs", use_flash: str = "auto",
+                  device=None, seed: int = 0) -> Sequential:
     """GPT-style decoder LM over 1-based token ids ``(B, T)`` →
     per-position log-probs ``(B, T, vocab)`` (``transformer.py:181``;
     remat, sequence parallelism and ``layer_scan`` wait).
+
+    ``use_flash`` goes to every block's attention (``"auto"``: the flash
+    kernels on the card, dense attention on the CPU; see
+    :class:`bigdl_tpu_torch.nn.attention.MultiHeadAttention`). The
+    serving steps compute attention themselves and do not read it.
 
     Weights are f32, made on ``device`` (default ``cuda``; raises without
     a card unless ``device="cpu"``) from a ``torch.Generator`` seeded
     with ``seed``, with the reference's init distributions."""
     if output not in ("logprobs", "logits"):
         raise ValueError(f"unknown output {output!r}")
+    if use_flash not in ("auto", "always", "never"):
+        raise ValueError(f"unknown use_flash {use_flash!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     model = Sequential()
@@ -146,7 +155,8 @@ def TransformerLM(vocab_size: int, hidden_size: int = 256, n_heads: int = 8,
                                 generator=gen))
     for _ in range(n_layers):
         model.add(TransformerBlock(hidden_size, n_heads, mlp_ratio, causal,
-                                   device=dev, generator=gen))
+                                   use_flash=use_flash, device=dev,
+                                   generator=gen))
     model.add(LayerNorm(hidden_size, device=dev))
     model.add(Linear(hidden_size, vocab_size, device=dev, generator=gen))
     if output == "logprobs":
@@ -162,33 +172,12 @@ def load_jax_params(model: AbstractModule, params_np: Dict) -> AbstractModule:
     numpy arrays (``jax.device_get(lm.params)``). Container children are
     matched by the integer before the ``:`` of their key — the names
     after it carry per-instance counters and differ between two builds
-    of one model. Every leaf must exist on both sides with equal shape."""
-    if isinstance(model, Container):
-        by_index = {int(k.split(":", 1)[0]): v for k, v in params_np.items()}
-        mods = model.layers()
-        if set(by_index) != set(range(len(mods))):
-            raise ValueError(
-                f"{model.name}: JAX children {sorted(by_index)} do not match "
-                f"the port's {len(mods)}")
-        for i, m in enumerate(mods):
-            load_jax_params(m, by_index[i])
-        return model
-    own = dict(model.named_parameters(recurse=False))
-    children = dict(model.named_children())
-    if set(params_np) != set(own) | set(children):
-        raise ValueError(
-            f"{model.name}: JAX keys {sorted(params_np)} do not match the "
-            f"port's {sorted(set(own) | set(children))}")
-    for key, val in params_np.items():
-        if key in children:
-            load_jax_params(children[key], val)
-            continue
-        p = own[key]
-        arr = np.asarray(val)
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{model.name}.{key}: shape {arr.shape} vs "
-                             f"{tuple(p.shape)}")
-        with torch.no_grad():
+    of one model. Every leaf must exist on both sides with equal shape
+    (:func:`bigdl_tpu_torch.utils.params_tree.named_leaves`)."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, arr in named_leaves(model, params_np).items():
+            p = params[name]
             p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
     return model
 

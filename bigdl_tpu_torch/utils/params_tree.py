@@ -1,0 +1,55 @@
+"""JAX-layout params trees ↔ the port's parameter names.
+
+The JAX package keys a container's params by ``"{i}:{child name}"`` and a
+layer's by leaf name (``weight``, ``bias``, ...). The port's modules carry
+the same structure, but the names after the ``:`` hold per-process
+instance counters and differ between two builds of one model, so children
+are matched by the integer before the ``:``. :func:`named_leaves` maps a
+tree of that shape (numpy leaves, e.g. ``jax.device_get(lm.params)`` or
+one slot tree of an Adam state) onto ``model.named_parameters()`` names.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+from torch import nn
+
+from bigdl_tpu_torch.nn.containers import Container
+
+
+def named_leaves(model: nn.Module, tree: Dict) -> Dict[str, np.ndarray]:
+    """``{parameter name: array}`` for every leaf of ``tree``. Every leaf
+    must exist on both sides with equal shape."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(m: nn.Module, t: Dict, prefix: str) -> None:
+        own = dict(m.named_parameters(recurse=False))
+        children = dict(m.named_children())
+        if isinstance(m, Container):
+            by_index = {int(k.split(":", 1)[0]): v for k, v in t.items()}
+            keys = list(children)
+            if set(by_index) != set(range(len(keys))):
+                raise ValueError(
+                    f"{prefix or 'model'}: JAX children {sorted(by_index)} "
+                    f"do not match the port's {len(keys)}")
+            for i, key in enumerate(keys):
+                walk(children[key], by_index[i], f"{prefix}{key}.")
+            return
+        if set(t) != set(own) | set(children):
+            raise ValueError(
+                f"{prefix or 'model'}: JAX keys {sorted(t)} do not match the "
+                f"port's {sorted(set(own) | set(children))}")
+        for key, val in t.items():
+            if key in children:
+                walk(children[key], val, f"{prefix}{key}.")
+                continue
+            arr = np.asarray(val)
+            if tuple(arr.shape) != tuple(own[key].shape):
+                raise ValueError(f"{prefix}{key}: shape {arr.shape} vs "
+                                 f"{tuple(own[key].shape)}")
+            out[prefix + key] = arr
+
+    walk(model, tree, "")
+    return out

@@ -16,22 +16,37 @@ any failure raises, so the exit code is non-zero and no result prints:
 2. build    — every kernel of ``bigdl_tpu_torch/csrc/`` with one ``nvcc``
               per source, all started together;
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the serving shapes (N=16 rows, H=12 heads, L=512, D=64) with
-              per-row positions that include 0 and L-1, plus a ragged L:
-              max abs error against the stated tolerance, kernel, plain and
-              library times, and the least time the card could take;
+              its main path's shapes: decode attention at the serving shape
+              (N=16 rows, H=12 heads, L=512, D=64) with per-row positions
+              that include 0 and L-1, plus a ragged L; the flash forward, dq
+              and dk/dv kernels at the training shape (B=8, T=2048, H=12,
+              D=64, bf16, causal), non-causal at a ragged T=300, Tq != Tk,
+              and strict causal (causal_offset=-1): each output row's error
+              relative to that row's largest plain value against the
+              stated tolerance, kernel, plain and library times, and the
+              least time the card could take;
 4. kv_merge — the cost of the int8 grow check the decode step makes (a
               host read of one flag) against the unconditional requantize;
 5. check    — a small model's int8-KV decode step on the card against the
               same step on the CPU, teacher-forced, f32;
-6. serve    — the main path at full width: the 137m TransformerLM (vocab
-              32768, hidden 768, 12 layers, 12 heads, max_len 512, random
-              weights from seed 0) served bf16 with int8 KV by
+6. train_check — a small LM's three ``make_train_step`` steps (f32,
+              ``use_flash="always"``, SGD) on the card against the same
+              steps on the CPU: losses and parameters;
+7. serve    — the serving path at full width: the 137m TransformerLM
+              (vocab 32768, hidden 768, 12 layers, 12 heads, max_len 512,
+              random weights from seed 0) served bf16 with int8 KV by
               ``ServingEngine(n_slots=16)``: 24 requests, prompts of 16-256
-              tokens, 32 new tokens each, greedy and seeded-sampled rows.
-              Every kernel's launch count is set to 0 just before ``drain``
-              and read just after; each must have launched (decode
-              attention: once per layer per decode step).
+              tokens, 32 new tokens each, greedy and seeded-sampled rows;
+8. train    — the training path at full width: the same 137m model at
+              max_len = T = 2048, ``output="logits"``, trained through
+              ``Optimizer(...).optimize()`` with
+              ``MaskedSoftmaxCECriterion(0)``, ``Adam(1e-4)``, bf16 compute,
+              batch 8, 2 warm + 5 timed steps on one seeded batch: step ms
+              p50, tokens/s, MFU, peak memory, first and last loss.
+
+Each path's kernel launch counts are set to 0 just before it runs and read
+just after; each of its kernels must have launched (decode attention once
+per layer per decode step, each flash kernel once per layer per step).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``.
@@ -49,6 +64,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 
 
 def emit(phase: str, **fields) -> None:
@@ -199,6 +215,190 @@ def kernels_phase():
     return entry
 
 
+def lm_flops_per_token(vocab: int, hidden: int, layers: int, t: int,
+                       mlp_ratio: int = 4) -> float:
+    """6 N_matmul + 12 L T H (the PaLM convention of
+    ``benchmarks/llm_mfu_bench.py:55-63``, copied): forward + backward
+    matmul FLOPs per token, attention counted over the full T x T."""
+    attn_params = 4 * hidden * hidden
+    mlp_params = 2 * hidden * (mlp_ratio * hidden)
+    n_matmul = layers * (attn_params + mlp_params) + hidden * vocab
+    return 6.0 * n_matmul + 12.0 * layers * t * hidden
+
+
+def flash_work(b, tq, tk, h, d, causal, off, nbytes):
+    """(FLOPs per kernel, bytes per kernel) that this call's data needs:
+    the (query, key) pairs the mask keeps (a fully masked row visits every
+    key), 2 FLOPs per multiply-add over D for each matmul — 2 in the
+    forward, 3 in dq, 4 in dk/dv — and each operand read once, each
+    output written once."""
+    rows = np.arange(tq)
+    if causal:
+        seen = np.clip(rows + off + 1, 0, tk)
+        seen = np.where(rows + off < 0, tk, seen)
+    else:
+        seen = np.full(tq, tk)
+    pairs = float(seen.sum()) * b * h
+    mm = 2.0 * d * pairs
+    q_bytes = b * tq * h * d * nbytes
+    kv_bytes = b * tk * h * d * nbytes
+    row_f32 = b * h * tq * 4
+    return {"fwd": (2 * mm, q_bytes * 2 + kv_bytes * 2 + row_f32),
+            "dq": (3 * mm, q_bytes * 3 + kv_bytes * 2 + row_f32 * 2),
+            "dkv": (4 * mm, q_bytes * 2 + kv_bytes * 4 + row_f32 * 2)}
+
+
+# (case, B, Tq, Tk, H, D, causal, causal_offset)
+FLASH_CASES = [("train_main", 8, 2048, 2048, 12, 64, True, 0),
+               ("noncausal_T300", 2, 300, 300, 12, 64, False, 0),
+               ("tq_ne_tk", 2, 200, 520, 12, 64, True, 0),
+               ("strict_causal", 2, 512, 512, 12, 64, True, -1)]
+
+
+def flash_inputs(i: int, dtype):
+    """Seeded q, k, v, dO on the card for case ``FLASH_CASES[i]``."""
+    import torch
+
+    _, b, tq, tk, h, d, _, _ = FLASH_CASES[i]
+    g = torch.Generator(device="cuda").manual_seed(100 + i)
+
+    def rand(t):
+        return torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
+
+    return rand(tq), rand(tk), rand(tk), rand(tq)
+
+
+def flash_phase():
+    """The flash forward, dq and dk/dv kernels against their plain
+    versions; returns their summary entries (times at the main shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    # each row of each output against the same row of the plain version,
+    # relative to that row's largest magnitude (fa.max_row_rel_err)
+    rtol = fa.ROW_RTOL[torch.bfloat16]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    entries = {}
+    for i, (case, b, tq, tk, h, d, causal, off) in enumerate(FLASH_CASES):
+        q, k, v, do = flash_inputs(i, torch.bfloat16)
+        scale = d ** -0.5
+        o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, off)
+        o_ref, lse_ref = fa.flash_forward_reference(q, k, v, scale, causal,
+                                                    off)
+        got = fa.flash_bwd_cuda(q, k, v, o_ref, lse_ref, do, scale, causal,
+                                off)
+        want = fa.flash_backward_reference(q, k, v, o_ref, lse_ref, do,
+                                           scale, causal, off)
+        torch.cuda.synchronize()
+        outs = {"fwd": [(o, o_ref)], "dq": [(got[0], want[0])],
+                "dkv": [(got[1], want[1]), (got[2], want[2])]}
+        lse_err = float((lse - lse_ref).abs().max())
+        work = flash_work(b, tq, tk, h, d, causal, off, 2)
+        for name, pairs in outs.items():
+            err = max(float((a.float() - r.float()).abs().max())
+                      for a, r in pairs)
+            row_err = max(fa.max_row_rel_err(a, r) for a, r in pairs)
+            finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+            emit("kernels", kernel=f"flash_{name}", case=case,
+                 shape=[b, tq, tk, h, d], causal=causal, causal_offset=off,
+                 max_abs_err=err, max_row_rel_err=row_err, rtol=rtol,
+                 why=("per row, relative to the row's largest |plain|: bf16 "
+                      "rounding of p/ds and of the outputs"),
+                 lse_max_abs_err=lse_err if name == "fwd" else None,
+                 lse_tol=1e-4 if name == "fwd" else None, finite=finite)
+            if (not finite or row_err > rtol
+                    or (name == "fwd" and lse_err > 1e-4)):
+                raise AssertionError(
+                    f"flash {name} {case}: row-relative err {row_err} > "
+                    f"{rtol} (lse err {lse_err})")
+        if case != "train_main":
+            continue
+        # dq and dk/dv are timed one launch each through the C entry
+        # points (the wrapper launches both); the plain version computes
+        # all three gradients at once, so both rows show its time
+        delta = fa._delta(o_ref, do).contiguous()
+        dqb, dkb, dvb = (torch.empty_like(t) for t in (q, k, v))
+        geo = (b, h, tq, tk, d, 1, 0, float(scale), 1,
+               torch.cuda.current_stream().cuda_stream)
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse_ref.data_ptr(), delta.data_ptr())
+        lib_c = fa._library()
+
+        def plain_bwd():
+            fa.flash_backward_reference(q, k, v, o_ref, lse_ref, do, scale,
+                                        True)
+
+        runs = {
+            "fwd": (lambda: fa.flash_fwd_cuda(q, k, v, scale, True),
+                    lambda: fa.flash_forward_reference(q, k, v, scale, True)),
+            "dq": (lambda: launched(lib_c.bigdl_flash_dq(
+                *ins, dqb.data_ptr(), *geo)), plain_bwd),
+            "dkv": (lambda: launched(lib_c.bigdl_flash_dkv(
+                *ins, dkb.data_ptr(), dvb.data_ptr(), *geo)), plain_bwd)}
+        # the library yardstick: SDPA forward and backward over the same
+        # bf16 inputs in its (B, H, T, D) layout, prepared outside timing
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dos = do.transpose(1, 2).contiguous()
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), flush=flush)
+        lo = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lo, (qs, ks, vs), dos, retain_graph=True), flush=flush)
+        lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+        # the backward as a whole (the wrapper's delta, dq and dk/dv)
+        # against SDPA's backward, which computes dq, dk and dv together
+        bwd_ms = time_ms(lambda: fa.flash_bwd_cuda(
+            q, k, v, o_ref, lse_ref, do, scale, True), flush=flush)
+        bwd_flops = work["dq"][0] + work["dkv"][0]
+        emit("kernels", kernel="flash_bwd (delta + dq + dk/dv)", case=case,
+             ms=bwd_ms, library_ms=lib_bwd,
+             library="F.scaled_dot_product_attention backward",
+             flops=bwd_flops, tflops_per_s=bwd_flops / bwd_ms / 1e9,
+             vs_library=bwd_ms / lib_bwd)
+        for name, (kern, plain) in runs.items():
+            ms = time_ms(kern, flush=flush)
+            plain_ms = time_ms(plain, reps=5, flush=flush)
+            flops, n_bytes = work[name]
+            t_ops, t_bytes = flops / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            emit("kernels", kernel=f"flash_{name}", case=case, ms=ms,
+                 plain_ms=plain_ms, library_ms=lib[name],
+                 library=("F.scaled_dot_product_attention forward"
+                          if name == "fwd" else
+                          "F.scaled_dot_product_attention backward "
+                          "(dq, dk and dv together)"),
+                 bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                 bytes=n_bytes, tflops_per_s=flops / ms / 1e9,
+                 roofline_share=bound_ms / ms)
+            entries[name] = {
+                "name": f"flash_attention_{name}", "route": "cuda",
+                "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
+                "replaces": FLASH_REPLACES[name], "launches": None,
+                "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib[name]}
+        for name, pairs in outs.items():
+            entries[name]["max_abs_err"] = max(
+                float((a.float() - r.float()).abs().max()) for a, r in pairs)
+            entries[name]["max_row_rel_err"] = max(
+                fa.max_row_rel_err(a, r) for a, r in pairs)
+    return entries
+
+
+def launched(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"kernel launch failed: cudaError {err}")
+
+
+FLASH_REPLACES = {"fwd": "bigdl_tpu/ops/flash_attention.py:52",
+                  "dq": "bigdl_tpu/ops/flash_attention.py:149",
+                  "dkv": "bigdl_tpu/ops/flash_attention.py:213"}
+
+
 def kv_merge_phase():
     """Per-layer cost, at the pool's shape, of the decode step's int8 grow
     check (host read of the flag, no growth) vs the unconditional merge."""
@@ -269,6 +469,130 @@ def check_phase():
          steps=len(feeds), max_abs_logp_err=err, tol=2e-3)
     if not err <= 2e-3:
         raise AssertionError(f"card vs CPU decode: max abs err {err}")
+
+
+def train_check_phase():
+    """A small LM's three f32 train steps on the card vs on the CPU, with
+    the flash path forced (``use_flash="always"``: the f32 kernels on the
+    card, the plain version on the CPU) and SGD, whose update is linear
+    in the gradients, so the parameters show any gradient difference.
+    Tolerances: losses 1e-5 relative, parameters 1e-5 absolute (f32 on
+    both sides, sums in other orders; 3 steps of lr 0.1)."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import MaskedSoftmaxCECriterion
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.optim.optim_method import SGD
+    from bigdl_tpu_torch.optim.train_step import make_train_step
+
+    V, T, B = 29, 16, 4
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        x = rng.integers(1, V + 1, size=(B, T)).astype(np.int32)
+        y = rng.integers(1, V + 1, size=(B, T)).astype(np.float32)
+        y[:, -3:] = 0.0
+        batches.append((x, y))
+    results = []
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    for dev in ("cpu", "cuda"):
+        lm = TransformerLM(V, hidden_size=32, n_heads=4, n_layers=2,
+                           max_len=T, output="logits", use_flash="always",
+                           device="cpu", seed=9).to(dev)
+        opt = SGD(learning_rate=0.1, momentum=0.9)
+        step = make_train_step(lm, MaskedSoftmaxCECriterion(0), opt)
+        params = {k: p.detach().clone() for k, p in lm.named_parameters()}
+        state = opt.init_state(params)
+        losses = []
+        for x, y in batches:
+            params, state, _, loss = step(
+                params, state, {}, None, torch.from_numpy(x).to(dev),
+                torch.from_numpy(y).to(dev))
+            losses.append(float(loss))
+        # the two builds' parameter names differ in their instance
+        # counters; the order is the same
+        results.append((losses, [p.cpu() for p in params.values()]))
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = results
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))
+    launches = [fa.fwd_launches, fa.dq_launches, fa.dkv_launches]
+    emit("train_check", what="3 f32 train steps, small LM, card vs CPU",
+         losses_cpu=l_cpu, losses_card=l_gpu, loss_rel_err=loss_err,
+         param_max_abs_err=param_err, tol_loss=1e-5, tol_param=1e-5,
+         card_flash_launches=launches)
+    if not (loss_err <= 1e-5 and param_err <= 1e-5):
+        raise AssertionError(f"card vs CPU train steps: loss {loss_err}, "
+                             f"params {param_err}")
+    if launches != [6, 6, 6]:              # 2 layers x 3 steps, card only
+        raise AssertionError(f"flash launches {launches}, expected 6 each")
+
+
+def train_phase(warm: int = 2, timed: int = 5):
+    """The training path at full width; returns the flash kernels'
+    launch counts over the ``optimize()`` run."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import MaskedSoftmaxCECriterion
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    V, hidden, layers, heads, T, B = 32768, 768, 12, 12, 2048, 8
+    lm = TransformerLM(V, hidden_size=hidden, n_heads=heads, n_layers=layers,
+                       max_len=T, output="logits", seed=0)
+    n_params = sum(p.numel() for p in lm.parameters())
+    rng = np.random.default_rng(0)
+    x = rng.integers(1, V + 1, size=(B, T)).astype(np.int32)
+    y = rng.integers(1, V + 1, size=(B, T)).astype(np.float32)
+    samples = [Sample(x[i], y[i]) for i in range(B)]
+    steps = warm + timed
+    losses = []
+
+    def record_then_stop(state):       # the trigger reads every step's loss
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        return state["neval"] > steps
+
+    opt = Optimizer(lm, samples, MaskedSoftmaxCECriterion(0), batch_size=B,
+                    end_trigger=Trigger(record_then_stop,
+                                        Trigger.max_iteration(steps).peek))
+    opt.set_optim_method(Adam(learning_rate=1e-4)).set_compute_dtype("bf16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                "dkv": fa.dkv_launches}
+    step_s = opt.metrics.values("computing time")[warm:]
+    p50 = float(np.median(step_s))
+    tokens_per_s = B * T / p50
+    fpt = lm_flops_per_token(V, hidden, layers, T)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise AssertionError(f"train losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"one batch repeated {steps} times did not "
+                             f"lower the loss: {losses}")
+    for name, n in launches.items():
+        if n != layers * steps:
+            raise AssertionError(
+                f"flash {name} launched {n} times, expected {steps} steps "
+                f"x {layers} layers")
+    emit("train", model="137m", params=n_params, vocab=V, hidden=hidden,
+         layers=layers, heads=heads, T=T, batch=B, compute="bf16",
+         optim="Adam(1e-4)", steps=steps, timed_steps=timed,
+         step_ms=[s * 1e3 for s in step_s], wall_s=wall,
+         flash_launches=launches, peak_mem_gib=peak_gib, losses=losses)
+    print(json.dumps({"train_step_ms_p50": p50 * 1e3,
+                      "tokens_per_s": tokens_per_s,
+                      "mfu": tokens_per_s * fpt / BF16_FLOPS,
+                      "flops_per_token": fpt}))
+    return launches
 
 
 def serve_phase():
@@ -365,12 +689,17 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={name: ptxas_summary(log) for name, log in logs.items()})
     entry = kernels_phase()
+    flash = flash_phase()
     kv_merge_phase()
     check_phase()
+    train_check_phase()
     entry["launches"] = serve_phase()
     if not entry["launches"]:
         raise AssertionError("decode_attention never launched on the main path")
-    print(json.dumps({"kernels": [entry]}))
+    for name, n in train_phase().items():
+        flash[name]["launches"] = n
+    print(json.dumps({"kernels": [entry] + [flash[n] for n in
+                                            ("fwd", "dq", "dkv")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

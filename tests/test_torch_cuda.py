@@ -10,7 +10,15 @@ machine without them; tests/conftest.py imports jax, so there run it as
 Tolerances: 2e-5 absolute where the math is f32 end to end (f32 and int8
 K/V with f32 output); 2e-2 for bf16 K/V, where p is rounded to bf16
 before the p.v contraction (normalized in the plain version, not in the
-kernel); 1.6e-2 — two bf16 ulps at |out| <= 2 — for a bf16 output."""
+kernel); 1.6e-2 — two bf16 ulps at |out| <= 2 — for a bf16 output.
+
+Flash attention errors are taken row by row, relative to the largest
+magnitude of the same row of the plain result
+(``flash_attention.max_row_rel_err``; under causal masking row magnitudes
+span orders, so a tensor-wide scale would hide a fault in the late rows):
+2e-5 for f32 (sums in another order), 2e-2 for bf16 (p and ds are rounded
+to bf16 relative to the running max in the kernels and to the final max in
+the plain version, and outputs are bf16: a few bf16 ulps)."""
 
 import pytest
 import torch
@@ -91,3 +99,94 @@ def test_decode_attention_kernel_refuses_what_it_does_not_support(card):
                                    .transpose(1, 2), v, pos)
     with pytest.raises(ValueError, match="CUDA tensor"):
         da.pooled_decode_attention(q, k, v, pos.cpu())
+
+
+def _flash_inputs(b, tq, tk, h, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(t):
+        return torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
+
+    return rand(tq), rand(tk), rand(tk), rand(tq)
+
+
+# (B, Tq, Tk, H, D, causal, causal_offset)
+FLASH_CASES = [
+    (2, 256, 256, 4, 64, True, None),      # tile multiple, causal
+    (2, 300, 300, 3, 64, False, None),     # ragged T, non-causal
+    (1, 100, 300, 2, 64, False, None),     # Tq != Tk
+    (1, 300, 100, 2, 64, True, None),      # Tq > Tk, causal
+    (2, 192, 192, 2, 64, True, -1),        # strict causal: row 0 fully masked
+    (1, 130, 130, 2, 128, True, None),     # head dim 128
+    (1, 70, 70, 2, 16, True, None),        # head dim 16
+    (1, 70, 90, 2, 40, False, None),       # head dim padded to 64
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(card, case, dtype):
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    b, tq, tk, h, d, causal, off = case
+    q, k, v, do = _flash_inputs(b, tq, tk, h, d, dtype, seed=tq + d)
+    scale = d ** -0.5
+    counts = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                         causal_offset=off)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, scale, causal,
+                                                off or 0)
+    grads = fa.flash_attention_block_grads(q, k, v, o_ref, lse_ref, do,
+                                           causal=causal, causal_offset=off)
+    refs = fa.flash_backward_reference(q, k, v, o_ref, lse_ref, do, scale,
+                                       causal, off or 0)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + 1 for c in counts)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    rtol = fa.ROW_RTOL[dtype]
+    assert fa.max_row_rel_err(o, o_ref) <= rtol
+    # lse: f32 on both sides; masked rows hold the -1e30 sentinel
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    for got, want in zip(grads, refs):
+        assert got.shape == want.shape and got.dtype == dtype
+        assert bool(torch.isfinite(got).all())
+        assert fa.max_row_rel_err(got, want) <= rtol
+
+
+@pytest.mark.cuda
+def test_flash_autograd_runs_the_three_kernels(card):
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(2, 200, 200, 3, 64, torch.bfloat16, seed=4)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + 1 for c in counts)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o_ref, lse_ref = fa.flash_forward_reference(qd, kd, vd, 64 ** -0.5, True)
+    refs = fa.flash_backward_reference(qd, kd, vd, o_ref, lse_ref, do,
+                                       64 ** -0.5, True)
+    rtol = fa.ROW_RTOL[torch.bfloat16]
+    assert fa.max_row_rel_err(out.detach(), o_ref) <= rtol
+    for t, want in zip((q, k, v), refs):
+        assert fa.max_row_rel_err(t.grad, want) <= rtol
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_support(card):
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_inputs(1, 16, 16, 2, 12, torch.bfloat16, seed=0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_fwd_cuda(q, k, v, 0.3)
+    q, k, v, _ = _flash_inputs(1, 16, 16, 2, 64, torch.float16, seed=0)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_fwd_cuda(q, k, v, 0.3)
+    q, k, v, _ = _flash_inputs(1, 16, 16, 2, 64, torch.bfloat16, seed=0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_fwd_cuda(q, k.cpu(), v, 0.3)

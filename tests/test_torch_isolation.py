@@ -1,5 +1,5 @@
 """The port stands alone: ``bigdl_tpu_torch`` (and ``chip_smoke.py`` and
-``tools/torch_serving_profile.py``, which drive it on the card) import
+the ``tools/torch_*.py`` scripts, which drive it on the card) import
 neither ``jax`` nor anything of the JAX package ``bigdl_tpu`` — jax-free
 modules included.
 
@@ -44,9 +44,21 @@ def test_package_has_the_slice_modules():
     for m in ("bigdl_tpu_torch.utils.device", "bigdl_tpu_torch.nn.module",
               "bigdl_tpu_torch.models.transformer",
               "bigdl_tpu_torch.ops.decode_attention",
-              "bigdl_tpu_torch.serving.engine"):
+              "bigdl_tpu_torch.serving.engine",
+              "bigdl_tpu_torch.ops.flash_attention",
+              "bigdl_tpu_torch.nn.criterion",
+              "bigdl_tpu_torch.nn.criterion_more",
+              "bigdl_tpu_torch.optim.optim_method",
+              "bigdl_tpu_torch.optim.train_step",
+              "bigdl_tpu_torch.optim.trigger",
+              "bigdl_tpu_torch.optim.optimizer",
+              "bigdl_tpu_torch.dataset.sample",
+              "bigdl_tpu_torch.dataset.dataset",
+              "bigdl_tpu_torch.dataset.transformer",
+              "bigdl_tpu_torch.utils.params_tree"):
         assert m in mods
-    assert (PKG / "csrc" / "decode_attention.cu").exists()
+    for src in ("decode_attention.cu", "flash_attention.cu"):
+        assert (PKG / "csrc" / src).exists()
 
 
 def test_fresh_interpreter_imports_no_jax_and_no_jax_package():
@@ -68,7 +80,9 @@ def test_fresh_interpreter_imports_no_jax_and_no_jax_package():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "tools/torch_serving_profile.py"]))
+    + ["chip_smoke.py", "tools/torch_serving_profile.py",
+       "tools/torch_training_profile.py",
+       "tools/torch_flash_fault_check.py"]))
 def test_no_source_file_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     hits = []

@@ -8,9 +8,11 @@ import numpy as np
 import torch
 
 
-def make_pair(V=29, hidden=32, heads=4, layers=2, max_len=48, seed=9):
+def make_pair(V=29, hidden=32, heads=4, layers=2, max_len=48, seed=9,
+              **lm_kw):
     """(JAX model, port model) with identical f32 weights, both in
-    evaluate mode; the port model lives on the CPU."""
+    evaluate mode; the port model lives on the CPU. ``lm_kw`` (e.g.
+    ``output=``, ``use_flash=``) goes to both constructors."""
     from bigdl_tpu.models.transformer import TransformerLM as JaxLM
     from bigdl_tpu.utils.random_gen import RNG
     from bigdl_tpu_torch.models.transformer import (
@@ -19,12 +21,12 @@ def make_pair(V=29, hidden=32, heads=4, layers=2, max_len=48, seed=9):
 
     RNG.set_seed(seed)
     jlm = JaxLM(V, hidden_size=hidden, n_heads=heads, n_layers=layers,
-                max_len=max_len)
+                max_len=max_len, **lm_kw)
     jlm._ensure_params()
     jlm.evaluate()
     tlm = TransformerLM(V, hidden_size=hidden, n_heads=heads,
                         n_layers=layers, max_len=max_len, device="cpu",
-                        seed=seed)
+                        seed=seed, **lm_kw)
     load_jax_params(tlm, jax.device_get(jlm.params))
     tlm.evaluate()
     return jlm, tlm

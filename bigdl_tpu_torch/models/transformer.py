@@ -43,7 +43,7 @@ from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.misc import LookupTable
 from bigdl_tpu_torch.nn.module import AbstractModule, new_param
 from bigdl_tpu_torch.utils.device import resolve_device
-from bigdl_tpu_torch.utils.params_tree import named_leaves
+from bigdl_tpu_torch.utils.params_tree import load_jax_tree
 
 
 def layer_norm(x, weight, bias, eps: float):
@@ -174,12 +174,7 @@ def load_jax_params(model: AbstractModule, params_np: Dict) -> AbstractModule:
     after it carry per-instance counters and differ between two builds
     of one model. Every leaf must exist on both sides with equal shape
     (:func:`bigdl_tpu_torch.utils.params_tree.named_leaves`)."""
-    params = dict(model.named_parameters())
-    with torch.no_grad():
-        for name, arr in named_leaves(model, params_np).items():
-            p = params[name]
-            p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
-    return model
+    return load_jax_tree(model, params_np)
 
 
 # -- serving params --------------------------------------------------------

@@ -2,7 +2,11 @@
 
 Weight ``(out, in)`` and ``y = x @ W.T + b``, the JAX layout, so a JAX
 params leaf copies in unchanged. Default init is the reference's
-``RandomUniform`` (±1/sqrt(fan_in)) for weight and bias.
+``RandomUniform`` (±1/sqrt(fan_in)) for weight and bias;
+``init_weight``/``init_bias`` take an
+:class:`~bigdl_tpu_torch.nn.init_methods.InitializationMethod` (as
+``ResNet`` passes ``Xavier()``/``Zeros()``), ``weight_init``/``bias_init``
+a callable that fills the tensor.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ class Linear(AbstractModule):
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True, device=None,
                  generator: torch.Generator = None,
-                 weight_init=None, bias_init=None) -> None:
+                 weight_init=None, bias_init=None,
+                 init_weight=None, init_bias=None) -> None:
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
@@ -26,6 +31,13 @@ class Linear(AbstractModule):
 
         def uniform(t):
             t.uniform_(-bound, bound, generator=generator)
+
+        if init_weight is not None:
+            def weight_init(t):
+                init_weight.fill(t, generator)
+        if init_bias is not None:
+            def bias_init(t):
+                init_bias.fill(t, generator)
 
         self.weight = new_param((output_size, input_size), device,
                                 weight_init or uniform)

@@ -6,7 +6,9 @@ layer is an ``nn.Module`` whose learnable tensors are ``nn.Parameter``s,
 created at construction on an explicit device from an explicit
 ``torch.Generator``. What carries over from the JAX base is what the
 serving slice needs: a per-instance ``name`` (class name + a process
-counter, the key suffix containers use) and the evaluate/training mode.
+counter, the key suffix containers use), the evaluate/training mode, and
+``module.inputs(...)`` (``bigdl_tpu/nn/graph.py:38-43``), which attaches
+the module to a :class:`~bigdl_tpu_torch.nn.graph.Graph` DAG node.
 The ``forward``/``backward`` facade and the loaders come with later
 slices.
 """
@@ -32,6 +34,22 @@ class AbstractModule(nn.Module):
         """Switch to eval mode (the reference's ``evaluate()``)."""
         self.eval()
         return self
+
+    def inputs(self, *nodes):
+        """Attach this module to the graph after ``nodes`` and return its
+        :class:`~bigdl_tpu_torch.nn.graph.ModuleNode`."""
+        from bigdl_tpu_torch.nn.graph import ModuleNode
+
+        return ModuleNode(self, nodes)
+
+
+class TensorModule(AbstractModule):
+    """Marker base for modules whose input and output are one tensor."""
+
+
+class Identity(TensorModule):
+    def forward(self, x):
+        return x
 
 
 def new_param(shape, device, init) -> nn.Parameter:

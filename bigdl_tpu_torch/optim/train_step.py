@@ -7,8 +7,8 @@ forward runs through ``torch.func.functional_call`` on the given params,
 so the module's own parameters are never read or written by a step.
 
 Mixed precision is the JAX package's, not ``torch.autocast``: with
-``compute_dtype`` set, EVERY float parameter (position table and
-LayerNorm weights included) and every float input is cast to that dtype
+``compute_dtype`` set, EVERY float parameter (position table, LayerNorm
+and BatchNorm weights included) and every float input is cast to that dtype
 inside the autograd graph, the output is cast to f32 for the loss, and
 the gradients flow back through the casts to the f32 masters. Integer
 inputs (token ids) pass through untouched.
@@ -96,9 +96,13 @@ def make_train_step(model, criterion, optim_method,
     targets) -> (params, opt_state, model_state, loss)``; ``loss`` is a
     0-d f32 tensor on the card (reading it is the caller's one sync).
 
-    ``model_state`` holds the module's buffers (none in the layers ported
-    so far) and is passed through. ``loss_scale`` multiplies the loss
-    before the backward pass and divides the gradients after (fp16)."""
+    ``model_state`` holds the module's buffers (``{buffer name:
+    tensor}``, the BatchNorm running statistics) and is neither cast nor
+    differentiated, as in JAX: the forward runs on these tensors through
+    ``functional_call`` and BatchNorm updates them IN PLACE in training
+    mode, so the returned ``model_state`` is the dict passed in, holding
+    the new statistics. ``loss_scale`` multiplies the loss before the
+    backward pass and divides the gradients after (fp16)."""
     _refuse_unported(model)
     compute_dtype = resolve_dtype(compute_dtype)
 

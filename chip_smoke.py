@@ -42,11 +42,27 @@ any failure raises, so the exit code is non-zero and no result prints:
               ``Optimizer(...).optimize()`` with
               ``MaskedSoftmaxCECriterion(0)``, ``Adam(1e-4)``, bf16 compute,
               batch 8, 2 warm + 5 timed steps on one seeded batch: step ms
-              p50, tokens/s, MFU, peak memory, first and last loss.
+              p50, tokens/s, MFU, peak memory, first and last loss;
+9. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
+              kernels against their plain versions: the stage-1 block join
+              (M 802,816, C 256, K 64, residual, y and extra dy, bf16), the
+              stage-4 bn2 edge (M 12,544, C 512, K 2048, bf16) and an f32
+              case with ragged M, C and K; per-row errors and channel-sum
+              errors against the stated tolerances, kernel, plain, bare
+              cuBLAS product and unfused-torch times, and the bound;
+10. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
+              on the kernels) on the card against the CPU: losses,
+              parameters and BN running statistics;
+11. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
+              momentum 0.9 / weight decay 1e-4, ``maybe_fuse`` with
+              ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
+              timed steps: step ms p50, images/s, peak memory, losses; then
+              the unfused ``Graph`` on the same recipe.
 
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; each of its kernels must have launched (decode attention once
-per layer per decode step, each flash kernel once per layer per step).
+per layer per decode step, each flash kernel once per layer per step, each
+fused-conv kernel exactly 28 times per ResNet-50 step).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``.
@@ -399,6 +415,359 @@ FLASH_REPLACES = {"fwd": "bigdl_tpu/ops/flash_attention.py:52",
                   "dkv": "bigdl_tpu/ops/flash_attention.py:213"}
 
 
+# (case, M, C, K, dtype, residual, want_y and extra dy): the stage-1 block
+# join (batch 256 at 56x56), the stage-4 bn2 -> conv3 edge (batch 256 at
+# 7x7), and an f32 case with ragged M and C, K that are not tile multiples
+FUSED_CASES = [("stage1_join", 256 * 56 * 56, 256, 64, "bf16", True, True),
+               ("stage4_bn2", 256 * 7 * 7, 512, 2048, "bf16", False, False),
+               ("f32_ragged", 3001, 100, 72, "f32", True, True)]
+FUSED_REPLACES = {"fwd": "bigdl_tpu/ops/fused_conv.py:141",
+                  "dgrad": "bigdl_tpu/ops/fused_conv.py:281",
+                  "wgrad": "bigdl_tpu/ops/fused_conv.py:405"}
+
+
+def fused_inputs(m, c, k, dtype, seed):
+    """Seeded rows on the card: pre-BN x with its batch statistics folded
+    into scale/shift, a residual, W, dz and an extra dy."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*s, scale=1.0):
+        return torch.randn(*s, device="cuda", generator=g) * scale
+
+    x = rand(m, c, scale=2.0) + 0.5
+    mean, var = x.mean(0), x.var(0, correction=0)
+    inv_std = torch.rsqrt(var + 1e-5)
+    scale = (rand(c, scale=0.5) + 1.0) * inv_std
+    shift = rand(c, scale=0.3) - mean * scale
+    return dict(x=x.to(dtype), r=rand(m, c).to(dtype),
+                w=(rand(c, k) / c ** 0.5).to(dtype), dz=rand(m, k).to(dtype),
+                dy=rand(m, c).to(dtype), scale=scale, shift=shift, mean=mean,
+                inv_std=inv_std)
+
+
+def fused_work(m, c, k, es, res, extra):
+    """(FLOPs, bytes) per kernel: 2·M·C·K for each product, each operand
+    read once and each output written once (f32 vectors included)."""
+    act, out = m * c * es, m * k * es
+    w, vec = c * k * es, c * 4
+    r = act if res else 0
+    flops = 2.0 * m * c * k
+    return {"fwd": (flops, act + r + w + out + (act if extra else 0)
+                    + 2 * vec + 2 * k * 4),
+            "dgrad": (flops, out + w + act + r + (act if extra else 0)
+                      + act + 4 * vec + 2 * c * 4),
+            "wgrad": (flops, act + r + out + w + 2 * vec)}
+
+
+def fused_conv_phase():
+    """The forward, dgrad and wgrad kernels against their plain versions at
+    the main path's shapes and a ragged f32 case, each timed beside its
+    plain version, bare product and unfused sequence; returns their
+    summary entries (times at the stage-1 join)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    entries = {}
+    for i, (case, m, c, k, dt, res, extra) in enumerate(FUSED_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        d = fused_inputs(m, c, k, dtype, seed=200 + i)
+        r = d["r"] if res else None
+        g = d["dy"] if extra else None
+        calls = {
+            "fwd": (lambda: fc.fused_fwd_cuda(d["x"], d["scale"], d["shift"],
+                                              d["w"], r, extra),
+                    lambda: fc.fused_fwd_reference(d["x"], d["scale"],
+                                                   d["shift"], d["w"], r,
+                                                   extra)),
+            "dgrad": (lambda: fc.fused_dgrad_cuda(
+                d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
+                d["inv_std"], r, g),
+                lambda: fc.fused_dgrad_reference(
+                d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
+                d["inv_std"], r, g)),
+            "wgrad": (lambda: fc.fused_wgrad_cuda(d["x"], d["scale"],
+                                                  d["shift"], d["dz"], r,
+                                                  out_dtype=dtype),
+                      lambda: fc.fused_wgrad_reference(d["x"], d["scale"],
+                                                       d["shift"], d["dz"], r,
+                                                       out_dtype=dtype))}
+        # the bare cuBLAS product of each kernel (the library yardstick) and
+        # the unfused PyTorch sequence in the data dtype, both on the same
+        # inputs; y is made outside the timing
+        y = torch.relu(d["x"] * d["scale"].to(dtype) + d["shift"].to(dtype)
+                       + (r if res else 0))
+        sc, sh = d["scale"].to(dtype), d["shift"].to(dtype)
+
+        def unfused_fwd():
+            yy = torch.relu(d["x"] * sc + sh + (r if res else 0))
+            z = (yy @ d["w"]).float()
+            return z.sum(0), (z * z).sum(0)
+
+        def unfused_dgrad():
+            dy = d["dz"] @ d["w"].t() + (g if extra else 0)
+            p = d["x"] * sc + sh + (r if res else 0)
+            dp = torch.where(p > 0, dy, 0)
+            xhat = (d["x"] - d["mean"].to(dtype)) * d["inv_std"].to(dtype)
+            return dp.float().sum(0), (dp * xhat).float().sum(0)
+
+        def unfused_wgrad():
+            yy = torch.relu(d["x"] * sc + sh + (r if res else 0))
+            return yy.t() @ d["dz"]
+
+        lib = {"fwd": (lambda: y @ d["w"], "torch.matmul y @ W (cuBLAS)"),
+               "dgrad": (lambda: d["dz"] @ d["w"].t(),
+                         "torch.matmul dz @ W^T (cuBLAS)"),
+               "wgrad": (lambda: y.t() @ d["dz"],
+                         "torch.matmul y^T @ dz (cuBLAS)")}
+        unfused = {"fwd": unfused_fwd, "dgrad": unfused_dgrad,
+                   "wgrad": unfused_wgrad}
+        rtol = fc.ROW_RTOL[dtype]
+        work = fused_work(m, c, k, 2 if dt == "bf16" else 4, res, extra)
+        for name, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            # outputs held row by row; the f32 channel sums (zstats, q) by
+            # their rows too, at 1e-4
+            errs, sums = [], []
+            for j, (a, b) in enumerate(zip(got, want)):
+                is_sum = name != "wgrad" and j == 1
+                (sums if is_sum else errs).append(fc.max_row_rel_err(a, b))
+            abs_err = max(float((a.float() - b.float()).abs().max())
+                          for j, (a, b) in enumerate(zip(got, want))
+                          if name == "wgrad" or j != 1)
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            row_err, sum_err = max(errs), max(sums, default=0.0)
+            emit("fused_conv", kernel=f"fused_{name}", case=case,
+                 shape=[m, c, k], dtype=dt, residual=res, want_y_extra=extra,
+                 max_abs_err=abs_err, max_row_rel_err=row_err, rtol=rtol,
+                 max_sum_rel_err=sum_err, sum_rtol=1e-4, finite=finite,
+                 why=("per row, relative to the row's largest |plain|: one "
+                      "rounding of bf16 outputs whose f32 sums run in "
+                      "another order; f32: the order alone"))
+            if not finite or row_err > rtol or sum_err > 1e-4:
+                raise AssertionError(
+                    f"fused {name} {case}: row err {row_err} > {rtol} or "
+                    f"sum err {sum_err} > 1e-4")
+            del got, want
+            ms = time_ms(kern, flush=flush)
+            plain_ms = time_ms(plain, reps=5, flush=flush)
+            library_ms = time_ms(lib[name][0], flush=flush)
+            unfused_ms = time_ms(unfused[name], flush=flush)
+            flops, n_bytes = work[name]
+            peak = BF16_FLOPS if dt == "bf16" else F32_FLOPS
+            t_ops, t_bytes = flops / peak, n_bytes / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            emit("fused_conv", kernel=f"fused_{name}", case=case, ms=ms,
+                 plain_ms=plain_ms, library_ms=library_ms,
+                 library=lib[name][1], unfused_torch_ms=unfused_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                 bytes=n_bytes, roofline_share=bound_ms / ms)
+            if case == "stage1_join":
+                entries[name] = {
+                    "name": f"fused_conv_{name}", "route": "cuda",
+                    "source": "bigdl_tpu_torch/csrc/fused_conv.cu",
+                    "replaces": FUSED_REPLACES[name], "launches": None,
+                    "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms,
+                    "max_row_rel_err": row_err}
+        del d, y
+        torch.cuda.empty_cache()
+    return entries
+
+
+def tiny_bottleneck(device, planes=8, seed=0):
+    """A twin of tests/test_tpu_fusion.py::tiny_bottleneck: a conv-BN-ReLU
+    stem, two bottleneck blocks (the second strided, projection
+    shortcuts), global average pooling and a Linear head."""
+    import torch
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.models.resnet import _Builder
+
+    b = _Builder(device, torch.Generator(device=device).manual_seed(seed))
+    inp = tnn.Input()
+    x = b.conv(3, 2 * planes, 3, 1, 1).inputs(inp)
+    x = tnn.ReLU(True).inputs(b.bn(2 * planes).inputs(x))
+    n_in = 2 * planes
+    x, n_in = b.residual(x, n_in, planes, 1, b.bottleneck_block, "B", True)
+    x, n_in = b.residual(x, n_in, 2 * planes, 2, b.bottleneck_block, "B",
+                         True)
+    x = tnn.SpatialAveragePooling(4, 4, 1, 1).inputs(x)
+    x = tnn.Reshape([n_in], batch_mode=True).inputs(x)
+    return tnn.Graph(inp, b.linear(n_in, 10).inputs(x))
+
+
+def resnet_check_phase():
+    """The fused bottleneck graph's three f32 SGD train steps (momentum
+    0.9, weight decay 1e-4) on the card, every edge on the kernels
+    (threshold 8), against the same steps on the CPU (plain versions).
+    Tolerances: losses 1e-5 relative; parameters and BN running statistics
+    5e-5 absolute (f32 on both sides, sums and cuDNN's convolutions in
+    other orders; the CPU parity tests hold the port to JAX at 1e-5 on
+    the same recipe)."""
+    import os
+
+    import torch
+
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.tpu_fusion import FusedGraph
+    from bigdl_tpu_torch.ops import fused_conv as fc
+    from bigdl_tpu_torch.optim.optim_method import SGD
+    from bigdl_tpu_torch.optim.train_step import make_train_step
+
+    saved = os.environ.get("BIGDL_PALLAS_MIN_C")
+    os.environ["BIGDL_PALLAS_MIN_C"] = "8"
+    rng = np.random.default_rng(7)
+    batches = [(rng.standard_normal((4, 3, 8, 8)).astype(np.float32),
+                rng.integers(1, 11, size=4).astype(np.int32))
+               for _ in range(3)]
+    results = []
+    fc.fwd_launches = fc.dgrad_launches = fc.wgrad_launches = 0
+    try:
+        for dev in ("cpu", "cuda"):
+            model = FusedGraph(tiny_bottleneck("cpu")).to(dev)
+            with torch.no_grad():      # non-zero gammas: every block passes
+                for p in model.parameters():
+                    if p.dim() == 1:
+                        p.add_(0.3)
+            sgd = SGD(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
+            step = make_train_step(model, CrossEntropyCriterion(), sgd)
+            params = {k: p.detach().clone()
+                      for k, p in model.named_parameters()}
+            state = {k: b.detach().clone() for k, b in model.named_buffers()}
+            opt = sgd.init_state(params)
+            model.train()
+            losses = []
+            for x, y in batches:
+                params, opt, state, loss = step(
+                    params, opt, state, None, torch.from_numpy(x).to(dev),
+                    torch.from_numpy(y).to(dev))
+                losses.append(float(loss))
+            results.append((losses, [p.cpu() for p in params.values()],
+                            [b.cpu() for b in state.values()]))
+    finally:
+        if saved is None:
+            os.environ.pop("BIGDL_PALLAS_MIN_C")
+        else:
+            os.environ["BIGDL_PALLAS_MIN_C"] = saved
+    (l_cpu, p_cpu, s_cpu), (l_gpu, p_gpu, s_gpu) = results
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))
+    stat_err = max(float((a - b).abs().max()) for a, b in zip(s_gpu, s_cpu))
+    launches = [fc.fwd_launches, fc.dgrad_launches, fc.wgrad_launches]
+    emit("resnet_check", what="3 f32 SGD steps, fused bottleneck graph "
+         "(4 kernel edges), card vs CPU", losses_cpu=l_cpu, losses_card=l_gpu,
+         loss_rel_err=loss_err, param_max_abs_err=param_err,
+         bn_stat_max_abs_err=stat_err, tol_loss=1e-5, tol_param=5e-5,
+         tol_stat=5e-5, card_fused_launches=launches)
+    if not (loss_err <= 1e-5 and param_err <= 5e-5 and stat_err <= 5e-5):
+        raise AssertionError(f"card vs CPU resnet steps: loss {loss_err}, "
+                             f"params {param_err}, stats {stat_err}")
+    if launches != [12, 12, 12]:           # 4 edges x 3 steps, card only
+        raise AssertionError(f"fused launches {launches}, expected 12 each")
+
+
+def resnet_run(fuse: bool, warm: int, timed: int, batch: int = 256):
+    """ResNet-50 trained through ``optimize()`` on one seeded batch (bf16
+    compute, SGD 0.1 / momentum 0.9 / weight decay 1e-4, the recipe of
+    bench.py:33-67); returns (losses, step seconds, peak GiB, wall s)."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.tpu_fusion import maybe_fuse
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    model = ResNet(1000, {"depth": 50, "shortcutType": "B"}, seed=0)
+    if fuse:
+        model = maybe_fuse(model)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((batch, 3, 224, 224), dtype=np.float32)
+    y = rng.integers(1, 1001, size=batch).astype(np.int32)
+    samples = [Sample(x[i], y[i]) for i in range(batch)]
+    steps = warm + timed
+    losses = []
+
+    def record_then_stop(state):       # the trigger reads every step's loss
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        return state["neval"] > steps
+
+    opt = Optimizer(model, samples, CrossEntropyCriterion(), batch_size=batch,
+                    end_trigger=Trigger(record_then_stop,
+                                        Trigger.max_iteration(steps).peek))
+    opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9,
+                             weight_decay=1e-4)).set_compute_dtype("bf16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_s = opt.metrics.values("computing time")[warm:]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del opt, model, samples
+    torch.cuda.empty_cache()
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise AssertionError(f"resnet losses {losses}")
+    return losses, step_s, peak, wall
+
+
+def resnet_train_phase(warm: int = 2, timed: int = 5, batch: int = 256):
+    """The ResNet-50 training path at full size, fused with
+    BIGDL_PALLAS_MIN_C=128; returns the fused kernels' launch counts over
+    its ``optimize()`` run. The unfused Graph runs the same recipe after
+    it, for comparison."""
+    import os
+
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    saved = os.environ.get("BIGDL_PALLAS_MIN_C")
+    os.environ["BIGDL_PALLAS_MIN_C"] = "128"
+    try:
+        fc.fwd_launches = fc.dgrad_launches = fc.wgrad_launches = 0
+        losses, step_s, peak, wall = resnet_run(True, warm, timed, batch)
+        launches = {"fwd": fc.fwd_launches, "dgrad": fc.dgrad_launches,
+                    "wgrad": fc.wgrad_launches}
+    finally:
+        if saved is None:
+            os.environ.pop("BIGDL_PALLAS_MIN_C")
+        else:
+            os.environ["BIGDL_PALLAS_MIN_C"] = saved
+    steps = warm + timed
+    for name, n in launches.items():
+        if n != 28 * steps:
+            raise AssertionError(f"fused {name} launched {n} times, expected "
+                                 f"28 edges x {steps} steps")
+    p50 = float(np.median(step_s))
+    u_losses, u_step_s, u_peak, _ = resnet_run(False, warm, timed, batch)
+    u_p50 = float(np.median(u_step_s))
+    emit("resnet_train", model="ResNet-50", batch=batch, image=224,
+         compute="bf16", optim="SGD(0.1, momentum 0.9, weight decay 1e-4)",
+         fused="maybe_fuse, BIGDL_PALLAS_MIN_C=128", steps=steps,
+         timed_steps=timed, step_ms=[s * 1e3 for s in step_s], wall_s=wall,
+         fused_launches=launches, peak_mem_gib=peak, losses=losses,
+         loss_fell=bool(losses[-1] < losses[0]),
+         unfused_step_ms=[s * 1e3 for s in u_step_s],
+         unfused_peak_mem_gib=u_peak, unfused_losses=u_losses)
+    print(json.dumps({"resnet50_step_ms_p50": p50 * 1e3,
+                      "images_per_s": batch / p50, "peak_mem_gib": peak,
+                      "first_loss": losses[0], "last_loss": losses[-1],
+                      "unfused_step_ms_p50": u_p50 * 1e3,
+                      "unfused_images_per_s": batch / u_p50,
+                      "unfused_peak_mem_gib": u_peak}))
+    return launches
+
+
 def kv_merge_phase():
     """Per-layer cost, at the pool's shape, of the decode step's int8 grow
     check (host read of the flag, no growth) vs the unconditional merge."""
@@ -698,8 +1067,13 @@ def main() -> int:
         raise AssertionError("decode_attention never launched on the main path")
     for name, n in train_phase().items():
         flash[name]["launches"] = n
-    print(json.dumps({"kernels": [entry] + [flash[n] for n in
-                                            ("fwd", "dq", "dkv")]}))
+    fused = fused_conv_phase()
+    resnet_check_phase()
+    for name, n in resnet_train_phase().items():
+        fused[name]["launches"] = n
+    print(json.dumps({"kernels": [entry]
+                      + [flash[n] for n in ("fwd", "dq", "dkv")]
+                      + [fused[n] for n in ("fwd", "dgrad", "wgrad")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -190,3 +190,121 @@ def test_flash_kernels_refuse_what_they_do_not_support(card):
     q, k, v, _ = _flash_inputs(1, 16, 16, 2, 64, torch.bfloat16, seed=0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_fwd_cuda(q, k.cpu(), v, 0.3)
+
+
+# Fused BN -> ReLU -> 1x1 conv (bigdl_tpu_torch/ops/fused_conv.py). Each
+# output row (z, y, dp: a row over channels; dW: an input channel's row)
+# against the same row of the plain version, relative to its largest
+# magnitude (fused_conv.ROW_RTOL: 1e-5 f32, 1e-2 bf16 — one bf16 rounding
+# of outputs whose f32 sums differ in order); the f32 channel sums (zstats,
+# q) within 1e-4 of each sum row's largest magnitude.
+FUSED_CASES = [
+    # (M, C, K, residual, want_y / extra dy)
+    (4096, 256, 64, True, True),       # the stage-1 join shape, smaller M
+    (1000, 128, 256, False, False),    # ragged M
+    (777, 100, 72, True, True),        # C, K not tile (or 8) multiples
+]
+
+
+def _fused_inputs(m, c, k, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*s, scale=1.0):
+        return torch.randn(*s, device="cuda", generator=g) * scale
+
+    x = rand(m, c, scale=2.0) + 0.5
+    mean, var = x.mean(0), x.var(0, correction=0)
+    inv_std = torch.rsqrt(var + 1e-5)
+    gamma, beta = rand(c, scale=0.5) + 1.0, rand(c, scale=0.3)
+    scale = gamma * inv_std
+    shift = beta - mean * scale
+    return dict(x=x.to(dtype), r=rand(m, c).to(dtype),
+                w=(rand(c, k) / c ** 0.5).to(dtype), dz=rand(m, k).to(dtype),
+                dy=rand(m, c).to(dtype), scale=scale, shift=shift, mean=mean,
+                inv_std=inv_std)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_conv_kernels_match_plain_versions(card, case, dtype):
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    m, c, k, res, extra = case
+    d = _fused_inputs(m, c, k, dtype, seed=m + c)
+    r = d["r"] if res else None
+    g = d["dy"] if extra else None
+    counts = (fc.fwd_launches, fc.dgrad_launches, fc.wgrad_launches)
+    got = fc.fused_fwd_cuda(d["x"], d["scale"], d["shift"], d["w"], r, extra)
+    want = fc.fused_fwd_reference(d["x"], d["scale"], d["shift"], d["w"], r,
+                                  extra)
+    dp, q = fc.fused_dgrad_cuda(d["dz"], d["w"], d["x"], d["scale"],
+                                d["shift"], d["mean"], d["inv_std"], r, g)
+    dp_ref, q_ref = fc.fused_dgrad_reference(
+        d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
+        d["inv_std"], r, g)
+    dw = fc.fused_wgrad_cuda(d["x"], d["scale"], d["shift"], d["dz"], r,
+                             out_dtype=dtype)
+    dw_ref = fc.fused_wgrad_reference(d["x"], d["scale"], d["shift"],
+                                      d["dz"], r, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert (fc.fwd_launches, fc.dgrad_launches, fc.wgrad_launches) == tuple(
+        n + 1 for n in counts)
+    rtol = fc.ROW_RTOL[dtype]
+    pairs = [(got[0], want[0]), (dp, dp_ref), (dw, dw_ref)]
+    if extra:
+        pairs.append((got[2], want[2]))
+    for a, b in pairs:
+        assert a.dtype == dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert fc.max_row_rel_err(a, b) <= rtol
+    assert fc.max_row_rel_err(got[1], want[1]) <= 1e-4
+    assert fc.max_row_rel_err(q, q_ref) <= 1e-4
+    # the two-stage sums are deterministic: a second run is bitwise equal
+    again = fc.fused_fwd_cuda(d["x"], d["scale"], d["shift"], d["w"], r,
+                              extra)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert torch.equal(fc.fused_wgrad_cuda(d["x"], d["scale"], d["shift"],
+                                           d["dz"], r, out_dtype=dtype), dw)
+
+
+@pytest.mark.cuda
+def test_bn_relu_conv1x1_autograd_runs_the_three_kernels(card):
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    d = _fused_inputs(2048, 128, 64, torch.float32, seed=3)
+    x = d["x"].requires_grad_()
+    gamma = torch.ones(128, device="cuda", requires_grad=True)
+    beta = torch.zeros(128, device="cuda", requires_grad=True)
+    w = d["w"].requires_grad_()
+    mean, var = d["x"].detach().mean(0), d["x"].detach().var(0, correction=0)
+    counts = (fc.fwd_launches, fc.dgrad_launches, fc.wgrad_launches)
+    z, zstats = fc.bn_relu_conv1x1(x, gamma, beta, mean, var, w)
+    grads = torch.autograd.grad(z, (x, gamma, beta, w), d["dz"])
+    torch.cuda.synchronize()
+    assert (fc.fwd_launches, fc.dgrad_launches, fc.wgrad_launches) == tuple(
+        n + 1 for n in counts)
+    assert not zstats.requires_grad
+    cpu = [t.detach().cpu().requires_grad_() for t in (x, gamma, beta, w)]
+    zc, _ = fc.bn_relu_conv1x1(cpu[0], cpu[1], cpu[2], mean.cpu(), var.cpu(),
+                               cpu[3])
+    want = torch.autograd.grad(zc, cpu, d["dz"].cpu())
+    assert fc.max_row_rel_err(z.cpu(), zc) <= 1e-5
+    for a, b in zip(grads, want):
+        assert fc.max_row_rel_err(a.cpu().reshape(-1, a.shape[-1]),
+                                  b.reshape(-1, b.shape[-1])) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fused_conv_kernels_refuse_rather_than_fall_back(card):
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    d = _fused_inputs(64, 16, 8, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="one dtype"):
+        fc.fused_fwd_cuda(d["x"], d["scale"], d["shift"],
+                          d["w"].to(torch.bfloat16))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fc.fused_fwd_cuda(d["x"].half(), d["scale"], d["shift"],
+                          d["w"].half())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fc.fused_wgrad_cuda(d["x"], d["scale"], d["shift"], d["dz"].cpu())

@@ -55,9 +55,15 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.dataset.sample",
               "bigdl_tpu_torch.dataset.dataset",
               "bigdl_tpu_torch.dataset.transformer",
-              "bigdl_tpu_torch.utils.params_tree"):
+              "bigdl_tpu_torch.utils.params_tree",
+              "bigdl_tpu_torch.nn.init_methods", "bigdl_tpu_torch.nn.conv",
+              "bigdl_tpu_torch.nn.normalization",
+              "bigdl_tpu_torch.nn.pooling", "bigdl_tpu_torch.nn.shape_ops",
+              "bigdl_tpu_torch.nn.graph", "bigdl_tpu_torch.nn.tpu_fusion",
+              "bigdl_tpu_torch.models.resnet",
+              "bigdl_tpu_torch.ops.fused_conv"):
         assert m in mods
-    for src in ("decode_attention.cu", "flash_attention.cu"):
+    for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu"):
         assert (PKG / "csrc" / src).exists()
 
 
@@ -82,7 +88,7 @@ def test_fresh_interpreter_imports_no_jax_and_no_jax_package():
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "tools/torch_serving_profile.py",
        "tools/torch_training_profile.py",
-       "tools/torch_flash_fault_check.py"]))
+       "tools/torch_flash_fault_check.py", "tools/torch_resnet_profile.py"]))
 def test_no_source_file_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     hits = []

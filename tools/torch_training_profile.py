@@ -99,7 +99,7 @@ def _timed(run, warm: int, n: int):
     return out
 
 
-def _window(prof, wall, steps):
+def _window(prof, wall, steps, group=_group):
     import torch
 
     events = [e for e in prof.events()
@@ -121,7 +121,7 @@ def _window(prof, wall, steps):
         us = e.time_range.elapsed_us()
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + us, n + 1)
-        g = _group(e.name)
+        g = group(e.name)
         by_group[g] = by_group.get(g, 0.0) + us
     total = sum(by_group.values()) or 1.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` holds a plain C entry point (no PyTorch
 headers), so ``nvcc`` builds it into a shared library in seconds and
 the wrapper binds it with ``ctypes``. Libraries land in
 ``bigdl_tpu_torch/_build/`` (git-ignored) under a name that carries the
-source's content hash, so an edited source rebuilds and a stale library
-is never loaded. Builds happen at first use; :func:`build_all` starts
-one ``nvcc`` per source at once.
+content hash of the source and of the shared ``csrc/*.cuh`` headers, so
+an edited source or header rebuilds and a stale library is never loaded.
+Builds happen at first use; :func:`build_all` starts one ``nvcc`` per
+source at once.
 """
 
 from __future__ import annotations
@@ -44,10 +45,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source, every shared
+    header of ``csrc/`` and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as src:
+            h.update(src.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str) -> Optional[Tuple[subprocess.Popen, str, str]]:

@@ -57,12 +57,21 @@ any failure raises, so the exit code is non-zero and no result prints:
               momentum 0.9 / weight decay 1e-4, ``maybe_fuse`` with
               ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
               timed steps: step ms p50, images/s, peak memory, losses; then
-              the unfused ``Graph`` on the same recipe.
+              the unfused ``Graph`` on the same recipe;
+12. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+              ``main()``, the one path of its TPU kernel: the 3x3 stride-1
+              conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
+              64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
+              each output pixel against the plain version and the first two
+              images against F.conv2d in f32; the four shapes timed (kernel
+              alone, pad + kernel, plain) beside cuDNN's F.conv2d, with
+              TFLOP/s and the bound.
 
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; each of its kernels must have launched (decode attention once
 per layer per decode step, each flash kernel once per layer per step, each
-fused-conv kernel exactly 28 times per ResNet-50 step).
+fused-conv kernel exactly 28 times per ResNet-50 step, the conv3x3 kernel
+once per checked case and 33 times per timed shape).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``.
@@ -583,6 +592,131 @@ def fused_conv_phase():
     return entries
 
 
+# (case, N, H, W, C, K, dtype): ResNet-50's four 3x3 conv shapes at batch
+# 256 (the experiment's SHAPES, benchmarks/pallas_conv3x3_experiment.py:112-
+# 117, C = K, bf16), a ragged f32 case and a one-pixel f32 case
+CONV3X3_CASES = [("s1 56² 64", 256, 56, 56, 64, 64, "bf16"),
+                 ("s2 28² 128", 256, 28, 28, 128, 128, "bf16"),
+                 ("s3 14² 256", 256, 14, 14, 256, 256, "bf16"),
+                 ("s4 7² 512", 256, 7, 7, 512, 512, "bf16"),
+                 ("f32_ragged", 3, 13, 11, 40, 72, "f32"),
+                 ("f32_tiny", 1, 1, 1, 3, 5, "f32")]
+# the first two images against F.conv2d in f32 with TF32 off (the
+# experiment's check, :141-148): a bf16 output is one bf16 rounding from the
+# f32 result; an f32 output differs by sum order and by the algorithm cuDNN
+# picks (a Winograd or FFT transform rounds in other places)
+CONV3X3_LIB_RTOL = {"bf16": 1e-2, "f32": 1e-4}
+CONV3X3_TIMED_CALLS = 3 + 30      # time_ms: 3 warm-up calls + 30 timed
+
+
+def conv3x3_phase():
+    """The twin of the experiment's ``main()``: can the hand-written 3x3
+    conv keep up with the library conv at ResNet-50's four 3x3 shapes?
+    Each case is held to the plain version row by row and to F.conv2d;
+    the ResNet shapes are then timed: the kernel alone on a padded input,
+    the entry point (pad + kernel), the plain version and cuDNN
+    (F.conv2d on the channels-last bf16 tensor with the OIHW weight). The
+    launch count over the phase is asserted; returns the kernel's summary
+    entry (times at s1 56²)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    lib_c = cv._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    cv.launches = 0
+    expected = 0
+    entry = None
+    for i, (case, n, h, w, c, k, dt) in enumerate(CONV3X3_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        x = torch.randn(n, h, w, c, device="cuda", generator=g).to(dtype)
+        w9 = (torch.randn(9, c, k, device="cuda", generator=g) * 0.05
+              ).to(dtype)
+        got = cv.conv3x3(x, w9)
+        expected += 1
+        want = cv.conv3x3_reference(x, w9)
+        lib_ref = F.conv2d(x[:2].float().permute(0, 3, 1, 2),
+                           cv.oihw_from_w9(w9).float(), padding=1
+                           ).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        rtol, lib_rtol = cv.ROW_RTOL[dtype], CONV3X3_LIB_RTOL[dt]
+        row_err = cv.max_row_rel_err(got, want)
+        lib_err = cv.max_row_rel_err(got[:2], lib_ref)
+        abs_err = float((got.float() - want.float()).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        emit("conv3x3", case=case, shape=[n, h, w, c, k], dtype=dt,
+             max_abs_err=abs_err, max_row_rel_err=row_err, rtol=rtol,
+             conv2d_f32_row_rel_err=lib_err, conv2d_rtol=lib_rtol,
+             finite=finite,
+             why=("per output pixel, relative to its largest |plain|: bf16 "
+                  "outputs round once from f32 sums taken in another order; "
+                  "f32: the order alone"))
+        if not finite or row_err > rtol or lib_err > lib_rtol:
+            raise AssertionError(
+                f"conv3x3 {case}: row err {row_err} > {rtol} or conv2d err "
+                f"{lib_err} > {lib_rtol}")
+        del got, want, lib_ref
+        if dt != "bf16":
+            continue
+        xp = cv.pad_rows(x)
+        out = torch.empty(n, h, w, k, dtype=dtype, device="cuda")
+        ms = time_ms(lambda: launched(lib_c.bigdl_conv3x3(
+            xp.data_ptr(), w9.data_ptr(), out.data_ptr(), n, h, w, c, k, 1,
+            stream)), flush=flush)
+        entry_ms = time_ms(lambda: cv.conv3x3(x, w9), flush=flush)
+        expected += CONV3X3_TIMED_CALLS
+        plain_ms = time_ms(lambda: cv.conv3x3_reference(x, w9), reps=5,
+                           flush=flush)
+        # the library: one cuDNN call on the same bf16 values, x as its
+        # channels-last NCHW view, the OIHW weight channels-last too
+        xl = x.permute(0, 3, 1, 2)
+        wl = cv.oihw_from_w9(w9).contiguous(memory_format=torch.channels_last)
+        library_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1),
+                             flush=flush)
+        lib_out = F.conv2d(xl, wl, padding=1).permute(0, 2, 3, 1)
+        lib_vs_plain = cv.max_row_rel_err(lib_out, cv.conv3x3_reference(x, w9))
+        del xp, out, lib_out
+        flops = 2.0 * n * h * w * c * k * 9
+        n_bytes = (x.numel() + w9.numel() + n * h * w * k) * 2
+        t_ops, t_bytes = flops / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        emit("conv3x3", case=case, ms=ms, entry_ms=entry_ms,
+             plain_ms=plain_ms, library_ms=library_ms,
+             library="F.conv2d (cuDNN), channels-last bf16, OIHW weight",
+             library_row_rel_err_vs_plain=lib_vs_plain,
+             ratio_library_over_kernel=library_ms / ms,
+             ratio_library_over_entry=library_ms / entry_ms,
+             tflops_per_s=flops / ms / 1e9,
+             library_tflops_per_s=flops / library_ms / 1e9, flops=flops,
+             bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
+             roofline_share=bound_ms / ms)
+        if entry is None:
+            entry = {"name": "conv3x3", "route": "cuda",
+                     "source": "bigdl_tpu_torch/csrc/conv3x3.cu",
+                     "replaces": "benchmarks/pallas_conv3x3_experiment.py:49",
+                     "launches": None, "max_abs_err": abs_err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "entry_ms": entry_ms, "max_row_rel_err": row_err,
+                     "path": ("chip_smoke.py conv3x3 phase, the twin of the "
+                              "experiment's main() (on no package path): "
+                              "one checked call per case, 33 timed entry "
+                              "calls per ResNet-50 shape; ms is the kernel "
+                              "alone on a padded input, entry_ms pad + "
+                              "kernel, both at s1 56² 64")}
+        del x, w9, xl, wl
+        torch.cuda.empty_cache()
+    if cv.launches != expected:
+        raise AssertionError(f"conv3x3 launched {cv.launches} times, "
+                             f"expected {expected}")
+    entry["launches"] = cv.launches
+    return entry
+
+
 def tiny_bottleneck(device, planes=8, seed=0):
     """A twin of tests/test_tpu_fusion.py::tiny_bottleneck: a conv-BN-ReLU
     stem, two bottleneck blocks (the second strided, projection
@@ -1071,9 +1205,11 @@ def main() -> int:
     resnet_check_phase()
     for name, n in resnet_train_phase().items():
         fused[name]["launches"] = n
+    conv = conv3x3_phase()
     print(json.dumps({"kernels": [entry]
                       + [flash[n] for n in ("fwd", "dq", "dkv")]
-                      + [fused[n] for n in ("fwd", "dgrad", "wgrad")]}))
+                      + [fused[n] for n in ("fwd", "dgrad", "wgrad")]
+                      + [conv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

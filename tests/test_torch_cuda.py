@@ -308,3 +308,65 @@ def test_fused_conv_kernels_refuse_rather_than_fall_back(card):
                           d["w"].half())
     with pytest.raises(ValueError, match="CUDA tensor"):
         fc.fused_wgrad_cuda(d["x"], d["scale"], d["shift"], d["dz"].cpu())
+
+
+# 3x3 stride-1 conv (bigdl_tpu_torch/ops/conv3x3.py): each output pixel's K
+# channels against the same pixel of the plain version, relative to its
+# largest magnitude (conv3x3.ROW_RTOL: 1e-5 f32 — the same products summed
+# in another order; 1e-2 bf16 — one bf16 rounding of the outputs).
+CONV3X3_CASES = [
+    # (N, H, W, C, K)
+    (3, 13, 11, 40, 72),     # ragged: C and K not tile multiples
+    (1, 1, 1, 3, 5),         # one pixel; C and K below 8 (scalar loads)
+    (2, 7, 7, 64, 64),       # ResNet-50 stage 4 image: 2 of 9 columns dropped
+    (2, 20, 9, 32, 130),     # several row tiles per image, K past two tiles
+]
+
+
+def _conv3x3_inputs(n, h, w, c, k, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, h, w, c, device="cuda", generator=g).to(dtype)
+    w9 = (torch.randn(9, c, k, device="cuda", generator=g) * 0.05).to(dtype)
+    return x, w9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CONV3X3_CASES)
+def test_conv3x3_kernel_matches_plain_version(card, case, dtype):
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+
+    x, w9 = _conv3x3_inputs(*case, dtype, seed=sum(case))
+    before = cv.launches
+    got = cv.conv3x3(x, w9)
+    want = cv.conv3x3_reference(x, w9)
+    torch.cuda.synchronize()
+    assert cv.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert cv.max_row_rel_err(got, want) <= cv.ROW_RTOL[dtype]
+    # no atomics: a second launch is bitwise equal
+    again = cv.conv3x3(x, w9)
+    torch.cuda.synchronize()
+    assert cv.launches == before + 2
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_takes_views_and_refuses_rather_than_falls_back(card):
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+
+    x, w9 = _conv3x3_inputs(3, 6, 5, 16, 24, torch.float32, seed=0)
+    # a contiguous image slice and weights at an unaligned storage offset
+    buf = torch.cat([torch.zeros(1, device="cuda"), w9.reshape(-1)])
+    w9_off = buf[1:].view(9, 16, 24)
+    got = cv.conv3x3(x[1:], w9_off)
+    assert cv.max_row_rel_err(got, cv.conv3x3_reference(x[1:], w9)) <= 1e-5
+    with pytest.raises(ValueError, match="both"):
+        cv.conv3x3(x, w9.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="both"):
+        cv.conv3x3(x.half(), w9.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv3x3(x.transpose(1, 2), w9)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cv.conv3x3(x, w9.cpu())

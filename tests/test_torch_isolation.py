@@ -61,9 +61,11 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.nn.pooling", "bigdl_tpu_torch.nn.shape_ops",
               "bigdl_tpu_torch.nn.graph", "bigdl_tpu_torch.nn.tpu_fusion",
               "bigdl_tpu_torch.models.resnet",
-              "bigdl_tpu_torch.ops.fused_conv"):
+              "bigdl_tpu_torch.ops.fused_conv",
+              "bigdl_tpu_torch.ops.conv3x3"):
         assert m in mods
-    for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu"):
+    for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu",
+                "conv3x3.cu"):
         assert (PKG / "csrc" / src).exists()
 
 

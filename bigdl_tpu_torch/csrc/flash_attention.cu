@@ -2,7 +2,7 @@
 // plain C entry points.
 //
 // Replaces the three Pallas TPU kernels of bigdl_tpu/ops/flash_attention.py:
-//   _fwd_kernel (:52)  -> fwd_mma / fwd_simt: O and the per-query LSE (f32)
+//   _fwd_kernel (:52)  -> fwd_wgmma / fwd_simt: O and the per-query LSE (f32)
 //   _dq_kernel  (:149) -> dq_mma  / dq_simt:  dq from the saved LSE and
 //                                             delta = sum_d dO*O
 //   _dkv_kernel (:213) -> dkv_mma / dkv_simt: dk and dv over key tiles
@@ -22,44 +22,64 @@
 // bf16, causal): operations. The causal half of the two forward matmuls is
 // ~52 GFLOP (~52 us at the 989 TFLOP/s bf16 tensor-core peak), dq ~78 GFLOP,
 // dk/dv ~104 GFLOP, against ~25-50 MB of traffic (~10 us at 3.35 TB/s). So
-// the bf16 kernels run their matmuls on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 accumulate) and keep the scores in registers.
+// the bf16 kernels run their matmuls on the tensor cores (f32 accumulate)
+// and keep the scores in registers.
 //
-// Design (simple and right first; cp.async/TMA pipelining and wgmma are later
-// work):
+// Shared design:
 //   * The TPU kernels carry the softmax state (or the dq / dk,dv sums) across
 //     a sequential grid axis in VMEM scratch; Hopper's blocks run in no order,
 //     so each block owns its query tile (fwd, dq) or key tile (dk/dv) and
 //     LOOPS over the other axis itself. Nothing crosses blocks and no atomics
-//     are used, so the gradients are the same from run to run (the
+//     are used, so the results are the same from run to run (the
 //     FlashAttention-2 split into dq and dk/dv).
-//   * 4 warps per block; each warp owns 16 rows of the block's 64-row tile.
-//     The other operand arrives in 64-row tiles in shared memory (rows padded
-//     by 8 elements so ldmatrix is conflict-free). Scores stay in the mma
-//     accumulator registers; softmax reductions run over the 4 lanes that
-//     share a row; p and ds are repacked in registers as the A operand of the
-//     next mma (the accumulator layout of two n8 tiles is the A layout of one
-//     k16 slice).
 //   * Causal: a query tile stops at the (offset) diagonal; the dk/dv tile
 //     starts at the first query tile that can see it. A tile holding a fully
 //     masked row (offset < 0) visits every key, so those rows get the plain
 //     version's answer.
-//   * Ragged T: rows past Tq and keys past Tk are never read (tiles are zero
-//     filled in shared memory); keys past Tk get p = 0 and query rows past Tq
-//     get p = 0 in dk/dv (the TPU kernel relies on zero-padded q and delta
-//     there). Head dims below the tile width (D < 16, 48, ...) are zero filled.
+//   * Ragged T: keys past Tk get p = 0 and query rows past Tq get p = 0 in
+//     dk/dv (the TPU kernel relies on zero-padded q and delta there); tiles
+//     are zero filled past T and past the head dim.
 //   * Layout: q, k, v, O, dO, dq, dk, dv are read and written in place in the
 //     public (B, T, H, D) layout (contiguous), so no transposes surround the
 //     call; LSE and delta are (B, H, Tq) f32.
 //   * f32 inputs take the *_simt kernels: one thread per row, scalar f32 math,
 //     the forward's online softmax updated key by key (the tensor cores have
 //     no full-f32 path; the f32 path exists for checks and small models).
+// bf16 forward, fwd_wgmma (wgmma.cuh's building blocks):
+//   * A block owns 128 query rows of one (batch, head): two warpgroups of 64
+//     rows, two blocks per SM. One thread loads Q once and K/V tiles of 64
+//     keys into a ring (4 stages at D <= 64, 2 at 128) by TMA: tensor maps
+//     over (B, T, H, D) with boxes of 64 head dims, zero filled past T and
+//     D, each tile landing as SW128 panels and completing on its stage's
+//     "full" mbarrier. A stage is refilled once all 256 threads have
+//     arrived on its "empty" mbarrier; the loading thread belongs to the
+//     warpgroup that visits every tile and refills two tiles behind its own
+//     (a separate loader warp would cost the registers that let two blocks
+//     share an SM).
+//   * S = Q K^T by wgmma m64n64k16 from shared memory (Q and K K-major);
+//     P V by wgmma m64nDk16 with p repacked in registers as the A operand
+//     and V MN-major in shared memory. Head dims up to 64 are one 64-wide
+//     panel, 128 two. Tile j's softmax runs while tile j-1's P V is in
+//     flight.
+//   * The softmax keeps the running max of the raw scores; p = exp2(s c -
+//     m c) with c = scale * log2(e) is one FFMA and one EX2 per score, and O
+//     is rescaled only when some row's max moved. Masks only on the tile
+//     that crosses the causal diagonal or the Tk edge; a warpgroup skips
+//     the key tiles past its own diagonal.
+// bf16 backward, dq_mma / dkv_mma: 4 warps per block; each warp owns 16 rows
+//   of the block's 64-row tile. The other operand arrives in 64-row tiles in
+//   shared memory (rows padded by 8 elements so ldmatrix is conflict-free),
+//   staged through registers. Scores stay in the mma.sync m16n8k16
+//   accumulator registers; softmax reductions run over the 4 lanes that
+//   share a row; p and ds are repacked in registers as the A operand of the
+//   next mma (the accumulator layout of two n8 tiles is the A layout of one
+//   k16 slice).
 // The kernels allocate nothing and launch on the caller's stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -224,84 +244,263 @@ __device__ __forceinline__ int first_query_tile(int k0, int tile, int causal,
   return max(0, k0 - off) / tile;
 }
 
-// ------------------------------------------------------- bf16 (tensor cores)
+// ------------------------------------------------ bf16 forward (wgmma, TMA)
 
+constexpr int kFwdRows = 128;     // query rows per block: 2 warpgroups x 64
+constexpr int kFwdKeys = 64;      // keys per K/V tile
+constexpr int kFwdThreads = 256;  // two warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory of the forward: the Q tile (128 rows), a ring of K and V
+// tiles (64 keys each), then the barriers; every tile is SW128 panels of
+// 64 head-dim columns (wgmma.cuh), DP / 64 of them.
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, bf16* __restrict__ o,
-            float* __restrict__ lse, int H, int Tq, int Tk, int D, int causal,
-            int off, float scale) {
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kRows * LD;
-  bf16* sV = sK + kRows * LD;
+struct FwdSmem {
+  static constexpr int kPanels = DP / 64;
+  static constexpr int kStages = DP == 64 ? 4 : 2;
+  static constexpr int kQPanel = kFwdRows * 128;
+  static constexpr int kKVPanel = kFwdKeys * 128;
+  static constexpr int kKV = kPanels * kKVPanel;  // one K or V tile
+  static constexpr int kK = kPanels * kQPanel;    // ring of K tiles
+  static constexpr int kV = kK + kStages * kKV;   // ring of V tiles
+  static constexpr int kBars = kV + kStages * kKV;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// q, k, v (B, T, H, D) bf16 through tensor maps (boxes of 64 head dims x
+// 128 query rows or 64 keys; zero filled past T and D); o (B, Tq, H, D);
+// lse (B, H, Tq). scale_log2 = scale * log2(e), so exp2((s - m) *
+// scale_log2) is the plain version's exp((s - m) * scale).
+template <int DP>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+              float* __restrict__ lse, int H, int Tq, int Tk, int D,
+              int causal, int off, float scale_log2) {
+  using L = FwdSmem<DP>;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = wg::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = q_full + 1;  // stage s: its K and V tiles landed
+  uint64_t* empty = full + S;   // stage s: both warpgroups are done with it
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   // the longest causal tiles first: they bound the kernel's tail
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = q0 + warp * 16 + (lane >> 2);  // rows r0 and r0 + 8
-  const int kt_end =
-      key_tiles_for(q0, min(q0 + kRows, Tq) - 1, Tk, kRows, causal, off);
-
-  load_tile<DP, LD>(sQ, q, b, h, q0, Tq, H, D);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdRows;
+  int kt_wg[2];  // key tiles each warpgroup's 64 rows must visit
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int r0 = q0 + 64 * g;
+    kt_wg[g] = r0 < Tq ? key_tiles_for(r0, min(r0 + 64, Tq) - 1, Tk, kFwdKeys,
+                                       causal, off)
+                       : 1;  // rows past Tq: one tile, never stored
+  }
+  const int kt_end = max(kt_wg[0], kt_wg[1]);
+  // the thread that loads: thread 0 of the warpgroup that visits every tile
+  const int loader = kt_wg[1] == kt_end ? 128 : 0;
+  const bool loads = threadIdx.x == loader;
+  // tile j into stage j % S, completing on full[j % S]
+  auto load_kv = [&](int j) {
+    const int s = j % S;
+    wg::mbar_expect_tx(full + s, 2 * L::kKV);
+    for (int p = 0; p < L::kPanels; ++p) {
+      const int at = s * L::kKV + p * L::kKVPanel;
+      const int t0 = j * kFwdKeys;
+      wg::tma_load_4d(sm + L::kK + at, &tk, full + s, 64 * p, h, t0, b);
+      wg::tma_load_4d(sm + L::kV + at, &tv, full + s, 64 * p, h, t0, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    wg::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      wg::mbar_init(full + s, 1);
+      wg::mbar_init(empty + s, 2 * 128);
+    }
+    wg::mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    load_a<LD>(qf[kk], sQ, warp * 16, kk * 16, lane);
+  if (loads) {
+    wg::mbar_expect_tx(q_full, L::kK);
+    for (int p = 0; p < L::kPanels; ++p)
+      wg::tma_load_4d(sm + p * L::kQPanel, &tq, q_full, 64 * p, h, q0, b);
+    for (int j = 0; j < min(S, kt_end); ++j) load_kv(j);
+  }
+  // this warpgroup is done with tile j; the loader then refills the stage
+  // of tile r = j - kLag + 1 with tile r + S once both warpgroups are done
+  // with r (a lag of 2 with 4 stages: the other warpgroup has had a tile's
+  // time to finish r, so the loader rarely waits for it)
+  constexpr int kLag = S >= 4 ? 2 : 1;
+  auto release = [&](int j) {
+    wg::mbar_arrive(empty + j % S);
+    const int r = j - kLag + 1;
+    if (loads && r >= 0 && r + S < kt_end) {
+      wg::mbar_wait(empty + r % S, (r / S) & 1);
+      load_kv(r + S);
+    }
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[DP / 8][4];
+  // consumers: warpgroup g owns query rows q0 + 64g .. q0 + 64g + 63.
+  // Tile j's softmax runs while tile j-1's P V is in flight:
+  //   start S_j = Q K_j^T; start O += P_{j-1} V_{j-1}; wait for S_j;
+  //   mask, max and exp of S_j; wait for P V; rescale O; repack P_j.
+  // The first and the last tile are peeled off, so the loop starts its
+  // products unconditionally.
+  const int g = warp >> 2;
+  const int g_row0 = q0 + 64 * g;
+  const int r0 = g_row0 + 16 * (warp & 3) + (lane >> 2);  // rows r0, r0 + 8
+  const int n_kt = kt_wg[g];
+  const unsigned char* sQ = sm + g * 64 * 128;
+  float acc[DP / 2];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  // running max of the raw scores (-inf before the first key) and sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t pa[kFwdKeys / 16][4];  // P of the last tile: the A fragments of P V
 
-  for (int kt = 0; kt < kt_end; ++kt) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<DP, LD>(sK, k, b, h, kt * kRows, Tk, H, D);
-    load_tile<DP, LD>(sV, v, b, h, kt * kRows, Tk, H, D);
-    __syncthreads();
-    float s[8][4];
-    warp_scores<DP, LD>(s, qf, sK, lane);
-    float mx[2] = {m[0], m[1]};
+  // S = Q K^T of stage s (Q and K K-major in shared memory)
+  auto start_s = [&](float (&sc)[kFwdKeys / 2], int s) {
+    const unsigned char* sK = sm + L::kK + s * L::kKV;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wg::mma_ss_n64<0>(
+          sc, wg::desc_k_major(sQ + (kk >> 2) * L::kQPanel + (kk & 3) * 32),
+          wg::desc_k_major(sK + (kk >> 2) * L::kKVPanel + (kk & 3) * 32),
+          kk > 0);
+  };
+  // O += P V of stage s (V MN-major in shared memory)
+  auto start_pv = [&](int s) {
+    const unsigned char* sV = sm + L::kV + s * L::kKV;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + (e >> 1) * 8;
-        const int col = kt * kRows + j * 8 + (lane & 3) * 2 + (e & 1);
-        float x = s[j][e] * scale;
-        if (col >= Tk) x = -INFINITY;  // past the keys: p = 0 exactly
-        else if (causal && col > row + off) x = kNegInf;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-    float rs[2] = {0.f, 0.f};
+    for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
+      const uint64_t dv = wg::desc_mn_major(sV + kk * 2048, L::kKVPanel);
+      if constexpr (DP == 64)
+        wg::mma_rs_n64<1>(acc, pa[kk], dv, 1);
+      else
+        wg::mma_rs_n128<1>(acc, pa[kk], dv, 1);
+    }
+  };
+  // masks (only on a tile that crosses the diagonal or the Tk edge), the
+  // new running max mx (raw scores) and p = exp2(s c - mx c) in place, one
+  // FFMA and one EX2 per score, with its row sums. A causally masked score
+  // holds -FLT_MAX and a key past Tk -inf, so p = 0 for both; a row masked
+  // everywhere so far (only when causal_offset < 0) keeps mx = -FLT_MAX and
+  // takes p = 1 on its causally masked keys, as the plain version does.
+  auto exp_tile = [&](float (&sc)[kFwdKeys / 2], int j, float (&mx)[2],
+                      float (&rs)[2]) {
+    const int k0 = j * kFwdKeys;
+    const bool edge =
+        k0 + kFwdKeys > Tk || (causal && k0 + kFwdKeys - 1 > g_row0 + off);
+    if (edge) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - mx[e >> 1]);
-        rs[e >> 1] += p;
-        s[j][e] = p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float alpha = expf(m[i] - mx[i]);
-      l[i] = l[i] * alpha + quad_sum(rs[i]);
-      m[i] = mx[i];
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        acc[n][2 * i] *= alpha;
-        acc[n][2 * i + 1] *= alpha;
+      for (int e = 0; e < kFwdKeys / 2; ++e) {
+        const int col = k0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        if (col >= Tk) sc[e] = -INFINITY;
+        else if (causal && col > r0 + 8 * ((e >> 1) & 1) + off)
+          sc[e] = -FLT_MAX;
       }
     }
-    warp_pv<DP, LD>(acc, s, sV, lane);
+    mx[0] = m[0];
+    mx[1] = m[1];
+#pragma unroll
+    for (int e = 0; e < kFwdKeys / 2; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    const float bias[2] = {-mx[0] * scale_log2, -mx[1] * scale_log2};
+    rs[0] = rs[1] = 0.f;
+    if (edge && (mx[0] == -FLT_MAX || mx[1] == -FLT_MAX)) {
+#pragma unroll
+      for (int e = 0; e < kFwdKeys / 2; ++e) {
+        const int i = (e >> 1) & 1;
+        const float p = mx[i] == -FLT_MAX
+                            ? (sc[e] == -FLT_MAX ? 1.f : 0.f)
+                            : wg::exp2_approx(fmaf(sc[e], scale_log2, bias[i]));
+        rs[i] += p;
+        sc[e] = p;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kFwdKeys / 2; ++e) {
+        const int i = (e >> 1) & 1;
+        const float p = wg::exp2_approx(fmaf(sc[e], scale_log2, bias[i]));
+        rs[i] += p;
+        sc[e] = p;
+      }
+    }
+  };
+  // rescale O and l to the new max (O only when some row's max moved); p
+  // rounded to bf16 as P's A fragments
+  auto rescale_and_pack = [&](const float (&sc)[kFwdKeys / 2],
+                              const float (&mx)[2], const float (&rs)[2]) {
+    const bool moved = m[0] != mx[0] || m[1] != mx[1];
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      alpha[i] = wg::exp2_approx((m[i] - mx[i]) * scale_log2);
+      l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
+      m[i] = mx[i];
+    }
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * n + e] *= alpha[e >> 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] =
+            wg::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  };
+
+  wg::mbar_wait(q_full, 0);
+  {  // tile 0
+    float sc[kFwdKeys / 2], mx[2], rs[2];
+    wg::mbar_wait(full, 0);
+    wg::fence();
+    start_s(sc, 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_acc(sc);
+    exp_tile(sc, 0, mx, rs);
+    rescale_and_pack(sc, mx, rs);
+  }
+  for (int j = 1; j < n_kt; ++j) {
+    const int s = j % S, sp = (j - 1) % S;
+    float sc[kFwdKeys / 2], mx[2], rs[2];
+    wg::mbar_wait(full + s, (j / S) & 1);
+    wg::fence_acc(acc);
+    wg::fence();
+    start_s(sc, s);
+    wg::commit();
+    start_pv(sp);
+    wg::commit();
+    wg::wait<1>();  // S_j is done; P_{j-1} V_{j-1} may still run
+    wg::fence_acc(sc);
+    exp_tile(sc, j, mx, rs);
+    wg::wait<0>();  // P_{j-1} V_{j-1} is done with its registers and stage
+    wg::fence_acc(acc);
+    release(j - 1);
+    rescale_and_pack(sc, mx, rs);
+  }
+  {  // the last tile's P V
+    const int sp = (n_kt - 1) % S;
+    wg::fence_acc(acc);
+    wg::fence();
+    start_pv(sp);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_acc(acc);
+    release(n_kt - 1);
+  }
+  // the tiles past this warpgroup's diagonal that the other one needs
+  for (int j = n_kt; j < kt_end; ++j) {
+    wg::mbar_wait(full + j % S, (j / S) & 1);
+    wg::mbar_arrive(empty + j % S);
   }
 
 #pragma unroll
@@ -315,13 +514,18 @@ __global__ void __launch_bounds__(kThreads)
       const int d = n * 8 + (lane & 3) * 2;
       if (d < D)
         *reinterpret_cast<__nv_bfloat162*>(o + base + d) =
-            __floats2bfloat162_rn(acc[n][2 * i] / l_safe,
-                                  acc[n][2 * i + 1] / l_safe);
+            __floats2bfloat162_rn(acc[4 * n + 2 * i] / l_safe,
+                                  acc[4 * n + 2 * i + 1] / l_safe);
     }
+    // a fully masked row keeps the sentinel, as the plain version does
     if ((lane & 3) == 0)
-      lse[static_cast<size_t>(bh) * Tq + row] = m[i] + logf(l_safe);
+      lse[static_cast<size_t>(bh) * Tq + row] =
+          m[i] == -FLT_MAX ? kNegInf
+                           : m[i] * scale_log2 * kLn2 + logf(l_safe);
   }
 }
+
+// ------------------------------------------- bf16 backward (tensor cores)
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -686,26 +890,49 @@ struct Geometry {
   float scale;
 };
 
+// The forward's tensor maps over (B, T, H, D) bf16: boxes of 64 head dims
+// x `rows` rows of one (batch, head), landing as SW128 panels
+cudaError_t fwd_map(CUtensorMap* map, const void* t, int B, int T, int H,
+                    int D, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(T),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * T * H * D};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return wg::tensor_map_bf16(map, t, dims, strides, box);
+}
+
+template <int DP>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* o, float* lse, const Geometry& g,
+                             cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t e = fwd_map(&mq, q, g.B, g.Tq, g.H, g.D, kFwdRows);
+  if (e == cudaSuccess) e = fwd_map(&mk, k, g.B, g.Tk, g.H, g.D, kFwdKeys);
+  if (e == cudaSuccess) e = fwd_map(&mv, v, g.B, g.Tk, g.H, g.D, kFwdKeys);
+  constexpr int bytes = FwdSmem<DP>::kBytes;
+  if (e == cudaSuccess) e = allow_smem(fwd_wgmma<DP>, bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid((g.Tq + kFwdRows - 1) / kFwdRows, g.B * g.H);
+  fwd_wgmma<DP><<<grid, kFwdThreads, bytes, st>>>(
+      mq, mk, mv, static_cast<bf16*>(o), lse, g.H, g.Tq, g.Tk, g.D, g.causal,
+      g.off, g.scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, const Geometry& g, int dtype,
                        cudaStream_t st) {
-  if (dtype == 1) {
-    const size_t bytes = 3 * kRows * (DP + 8) * sizeof(bf16);
-    cudaError_t e = allow_smem(fwd_mma<DP>, bytes);
-    if (e != cudaSuccess) return e;
-    dim3 grid((g.Tq + kRows - 1) / kRows, g.B * g.H);
-    fwd_mma<DP><<<grid, kThreads, bytes, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, g.H, g.Tq,
-        g.Tk, g.D, g.causal, g.off, g.scale);
-  } else {
-    dim3 grid((g.Tq + kSimtRows - 1) / kSimtRows, g.B * g.H);
-    fwd_simt<DP><<<grid, kSimtRows, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, g.H, g.Tq,
-        g.Tk, g.D, g.causal, g.off, g.scale);
-  }
+  // bf16 head dims up to 64 ride in one 64-wide panel (zero filled)
+  if (dtype == 1)
+    return launch_fwd_wgmma<DP <= 64 ? 64 : 128>(q, k, v, o, lse, g, st);
+  dim3 grid((g.Tq + kSimtRows - 1) / kSimtRows, g.B * g.H);
+  fwd_simt<DP><<<grid, kSimtRows, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, g.H, g.Tq,
+      g.Tk, g.D, g.causal, g.off, g.scale);
   return cudaGetLastError();
 }
 

@@ -18,12 +18,14 @@ at ``dy·(W+2) + dx``; the 9 slab products accumulate in f32, and columns
 images-per-block choice (``bn``) sizes TPU VMEM blocks and has no
 counterpart. The JAX function has no gradient, so neither has this one.
 
-Dispatch: a CUDA tensor is padded (``F.pad``, as the JAX function pads
-with ``jnp.pad`` outside its kernel) and launches the hand-written kernel
-of ``bigdl_tpu_torch/csrc/conv3x3.cu`` (built with nvcc at first use,
-bound through ctypes) or raises; a CPU tensor takes the plain version.
-There is no fallback between the two. :data:`launches` counts kernel
-launches.
+Dispatch: a CUDA tensor launches the hand-written kernel of
+``bigdl_tpu_torch/csrc/conv3x3.cu`` (built with nvcc at first use, bound
+through ctypes) once, on the unpadded input: the kernel reads each tap's
+shifted pixels in place and zero-fills the ones outside the image, so
+the entry point makes no padded copy (the JAX function pads with
+``jnp.pad`` outside its kernel; the plain version keeps that form). It
+raises rather than fall back; a CPU tensor takes the plain version.
+:data:`launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ def oihw_from_w9(w9):
 
 def pad_rows(x):
     """x ``(N, H, W, C)`` zero-padded to ``(N, H+3, W+2, C)``: 1 row on
-    top, 2 at the bottom, 1 column on each side (``:82-84``)."""
+    top, 2 at the bottom, 1 column on each side (``:82-84``). The plain
+    version's form; the kernel reads x unpadded."""
     return F.pad(x, (0, 0, 1, 1, 1, 2))
 
 
@@ -115,9 +118,18 @@ def conv3x3_reference(x, w9):
 # ------------------------------------------------------------ CUDA wrapper
 
 
+def check_kernel_shape(n, h, w, c, k):
+    """Raise ``ValueError`` for a shape the kernel's 32-bit indices cannot
+    reach: it numbers the N·H·W output pixels (and, in f32, the 64-wide
+    channel tiles of its grid) with 32-bit ints."""
+    if n * h * w >= 2 ** 31 or -(-k // 64) >= 2 ** 16:
+        raise ValueError(f"conv3x3: x {(n, h, w, c)} with K={k} exceeds "
+                         f"the kernel's 32-bit pixel and grid indices")
+
+
 def conv3x3_cuda(x, w9):
     """The kernel: :func:`conv3x3_reference`'s contract on card tensors
-    (pads x, then one launch)."""
+    (one launch on x as it lies)."""
     global launches
     _check(x, w9)
     if x.device.type != "cuda" or w9.device != x.device:
@@ -129,16 +141,14 @@ def conv3x3_cuda(x, w9):
     out = torch.empty((n, h, w, k), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or c == 0:
         return out.zero_()
-    row_tiles = -(-h * (w + 2) // 64)
-    if (h + 3) * (w + 2) >= 2 ** 31 or n * row_tiles >= 2 ** 31:
-        raise ValueError(f"conv3x3: shape {tuple(x.shape)} exceeds the "
-                         f"kernel's 32-bit grid and row indices")
-    xp = pad_rows(x)
+    check_kernel_shape(n, h, w, c, k)
+    if x.data_ptr() % 16:
+        x = x.clone()
     if w9.data_ptr() % 16:
         w9 = w9.clone()
     with torch.cuda.device(x.device):
         err = _library().bigdl_conv3x3(
-            xp.data_ptr(), w9.data_ptr(), out.data_ptr(), n, h, w, c, k,
+            x.data_ptr(), w9.data_ptr(), out.data_ptr(), n, h, w, c, k,
             _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -21,8 +21,9 @@ There is no fallback between the two. Each wrapper counts its launches in
 :data:`fwd_launches`, :data:`dq_launches` and :data:`dkv_launches`.
 
 ``block`` is the TPU kernels' VMEM tile length; it is accepted for API
-parity and has no effect: the CUDA kernels choose their own tiles (64
-rows), and the plain version does not tile. The one numerical trace of
+parity and has no effect: the CUDA kernels choose their own tiles (the
+forward 128 query rows by 64 keys, the backward 64 by 64), and the plain
+version does not tile. The one numerical trace of
 the JAX tiling is the online softmax's rounding of ``p`` to V's dtype
 relative to the running max, which the tolerances of the tests state.
 

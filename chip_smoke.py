@@ -14,7 +14,10 @@ any failure raises, so the exit code is non-zero and no result prints:
               CUDA versions; TF32 is switched off for f32 matmuls and
               convolutions, so every f32 reference is full f32;
 2. build    — every kernel of ``bigdl_tpu_torch/csrc/`` with one ``nvcc``
-              per source, all started together;
+              per source, all started together; registers and spills from
+              ``ptxas -v``, and the count of ``HGMMA`` (wgmma) instructions
+              in each library's SASS (``cuobjdump -sass``), which must be
+              above zero for the conv3x3 and flash libraries;
 3. kernels  — each kernel against its plain PyTorch version on the card at
               its main path's shapes: decode attention at the serving shape
               (N=16 rows, H=12 heads, L=512, D=64) with per-row positions
@@ -63,9 +66,10 @@ any failure raises, so the exit code is non-zero and no result prints:
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
               each output pixel against the plain version and the first two
-              images against F.conv2d in f32; the four shapes timed (kernel
-              alone, pad + kernel, plain) beside cuDNN's F.conv2d, with
-              TFLOP/s and the bound.
+              images against F.conv2d in f32; the four shapes timed (the
+              kernel through its C entry point and through the wrapper,
+              one launch each on the unpadded input; plain) beside cuDNN's
+              F.conv2d, with TFLOP/s and the bound.
 
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; each of its kernels must have launched (decode attention once
@@ -111,6 +115,24 @@ def ptxas_summary(log: str) -> dict:
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
     return {"variants": len(regs), "max_registers": max(regs, default=0),
             "max_spill_store_bytes": max(spills, default=0)}
+
+
+def hgmma_count(name: str) -> int:
+    """``HGMMA`` (warpgroup matrix multiply) instructions in the SASS of
+    the built library ``name``: above zero when wgmma was emitted."""
+    import shutil
+
+    from bigdl_tpu_torch.utils import cuda_build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", cuda_build.library_path(name)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return len(re.findall(r"\bHGMMA\.", sass))
+
+
+#: the libraries whose kernels are built on wgmma
+WGMMA_LIBRARIES = ("conv3x3", "flash_attention")
 
 
 def time_ms(fn, reps: int = 30, flush=None) -> float:
@@ -613,8 +635,9 @@ def conv3x3_phase():
     """The twin of the experiment's ``main()``: can the hand-written 3x3
     conv keep up with the library conv at ResNet-50's four 3x3 shapes?
     Each case is held to the plain version row by row and to F.conv2d;
-    the ResNet shapes are then timed: the kernel alone on a padded input,
-    the entry point (pad + kernel), the plain version and cuDNN
+    the ResNet shapes are then timed: the kernel through its C entry
+    point, the wrapper (one launch on x as it lies), the plain version and
+    cuDNN
     (F.conv2d on the channels-last bf16 tensor with the OIHW weight). The
     launch count over the phase is asserted; returns the kernel's summary
     entry (times at s1 56²)."""
@@ -661,10 +684,9 @@ def conv3x3_phase():
         del got, want, lib_ref
         if dt != "bf16":
             continue
-        xp = cv.pad_rows(x)
         out = torch.empty(n, h, w, k, dtype=dtype, device="cuda")
         ms = time_ms(lambda: launched(lib_c.bigdl_conv3x3(
-            xp.data_ptr(), w9.data_ptr(), out.data_ptr(), n, h, w, c, k, 1,
+            x.data_ptr(), w9.data_ptr(), out.data_ptr(), n, h, w, c, k, 1,
             stream)), flush=flush)
         entry_ms = time_ms(lambda: cv.conv3x3(x, w9), flush=flush)
         expected += CONV3X3_TIMED_CALLS
@@ -678,7 +700,7 @@ def conv3x3_phase():
                              flush=flush)
         lib_out = F.conv2d(xl, wl, padding=1).permute(0, 2, 3, 1)
         lib_vs_plain = cv.max_row_rel_err(lib_out, cv.conv3x3_reference(x, w9))
-        del xp, out, lib_out
+        del out, lib_out
         flops = 2.0 * n * h * w * c * k * 9
         n_bytes = (x.numel() + w9.numel() + n * h * w * k) * 2
         t_ops, t_bytes = flops / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S
@@ -706,8 +728,9 @@ def conv3x3_phase():
                               "experiment's main() (on no package path): "
                               "one checked call per case, 33 timed entry "
                               "calls per ResNet-50 shape; ms is the kernel "
-                              "alone on a padded input, entry_ms pad + "
-                              "kernel, both at s1 56² 64")}
+                              "through its C entry point, entry_ms one "
+                              "launch through the wrapper, both at s1 "
+                              "56² 64")}
         del x, w9, xl, wl
         torch.cuda.empty_cache()
     if cv.launches != expected:
@@ -1189,8 +1212,14 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
+    hgmma = {name: hgmma_count(name) for name in cuda_build.sources()}
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={name: ptxas_summary(log) for name, log in logs.items()})
+         ptxas={name: ptxas_summary(log) for name, log in logs.items()},
+         hgmma=hgmma)
+    for name in WGMMA_LIBRARIES:
+        if hgmma[name] <= 0:
+            raise AssertionError(f"no HGMMA instruction in the SASS of "
+                                 f"{name}: wgmma was not emitted")
     entry = kernels_phase()
     flash = flash_phase()
     kv_merge_phase()

@@ -151,3 +151,15 @@ def test_bad_shapes_and_dtypes_raise():
     # the kernel's wrapper refuses a CPU tensor rather than fall back
     with pytest.raises(ValueError, match="CUDA tensors"):
         tcv.conv3x3_cuda(x, w9)
+
+
+def test_kernel_shape_limits_are_checked_on_the_host():
+    # the kernel numbers output pixels and its f32 grid's channel tiles
+    # with 32-bit ints; the wrapper refuses what they cannot reach
+    tcv.check_kernel_shape(256, 56, 56, 64, 64)   # ResNet-50's first 3x3
+    tcv.check_kernel_shape(1, 1, 1, 3, 5)
+    tcv.check_kernel_shape(2 ** 10, 2 ** 10, 2 ** 11 - 1, 8, 8)
+    with pytest.raises(ValueError, match="32-bit"):
+        tcv.check_kernel_shape(2 ** 10, 2 ** 10, 2 ** 11, 8, 8)
+    with pytest.raises(ValueError, match="32-bit"):
+        tcv.check_kernel_shape(1, 4, 4, 8, 64 * 2 ** 16)

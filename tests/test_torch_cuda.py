@@ -155,6 +155,56 @@ def test_flash_kernels_match_plain_versions(card, case, dtype):
         assert fa.max_row_rel_err(got, want) <= rtol
 
 
+# The forward's tile edges (128 query rows, 64 keys, head dims in 64-wide
+# panels): (B, Tq, Tk, H, D, causal, causal_offset)
+FLASH_EDGE_CASES = [
+    (1, 127, 127, 2, 64, True, None),
+    (1, 128, 128, 2, 64, True, None),
+    (1, 129, 129, 2, 64, False, None),
+    (1, 257, 257, 2, 64, True, -1),        # strict causal past two tiles
+    (1, 257, 129, 2, 16, True, None),      # Tq > Tk, head dim 16
+    (1, 128, 257, 2, 40, False, None),     # head dim 40 in a 64-wide panel
+    (1, 257, 257, 2, 128, True, -1),       # head dim 128: two panels
+    (2, 129, 127, 3, 128, True, None),     # Tq > Tk across the tile height
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES)
+def test_flash_kernels_at_the_tile_edges_repeat_bitwise(card, case):
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    b, tq, tk, h, d, causal, off = case
+    q, k, v, do = _flash_inputs(b, tq, tk, h, d, torch.bfloat16,
+                                seed=tq + tk + d)
+    scale = d ** -0.5
+    counts = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                         causal_offset=off)
+    o2, lse2 = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                           causal_offset=off)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, scale, causal,
+                                                off or 0)
+    grads = fa.flash_attention_block_grads(q, k, v, o_ref, lse_ref, do,
+                                           causal=causal, causal_offset=off)
+    grads2 = fa.flash_attention_block_grads(q, k, v, o_ref, lse_ref, do,
+                                            causal=causal, causal_offset=off)
+    refs = fa.flash_backward_reference(q, k, v, o_ref, lse_ref, do, scale,
+                                       causal, off or 0)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == (
+        counts[0] + 2, counts[1] + 2, counts[2] + 2)
+    rtol = fa.ROW_RTOL[torch.bfloat16]
+    assert bool(torch.isfinite(o).all())
+    assert fa.max_row_rel_err(o, o_ref) <= rtol
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    # no atomics: a second launch is bitwise equal
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    for got, again, want in zip(grads, grads2, refs):
+        assert fa.max_row_rel_err(got, want) <= rtol
+        assert torch.equal(again, got)
+
+
 @pytest.mark.cuda
 def test_flash_autograd_runs_the_three_kernels(card):
     from bigdl_tpu_torch.ops import flash_attention as fa
@@ -318,8 +368,11 @@ CONV3X3_CASES = [
     # (N, H, W, C, K)
     (3, 13, 11, 40, 72),     # ragged: C and K not tile multiples
     (1, 1, 1, 3, 5),         # one pixel; C and K below 8 (scalar loads)
-    (2, 7, 7, 64, 64),       # ResNet-50 stage 4 image: 2 of 9 columns dropped
-    (2, 20, 9, 32, 130),     # several row tiles per image, K past two tiles
+    (2, 7, 7, 64, 64),       # ResNet-50 stage 4 images, both in one tile
+    (2, 20, 9, 32, 130),     # several pixel tiles; K % 8 != 0 (loads by hand)
+    (3, 5, 9, 64, 64),       # 135 pixels: a tile straddling rows and images
+    (2, 6, 7, 520, 72),      # C past eight 64-channel chunks, ragged
+    (2, 5, 6, 24, 129),      # K = 129: one past a 128-channel tile
 ]
 
 

@@ -45,17 +45,15 @@ FAULTS = {
     "fwd_no_rescale": (
         "forward: the accumulator is not rescaled when the running max "
         "grows (l still is)",
-        "        acc[n][2 * i] *= alpha;\n"
-        "        acc[n][2 * i + 1] *= alpha;\n",
-        ""),
+        "acc[4 * n + e] *= alpha[e >> 1];",
+        "acc[4 * n + e] *= 1.f;"),
     "fwd_stale_v": (
-        "forward: V tiles from key 512 on are not loaded (tile 7 is reused)",
-        "    load_tile<DP, LD>(sV, v, b, h, kt * kRows, Tk, H, D);\n"
-        "    __syncthreads();\n"
-        "    float s[8][4];\n",
-        "    if (kt < 8) load_tile<DP, LD>(sV, v, b, h, kt * kRows, Tk, H, D);\n"
-        "    __syncthreads();\n"
-        "    float s[8][4];\n"),
+        "forward: V tiles from key 512 on are tile 7's",
+        "      wg::tma_load_4d(sm + L::kV + at, &tv, full + s, 64 * p, h, t0, "
+        "b);\n",
+        "      const int vt = j < 8 ? j : 7;\n"
+        "      wg::tma_load_4d(sm + L::kV + at, &tv, full + s, 64 * p, h,\n"
+        "                      vt * kFwdKeys, b);\n"),
     "dq_stale_k": (
         "dq: K tiles from key 512 on are not loaded (tile 7 is reused)",
         "    load_tile<DP, LD>(sK, k, b, h, kt * kRows, Tk, H, D);\n"
@@ -84,11 +82,13 @@ def _last_tile(name: str, loop: str):
     what = (what.replace("from key 512 on", "of the last key tile")
             .replace("from query 512 on", "of the last query tile")
             .replace("tile 7", "tile 30"))
-    return what, old, new.replace(f"if ({loop} < 8)", f"if ({loop} < 31)")
+    return what, old, (new.replace(f"if ({loop} < 8)", f"if ({loop} < 31)")
+                       .replace(f"{loop} < 8 ? {loop} : 7",
+                                f"{loop} < 31 ? {loop} : 30"))
 
 
 FAULTS.update({f"{n}_last": _last_tile(n, loop) for n, loop in (
-    ("fwd_stale_v", "kt"), ("dq_stale_k", "kt"), ("dkv_stale_do", "qt"))})
+    ("fwd_stale_v", "j"), ("dq_stale_k", "kt"), ("dkv_stale_do", "qt"))})
 
 
 def build_all(tmp: str) -> dict:
@@ -114,7 +114,8 @@ def build_all(tmp: str) -> dict:
             f.write(text)
         lib = os.path.join(tmp, f"lib{name}.so")
         jobs[name] = (subprocess.Popen(
-            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src],
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             cuda_build.CSRC, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in jobs.items():

@@ -1,9 +1,10 @@
-// Hopper building blocks shared by the wgmma kernels (conv3x3.cu and the
-// flash forward of flash_attention.cu): shared-memory matrix descriptors
-// for bf16 tiles in the 128-byte swizzle, the warpgroup matrix products
-// (wgmma m64nNk16, f32 accumulate) the kernels use, TMA tensor loads that
-// complete on an mbarrier (the tensor maps encoded on the host through the
-// runtime's entry-point query, since the libraries link only cudart), and the
+// Hopper building blocks shared by the wgmma kernels (conv3x3.cu, and the
+// flash forward, dq and dk/dv kernels of flash_attention.cu): shared-memory
+// matrix descriptors for bf16 tiles in the 128-byte swizzle, the warpgroup
+// matrix products (wgmma m64nNk16, f32 accumulate) the kernels use, TMA
+// tensor loads that complete on an mbarrier (the tensor maps encoded on the
+// host through the runtime's entry-point query, since the libraries link
+// only cudart), 4-byte cp.async copies that complete on an mbarrier, and the
 // mbarrier and named-barrier helpers. Compiled only for sm_90a
 // (utils/cuda_build.py): wgmma does not exist without the "a". Each kernel
 // source is its own library, so everything here is inline;
@@ -104,6 +105,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for register A fragments: their old values stay live (and their
+// registers untouched) until here, after the wait of the wgmma reading them
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
+}
+
 // this thread's ordinary stores to shared memory made visible to the async
 // proxy that wgmma (and TMA) read and write through; then a barrier
 __device__ __forceinline__ void fence_proxy_async() {
@@ -111,6 +122,25 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ----------------------------------------------- wgmma m64nNk16 bf16 -> f32
+
+// d (m64 x n32, f32) += A (smem, K-major) x B (smem, K-major or,
+// with kTransB, MN-major); scale_d = 0 overwrites d
+template <int kTransB>
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
 
 // d (m64 x n64, f32) += A (smem, K-major) x B (smem, K-major or,
 // with kTransB, MN-major); scale_d = 0 overwrites d
@@ -339,6 +369,26 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// ------------------------------------------------------------ cp.async
+
+// 4 bytes from global src to shared dst, or 4 zero bytes when !valid (src
+// must still be a mapped address)
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on bar once this thread's earlier cp.async copies have landed
+// (.noinc: the barrier's count includes this arrival)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // ------------------------------------------------------------------ TMA
 
 // one box of a 4-d tensor map into shared memory at dst; the bytes
@@ -389,6 +439,14 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base,
                                    const uint32_t box[4]) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  // the encoder needs a context current on this thread; a thread that
+  // has only chosen its device through the runtime (autograd's backward
+  // thread) may have none yet, and cudaSetDevice makes the device's
+  // primary context current
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return e;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),

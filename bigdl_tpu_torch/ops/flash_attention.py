@@ -22,8 +22,9 @@ There is no fallback between the two. Each wrapper counts its launches in
 
 ``block`` is the TPU kernels' VMEM tile length; it is accepted for API
 parity and has no effect: the CUDA kernels choose their own tiles (the
-forward 128 query rows by 64 keys, the backward 64 by 64), and the plain
-version does not tile. The one numerical trace of
+forward 128 query rows by 64 keys; dq 192 query rows, 128 at head dim
+128, by 64 keys; dk/dv 128 keys by 64 queries, 32 at head dim 128), and
+the plain version does not tile. The one numerical trace of
 the JAX tiling is the online softmax's rounding of ``p`` to V's dtype
 relative to the running max, which the tolerances of the tests state.
 
@@ -121,8 +122,9 @@ def max_row_rel_err(got, want, floor: float = 1e-3) -> float:
 
 
 def _delta(o, do):
-    """``delta = sum_d dO * O`` in f32, (B, H, Tq) — computed outside the
-    kernels, as the JAX wrapper computes it outside its kernels."""
+    """``delta = sum_d dO * O`` in f32, (B, H, Tq): the plain version's, as
+    the JAX wrapper computes it outside its kernels. On the card the bf16
+    dq kernel computes it for its own rows and writes it for dk/dv."""
     return (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
 
 
@@ -207,7 +209,12 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool = False,
 def flash_bwd_cuda(q, k, v, o, lse, do, scale: float, causal: bool = False,
                    causal_offset: int = 0):
     """The dq and dk/dv kernels: same contract as
-    :func:`flash_backward_reference` on card tensors."""
+    :func:`flash_backward_reference` on card tensors. In bf16 the dq kernel
+    also computes delta (``sum_d dO * O``) and writes it to a scratch buffer
+    that the dk/dv kernel, launched after it on the same stream, reads; the
+    f32 kernels take the plain version's delta, so that their checks against
+    it compare the same sums (a row whose true gradient is 0 keeps only
+    their rounding)."""
     global dq_launches, dkv_launches
     _check_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
@@ -222,7 +229,9 @@ def flash_bwd_cuda(q, k, v, o, lse, do, scale: float, causal: bool = False,
     if tk == 0:
         raise ValueError("flash attention needs at least one key")
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
-    delta = _delta(o, do).contiguous()
+    # bf16: the dq kernel writes delta; f32: the plain version's delta
+    delta = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+             if q.dtype == torch.bfloat16 else _delta(o, do).contiguous())
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -234,8 +243,9 @@ def flash_bwd_cuda(q, k, v, o, lse, do, scale: float, causal: bool = False,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.bigdl_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *geo, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *geo, stream)
         _check_err(err, "dq")
         dq_launches += 1
         err = lib.bigdl_flash_dkv(
@@ -322,7 +332,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geo = [i] * 7 + [f, i, vp]  # B H Tq Tk D causal off, scale, dtype, stream
     lib.bigdl_flash_fwd.argtypes = [vp] * 5 + geo
-    lib.bigdl_flash_dq.argtypes = [vp] * 7 + geo
+    lib.bigdl_flash_dq.argtypes = [vp] * 8 + geo  # ... o, dO, lse, delta, dq
     lib.bigdl_flash_dkv.argtypes = [vp] * 8 + geo
     for fn in (lib.bigdl_flash_fwd, lib.bigdl_flash_dq, lib.bigdl_flash_dkv):
         fn.restype = ctypes.c_int

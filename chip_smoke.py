@@ -16,8 +16,10 @@ any failure raises, so the exit code is non-zero and no result prints:
 2. build    — every kernel of ``bigdl_tpu_torch/csrc/`` with one ``nvcc``
               per source, all started together; registers and spills from
               ``ptxas -v``, and the count of ``HGMMA`` (wgmma) instructions
-              in each library's SASS (``cuobjdump -sass``), which must be
-              above zero for the conv3x3 and flash libraries;
+              in the SASS (``cuobjdump -sass``) of each wgmma kernel
+              (conv3x3's, the flash forward, dq and dk/dv), which must be
+              above zero; a ptxas line reporting wgmma serialized in dq or
+              dk/dv fails the build;
 3. kernels  — each kernel against its plain PyTorch version on the card at
               its main path's shapes: decode attention at the serving shape
               (N=16 rows, H=12 heads, L=512, D=64) with per-row positions
@@ -27,7 +29,9 @@ any failure raises, so the exit code is non-zero and no result prints:
               and strict causal (causal_offset=-1): each output row's error
               relative to that row's largest plain value against the
               stated tolerance, kernel, plain and library times, and the
-              least time the card could take;
+              least time the card could take; at the training shape the
+              delta the dq kernel writes for dk/dv against the plain
+              delta;
 4. kv_merge — the cost of the int8 grow check the decode step makes (a
               host read of one flag) against the unconditional requantize;
 5. check    — a small model's int8-KV decode step on the card against the
@@ -117,9 +121,17 @@ def ptxas_summary(log: str) -> dict:
             "max_spill_store_bytes": max(spills, default=0)}
 
 
-def hgmma_count(name: str) -> int:
+#: the wgmma kernels, by library: each must hold HGMMA instructions
+WGMMA_KERNELS = {"conv3x3": ("conv3x3_wgmma",),
+                 "flash_attention": ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")}
+#: kernels that must build without a "wgmma ... serialized" ptxas line
+NO_SERIALIZED_WGMMA = ("dq_wgmma", "dkv_wgmma")
+
+
+def hgmma_per_kernel(name: str) -> dict:
     """``HGMMA`` (warpgroup matrix multiply) instructions in the SASS of
-    the built library ``name``: above zero when wgmma was emitted."""
+    each wgmma kernel of the built library ``name``, summed over the
+    kernel's template variants: above zero where wgmma was emitted."""
     import shutil
 
     from bigdl_tpu_torch.utils import cuda_build
@@ -128,11 +140,23 @@ def hgmma_count(name: str) -> int:
     sass = subprocess.run([tool, "-sass", cuda_build.library_path(name)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return len(re.findall(r"\bHGMMA\.", sass))
+    counts = dict.fromkeys(WGMMA_KERNELS[name], 0)
+    kernel = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = next((k for k in counts if k in m.group(1)), None)
+        elif kernel is not None and re.search(r"\bHGMMA\.", line):
+            counts[kernel] += 1
+    return counts
 
 
-#: the libraries whose kernels are built on wgmma
-WGMMA_LIBRARIES = ("conv3x3", "flash_attention")
+def serialized_wgmma(log: str) -> list:
+    """The ptxas lines (``-Xptxas -v``) that report wgmma serialized
+    (C7510-C7520) in a kernel of ``NO_SERIALIZED_WGMMA``."""
+    return [line.strip() for line in log.splitlines()
+            if re.search(r"C75(1\d|20)", line) and "wgmma" in line
+            and any(k in line for k in NO_SERIALIZED_WGMMA)]
 
 
 def time_ms(fn, reps: int = 30, flush=None) -> float:
@@ -278,7 +302,7 @@ def flash_work(b, tq, tk, h, d, causal, off, nbytes):
     the (query, key) pairs the mask keeps (a fully masked row visits every
     key), 2 FLOPs per multiply-add over D for each matmul — 2 in the
     forward, 3 in dq, 4 in dk/dv — and each operand read once, each
-    output written once."""
+    output written once (dq reads O and writes delta too)."""
     rows = np.arange(tq)
     if causal:
         seen = np.clip(rows + off + 1, 0, tk)
@@ -291,7 +315,7 @@ def flash_work(b, tq, tk, h, d, causal, off, nbytes):
     kv_bytes = b * tk * h * d * nbytes
     row_f32 = b * h * tq * 4
     return {"fwd": (2 * mm, q_bytes * 2 + kv_bytes * 2 + row_f32),
-            "dq": (3 * mm, q_bytes * 3 + kv_bytes * 2 + row_f32 * 2),
+            "dq": (3 * mm, q_bytes * 4 + kv_bytes * 2 + row_f32 * 2),
             "dkv": (4 * mm, q_bytes * 2 + kv_bytes * 4 + row_f32 * 2)}
 
 
@@ -364,14 +388,31 @@ def flash_phase():
             continue
         # dq and dk/dv are timed one launch each through the C entry
         # points (the wrapper launches both); the plain version computes
-        # all three gradients at once, so both rows show its time
-        delta = fa._delta(o_ref, do).contiguous()
+        # all three gradients at once, so both rows show its time. The dq
+        # kernel writes delta, which dk/dv reads: held here against the
+        # plain delta (f32 sums of bf16 products in another order)
+        delta = torch.empty((b, h, tq), dtype=torch.float32, device="cuda")
         dqb, dkb, dvb = (torch.empty_like(t) for t in (q, k, v))
         geo = (b, h, tq, tk, d, 1, 0, float(scale), 1,
                torch.cuda.current_stream().cuda_stream)
-        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-               lse_ref.data_ptr(), delta.data_ptr())
         lib_c = fa._library()
+        oc, lc = o_ref.contiguous(), lse_ref.contiguous()  # as the wrapper
+        dq_in = (q.data_ptr(), k.data_ptr(), v.data_ptr(), oc.data_ptr(),
+                 do.data_ptr(), lc.data_ptr(), delta.data_ptr())
+        dkv_in = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lc.data_ptr(), delta.data_ptr())
+        launched(lib_c.bigdl_flash_dq(*dq_in, dqb.data_ptr(), *geo))
+        torch.cuda.synchronize()
+        delta_ref = fa._delta(o_ref, do)
+        delta_err = float((delta - delta_ref).abs().max())
+        delta_tol = 1e-5 * float(delta_ref.abs().max())
+        emit("kernels", kernel="flash_dq delta", case=case,
+             max_abs_err=delta_err, tol=delta_tol,
+             why="1e-5 of the largest |delta|: f32 sums of bf16 products "
+                 "taken in another order")
+        if not delta_err <= delta_tol:
+            raise AssertionError(f"flash dq delta {case}: err {delta_err} > "
+                                 f"{delta_tol}")
 
         def plain_bwd():
             fa.flash_backward_reference(q, k, v, o_ref, lse_ref, do, scale,
@@ -381,9 +422,9 @@ def flash_phase():
             "fwd": (lambda: fa.flash_fwd_cuda(q, k, v, scale, True),
                     lambda: fa.flash_forward_reference(q, k, v, scale, True)),
             "dq": (lambda: launched(lib_c.bigdl_flash_dq(
-                *ins, dqb.data_ptr(), *geo)), plain_bwd),
+                *dq_in, dqb.data_ptr(), *geo)), plain_bwd),
             "dkv": (lambda: launched(lib_c.bigdl_flash_dkv(
-                *ins, dkb.data_ptr(), dvb.data_ptr(), *geo)), plain_bwd)}
+                *dkv_in, dkb.data_ptr(), dvb.data_ptr(), *geo)), plain_bwd)}
         # the library yardstick: SDPA forward and backward over the same
         # bf16 inputs in its (B, H, T, D) layout, prepared outside timing
         qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -395,8 +436,9 @@ def flash_phase():
         lib_bwd = time_ms(lambda: torch.autograd.grad(
             lo, (qs, ks, vs), dos, retain_graph=True), flush=flush)
         lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
-        # the backward as a whole (the wrapper's delta, dq and dk/dv)
-        # against SDPA's backward, which computes dq, dk and dv together
+        # the backward as a whole (dq with its delta, and dk/dv, through
+        # the wrapper) against SDPA's backward, which computes dq, dk and
+        # dv together
         bwd_ms = time_ms(lambda: fa.flash_bwd_cuda(
             q, k, v, o_ref, lse_ref, do, scale, True), flush=flush)
         bwd_flops = work["dq"][0] + work["dkv"][0]
@@ -1212,14 +1254,19 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
-    hgmma = {name: hgmma_count(name) for name in cuda_build.sources()}
+    hgmma = {name: hgmma_per_kernel(name) for name in WGMMA_KERNELS}
+    serialized = [line for log in logs.values()
+                  for line in serialized_wgmma(log)]
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={name: ptxas_summary(log) for name, log in logs.items()},
-         hgmma=hgmma)
-    for name in WGMMA_LIBRARIES:
-        if hgmma[name] <= 0:
-            raise AssertionError(f"no HGMMA instruction in the SASS of "
-                                 f"{name}: wgmma was not emitted")
+         hgmma=hgmma, wgmma_serialized=serialized)
+    for name, counts in hgmma.items():
+        for kernel, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"no HGMMA instruction in {kernel} of "
+                                     f"{name}: wgmma was not emitted")
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
     entry = kernels_phase()
     flash = flash_phase()
     kv_merge_phase()

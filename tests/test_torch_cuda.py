@@ -155,8 +155,9 @@ def test_flash_kernels_match_plain_versions(card, case, dtype):
         assert fa.max_row_rel_err(got, want) <= rtol
 
 
-# The forward's tile edges (128 query rows, 64 keys, head dims in 64-wide
-# panels): (B, Tq, Tk, H, D, causal, causal_offset)
+# The kernels' tile edges (the forward and dq: 128 query rows by 64 keys;
+# dk/dv: 128 keys by 64 queries; head dims in 64-wide panels):
+# (B, Tq, Tk, H, D, causal, causal_offset)
 FLASH_EDGE_CASES = [
     (1, 127, 127, 2, 64, True, None),
     (1, 128, 128, 2, 64, True, None),
@@ -166,6 +167,11 @@ FLASH_EDGE_CASES = [
     (1, 128, 257, 2, 40, False, None),     # head dim 40 in a 64-wide panel
     (1, 257, 257, 2, 128, True, -1),       # head dim 128: two panels
     (2, 129, 127, 3, 128, True, None),     # Tq > Tk across the tile height
+    (1, 257, 191, 2, 64, True, None),      # Tq = 128n + 1, Tk = 64n - 1
+    (1, 255, 193, 2, 64, False, None),     # Tq = 128n - 1, Tk = 64n + 1
+    (2, 40, 200, 3, 64, True, None),       # Tq < 64: key blocks no query sees
+    (1, 40, 200, 2, 64, False, None),      # Tq < 64 with Tk > 128
+    (1, 130, 130, 2, 8, True, None),       # head dim 8
 ]
 
 
@@ -203,6 +209,43 @@ def test_flash_kernels_at_the_tile_edges_repeat_bitwise(card, case):
     for got, again, want in zip(grads, grads2, refs):
         assert fa.max_row_rel_err(got, want) <= rtol
         assert torch.equal(again, got)
+
+
+# The delta the dq kernel writes for dk/dv, through the C entry point:
+# (B, Tq, Tk, H, D, causal)
+FLASH_DELTA_CASES = [
+    (2, 300, 300, 3, 64, True),
+    (1, 257, 129, 2, 128, False),
+    (1, 40, 200, 2, 8, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_DELTA_CASES)
+def test_flash_dq_kernel_writes_delta(card, case):
+    """delta = sum_d dO * O of every query row, as the bf16 dq kernel
+    writes it, within 1e-5 of the largest |delta| of the plain version (f32
+    sums of the same products taken in another order)."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    b, tq, tk, h, d, causal = case
+    q, k, v, do = _flash_inputs(b, tq, tk, h, d, torch.bfloat16,
+                                seed=tq + d)
+    scale = d ** -0.5
+    o, lse = fa.flash_forward_reference(q, k, v, scale, causal)
+    o, lse = o.contiguous(), lse.contiguous()  # as the wrapper passes them
+    delta = torch.full((b, h, tq), float("nan"), device="cuda")
+    dq = torch.empty_like(q)
+    err = fa._library().bigdl_flash_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h,
+        tq, tk, d, int(causal), 0, scale, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want = fa._delta(o, do)
+    assert float((delta - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
 
 
 @pytest.mark.cuda

@@ -153,3 +153,35 @@ def test_row_rule_passes_an_online_softmax_and_fails_a_late_row_fault():
     bad, _ = tfa.flash_attention_with_lse(bf[0], bf[1], stale, causal=True)
     assert tfa.max_row_rel_err(bad[:, :256], to[:, :256]) == 0.0
     assert tfa.max_row_rel_err(bad, to) > 10 * rtol
+
+
+def test_delta_matches_the_jax_wrapper(monkeypatch):
+    """``_delta`` (``sum_d dO * O``, which the dq kernel computes on the
+    card) against the delta the JAX wrapper computes before its kernels
+    (``bigdl_tpu/ops/flash_attention.py:355-356``), taken from the operands
+    it hands the dq kernel's ``pallas_call``: f32, 1e-6 absolute (sums of
+    16 products of values up to ~5, in another order)."""
+    b, t, h, d = 2, 100, 3, 16
+    q, k, v, do = _arrays(b, t, t, h, d, seed=5)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = jfa.flash_attention_with_lse(jq, jk, jv, causal=True,
+                                            interpret=True)
+    seen = []
+    real = jfa.pl.pallas_call
+
+    def spy(*args, **kwargs):
+        call = real(*args, **kwargs)
+
+        def run(*operands):
+            seen.append(operands)
+            return call(*operands)
+        return run
+
+    monkeypatch.setattr(jfa.pl, "pallas_call", spy)
+    jfa.flash_attention_block_grads(jq, jk, jv, jo, jlse, jdo, causal=True,
+                                    interpret=True)
+    # the dq call's operands: q, k, v, dO, lse, delta (BH, T padded, 1), off
+    want = np.asarray(seen[0][5])[:, :t, 0].reshape(b, h, t)
+    got = tfa._delta(*_t(np.asarray(jo), do))
+    assert got.shape == (b, h, t) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)

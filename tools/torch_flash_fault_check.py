@@ -55,22 +55,24 @@ FAULTS = {
         "      wg::tma_load_4d(sm + L::kV + at, &tv, full + s, 64 * p, h,\n"
         "                      vt * kFwdKeys, b);\n"),
     "dq_stale_k": (
-        "dq: K tiles from key 512 on are not loaded (tile 7 is reused)",
-        "    load_tile<DP, LD>(sK, k, b, h, kt * kRows, Tk, H, D);\n"
-        "    load_tile<DP, LD>(sV, v, b, h, kt * kRows, Tk, H, D);\n"
-        "    __syncthreads();\n"
-        "    float s[8][4], dp[8][4];\n",
-        "    if (kt < 8) load_tile<DP, LD>(sK, k, b, h, kt * kRows, Tk, H, D);\n"
-        "    load_tile<DP, LD>(sV, v, b, h, kt * kRows, Tk, H, D);\n"
-        "    __syncthreads();\n"
-        "    float s[8][4], dp[8][4];\n"),
+        "dq: K tiles from key 512 on are tile 7's",
+        "      wg::tma_load_4d(sm + L::kK + at, &tk, full + s, 64 * p, h, "
+        "j * kN, b);\n",
+        "      wg::tma_load_4d(sm + L::kK + at, &tk, full + s, 64 * p, h,\n"
+        "                      (j < 8 ? j : 7) * kN, b);\n"),
     "dkv_stale_do": (
-        "dk/dv: dO tiles from query 512 on are not loaded (tile 7 is "
-        "reused)",
-        "    load_tile<DP, LD>(sO, dout, b, h, q0, Tq, H, D);\n"
-        "    for (int i = threadIdx.x;",
-        "    if (qt < 8) load_tile<DP, LD>(sO, dout, b, h, q0, Tq, H, D);\n"
-        "    for (int i = threadIdx.x;"),
+        "dk/dv: dO tiles from query 512 on are tile 7's",
+        "        wg::tma_load_4d(sm + L::kDO + at, &tdo, full + s, 64 * p, h, "
+        "t0, b);\n",
+        "        wg::tma_load_4d(sm + L::kDO + at, &tdo, full + s, 64 * p, h,\n"
+        "                        (qt < 8 ? qt : 7) * QN, b);\n"),
+    "dkv_stale_delta": (
+        "dk/dv: a stale delta: in the last 64 query rows (1984 on) the dq "
+        "kernel writes rows r + 8 with the delta of row r, so dk/dv reads "
+        "the wrong delta for half of them",
+        "delta[static_cast<size_t>(bh) * Tq + row] = dl[i];",
+        "delta[static_cast<size_t>(bh) * Tq + row] =\n"
+        "          row >= 1984 && i == 1 ? dl[0] : dl[i];"),
 }
 
 
@@ -82,13 +84,12 @@ def _last_tile(name: str, loop: str):
     what = (what.replace("from key 512 on", "of the last key tile")
             .replace("from query 512 on", "of the last query tile")
             .replace("tile 7", "tile 30"))
-    return what, old, (new.replace(f"if ({loop} < 8)", f"if ({loop} < 31)")
-                       .replace(f"{loop} < 8 ? {loop} : 7",
-                                f"{loop} < 31 ? {loop} : 30"))
+    return what, old, new.replace(f"{loop} < 8 ? {loop} : 7",
+                                  f"{loop} < 31 ? {loop} : 30")
 
 
 FAULTS.update({f"{n}_last": _last_tile(n, loop) for n, loop in (
-    ("fwd_stale_v", "j"), ("dq_stale_k", "kt"), ("dkv_stale_do", "qt"))})
+    ("fwd_stale_v", "j"), ("dq_stale_k", "j"), ("dkv_stale_do", "qt"))})
 
 
 def build_all(tmp: str) -> dict:

@@ -40,9 +40,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 V, HIDDEN, LAYERS, HEADS, T, B = 32768, 768, 12, 12, 2048, 8
 
 # kernel-name fragments of each group, first match wins
-GROUPS = [("flash_fwd", ("fwd_mma", "fwd_simt")),
-          ("flash_dq", ("dq_mma", "dq_simt")),
-          ("flash_dkv", ("dkv_mma", "dkv_simt")),
+GROUPS = [("flash_fwd", ("fwd_wgmma", "fwd_simt")),
+          ("flash_dq", ("dq_wgmma", "dq_simt")),
+          ("flash_dkv", ("dkv_wgmma", "dkv_simt")),
           ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
           ("foreach (optimizer)", ("foreach", "multi_tensor")),
           ("reduction", ("reduce", "softmax", "logsumexp", "norm")),

@@ -5,7 +5,9 @@
 //   _fwd_kernel   (:141) -> fwd_kernel:   z = relu(x*scale + shift [+ r]) @ W,
 //                            zstats = [sum z, sum z^2] per output channel
 //                            (from the f32 accumulator), optional y
-//   _dgrad_kernel (:281) -> dgrad_kernel: dp = (dz @ W^T [+ dy]) * 1[p > 0],
+//   _dgrad_kernel (:281) -> dgrad_wgmma (bf16, C and K multiples of 8) and
+//                            dgrad_kernel (f32, and bf16 rows TMA cannot
+//                            read): dp = (dz @ W^T [+ dy]) * 1[p > 0],
 //                            q = [sum dp, sum dp*xhat] per input channel
 //   _wgrad_kernel (:405) -> wgrad_kernel: dW = relu(x*scale + shift [+ r])^T
 //                            @ dz, y recomputed and never stored
@@ -24,8 +26,8 @@
 // about once; the product runs on the tensor cores (mma.sync m16n8k16, bf16
 // in, f32 accumulate) to stay off the arithmetic limit.
 //
-// Design (simple and right first; cp.async/TMA pipelining and wgmma are later
-// work):
+// Design of the forward, the wgrad and the mma.sync dgrad (simple and right
+// first; the bf16 dgrad's wgmma design is described at dgrad_wgmma):
 //   * One 64 x 64 output tile per block step, 4 warps, K-depth 32 per stage.
 //     bf16: each warp owns 16 rows and runs mma.sync from ldmatrix fragments
 //     (tiles padded by 8 elements); f32: each thread owns an 8 x 4 sub-tile of
@@ -47,6 +49,7 @@
 // sized by bigdl_fused_conv_scratch) and launch on the caller's stream.
 
 #include "mma_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -258,6 +261,290 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ----------------------------------------------------- dgrad, bf16 (wgmma)
+//
+// The bf16 dgrad where the rows of x, dz and W are 16-byte aligned (C and K
+// multiples of 8, which TMA needs). At ResNet-50's stage-1 join (M 802,816,
+// C 256, K 64) the product is one 64-deep step and x, r, dy and dp carry 16
+// of every 17 bytes: there the point is streaming those four tiles. At the
+// stage-4 expansion (C 512, K 2048) the product dominates and runs on wgmma.
+//   * Persistent blocks, one per SM: block b owns channel tile b % n_ct (BN
+//     channels) and walks M tiles of 128 rows b / n_ct, + R, + 2R, ... (R =
+//     blocks / n_ct). The channel tiles of one M tile run on neighbouring
+//     blocks at the same time, so dz is read from memory about once and
+//     re-read from L2 (a block covering all C channels would need the whole
+//     accumulator row in registers). Its channels' sums stay in registers
+//     across its tiles: one partial row per row-block feeds sum_rows, in a
+//     fixed order.
+//   * A loader warp issues TMA loads: per tile, the first ring's worth of
+//     dz (128 rows x 64 k) and W (BN channels x 64 k) boxes into an mbarrier
+//     ring, then the epilogue's x, r and dy tiles (128 rows x BN channels,
+//     as 64-channel panels) once their buffer is free, then the other steps.
+//     So the next tile's epilogue operands stream in while this tile's
+//     product and epilogue run.
+//   * Two consumer warpgroups of 64 rows: wgmma m64nBNk16 with A = dz and
+//     B = W^T, both K-major from shared memory (W's (C, K) rows are B's
+//     rows), f32 accumulators in registers, one group left in flight.
+//   * The epilogue works in the accumulator's own layout: each thread reads
+//     its elements' x, r, dy pairs from the swizzled tiles (conflict-free),
+//     masks, adds its per-channel sums, and writes dp as bf16 pairs into a
+//     swizzled tile, which one thread then stores by TMA (16-byte rows,
+//     ragged M and C clipped by the tensor map).
+//   * Two shapes of the same kernel, chosen by K (dgrad_launch):
+//     - shallow products (K <= 128: one or two steps), BN 64, 3 ring stages,
+//       two epilogue buffers and two dp tiles, so one tile's operands load
+//       while the previous one's are used;
+//     - deep products, BN 128 (half the bytes per product of BN 64: at K
+//       2048 the ring's L2 traffic is what holds the product back), 3 ring
+//       stages of 32 KB, one epilogue buffer, dp written in place over x and
+//       the buffer freed once its store has read it.
+// Rows past M and channels past C load as zeros, so they add nothing.
+
+constexpr int kDgRows = 128;           // rows per tile: two warpgroups
+constexpr int kDgThreads = 288;        // 2 consumer warpgroups + loader warp
+constexpr int kDgA = kDgRows * 128;    // dz box: 128 rows x 64 k
+constexpr int kDgPanel = kDgRows * 128;  // 128 rows x 64 channels of x etc.
+
+// BN channels per tile, kStages ring stages of (dz, W), kBufs buffers of
+// (x, r, dy): with 2, two separate dp tiles; with 1, dp over x
+template <int BN, int kStages, int kBufs>
+struct DgSmem {
+  static constexpr int kB = BN * 128;             // W box: BN rows x 64 k
+  static constexpr int kStage = kDgA + kB;
+  static constexpr int kTile = kDgPanel * (BN / 64);  // one of x, r, dy, dp
+  static constexpr int kEpi = kStages * kStage;
+  static constexpr int kOut = kEpi + kBufs * 3 * kTile;
+  static constexpr int kVec = kOut + (kBufs == 2 ? 2 * kTile : 0);
+  static constexpr int kRed = kVec + 4 * BN * 4;      // [4][BN] f32
+  static constexpr int kBars = kRed + 8 * 2 * BN * 4;  // [8][2][BN] f32
+  static constexpr int kNumBars = 2 * kStages + 2 * kBufs;
+  static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
+};
+
+template <int BN>
+__device__ __forceinline__ void dgrad_mma(float (&acc)[BN / 2],
+                                          const unsigned char* sA,
+                                          const unsigned char* sB) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = wg::desc_k_major(sA + kk * 32);
+    const uint64_t db = wg::desc_k_major(sB + kk * 32);
+    if constexpr (BN == 64)
+      wg::mma_ss_n64<0>(acc, da, db, 1);
+    else
+      wg::mma_ss_n128<0>(acc, da, db, 1);
+  }
+}
+
+// (dz, W) as (K, M) and (K, C); x, r, dy, dp as (C, M); r and dy may be
+// absent (has_r, has_g: their maps are then never read)
+template <int BN, int kStages, int kBufs>
+__global__ void __launch_bounds__(kDgThreads, 1)
+    dgrad_wgmma(const __grid_constant__ CUtensorMap tdz,
+                const __grid_constant__ CUtensorMap tw,
+                const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tr,
+                const __grid_constant__ CUtensorMap tg,
+                const __grid_constant__ CUtensorMap tdp,
+                const float* __restrict__ scale,
+                const float* __restrict__ shift,
+                const float* __restrict__ mean,
+                const float* __restrict__ inv_std, float* __restrict__ part,
+                int M, int C, int K, int n_ct, int has_r, int has_g) {
+  using L = DgSmem<BN, kStages, kBufs>;
+  constexpr int kPanels = BN / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = wg::align1024(smem_raw);
+  float* vec = reinterpret_cast<float*>(sm + L::kVec);  // scale, shift, mu, is
+  float* red = reinterpret_cast<float*>(sm + L::kRed);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* epi_full = empty + kStages;
+  uint64_t* epi_empty = epi_full + kBufs;
+  const int tid = threadIdx.x;
+  const int ct = blockIdx.x % n_ct, rb = blockIdx.x / n_ct;
+  const int R = gridDim.x / n_ct;
+  const int c0 = ct * BN;
+  const int n_mt = (M + kDgRows - 1) / kDgRows;
+  const int nk = (K + 63) / 64;
+  if (tid < BN) {
+    const int c = c0 + tid;
+    const bool ok = c < C;
+    vec[tid] = ok ? scale[c] : 0.f;
+    vec[BN + tid] = ok ? shift[c] : 0.f;
+    vec[2 * BN + tid] = ok ? mean[c] : 0.f;
+    vec[3 * BN + tid] = ok ? inv_std[c] : 0.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(full + s, 1);
+      wg::mbar_init(empty + s, 256);  // every consumer thread is done
+    }
+    for (int e = 0; e < kBufs; ++e) {
+      wg::mbar_init(epi_full + e, 1);
+      wg::mbar_init(epi_empty + e, 1);  // one consumer, after a barrier
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the loader warp: one thread feeds both rings
+    if (tid == 256) {
+      const uint32_t epi_bytes =
+          L::kTile * (1 + (has_r ? 1 : 0) + (has_g ? 1 : 0));
+      const int head = nk < kStages ? nk : kStages;
+      int s = 0;
+      for (int mt = rb, i = 0; mt < n_mt; mt += R, ++i) {
+        const int m0 = mt * kDgRows, e = i % kBufs, use = i / kBufs;
+        unsigned char* eb = sm + L::kEpi + e * 3 * L::kTile;
+        for (int kt = 0; kt < nk; ++kt, ++s) {
+          const int slot = s % kStages;
+          unsigned char* st = sm + slot * L::kStage;
+          if (s >= kStages)
+            wg::mbar_wait(empty + slot, ((s / kStages) & 1) ^ 1);
+          wg::mbar_expect_tx(full + slot, L::kStage);
+          wg::tma_load_4d(st, &tdz, full + slot, kt * 64, m0, 0, 0);
+          wg::tma_load_4d(st + kDgA, &tw, full + slot, kt * 64, c0, 0, 0);
+          if (kt != head - 1) continue;
+          if (use > 0) wg::mbar_wait(epi_empty + e, (use - 1) & 1);
+          wg::mbar_expect_tx(epi_full + e, epi_bytes);
+          for (int p = 0; p < kPanels; ++p) {
+            const int cp = c0 + 64 * p;
+            unsigned char* pb = eb + p * kDgPanel;
+            wg::tma_load_4d(pb, &tx, epi_full + e, cp, m0, 0, 0);
+            if (has_r)
+              wg::tma_load_4d(pb + L::kTile, &tr, epi_full + e, cp, m0, 0, 0);
+            if (has_g)
+              wg::tma_load_4d(pb + 2 * L::kTile, &tg, epi_full + e, cp, m0, 0,
+                              0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns rows 64 wgi .. 64 wgi + 63 of each tile;
+  // a thread's accumulator elements are rows 64 wgi + 16 w + l/4 (+ 8) and
+  // channels 8 j + 2 (l % 4) (+ 1), j = 0 .. BN/8 - 1
+  const int wgi = tid >> 7, w = (tid >> 5) & 3, l = tid & 31;
+  float s1[BN / 4], s2[BN / 4];  // per channel 8 j + 2 (l % 4) + q: [2 j + q]
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) s1[i] = s2[i] = 0.f;
+  int s = 0;
+  for (int mt = rb, i = 0; mt < n_mt; mt += R, ++i) {
+    const int m0 = mt * kDgRows, e = i % kBufs;
+    float acc[BN / 2];
+#pragma unroll
+    for (int a = 0; a < BN / 2; ++a) acc[a] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++s) {
+      const int slot = s % kStages;
+      const unsigned char* st = sm + slot * L::kStage;
+      wg::mbar_wait(full + slot, (s / kStages) & 1);
+      wg::fence_acc(acc);
+      wg::fence();
+      dgrad_mma<BN>(acc, st + wgi * 64 * 128, st + kDgA);
+      wg::commit();
+      wg::wait<1>();  // the previous step's products are done reading
+      if (kt > 0) wg::mbar_arrive(empty + (s - 1) % kStages);
+      if (kBufs == 1 && kt == 0 && i > 0 && tid == 0) {
+        // the last tile's dp, written over its x, has left: free the buffer
+        wg::bulk_wait_read<0>();
+        wg::mbar_arrive(epi_empty);
+      }
+    }
+    wg::wait<0>();
+    wg::fence_acc(acc);
+    wg::mbar_arrive(empty + (s - 1) % kStages);
+
+    // epilogue: dp = (acc [+ dy]) * 1[p > 0], sums from the f32 dp
+    const unsigned char* ex = sm + L::kEpi + e * 3 * L::kTile;
+    unsigned char* od =
+        kBufs == 1 ? sm + L::kEpi : sm + L::kOut + (i & 1) * L::kTile;
+    wg::mbar_wait(epi_full + e, (i / kBufs) & 1);
+    if (kBufs == 2) {
+      if (tid == 0) wg::bulk_wait_read<1>();  // dp tile i & 1 has been read
+      wg::named_barrier(1, 256);
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wgi * 64 + 16 * w + (l >> 2) + 8 * h;
+        const uint32_t off =
+            (j >> 3) * kDgPanel + wg::sw128(row, j & 7) + 4 * (l & 3);
+        const float2 xv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ex + off));
+        const float2 rv =
+            has_r ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                        ex + L::kTile + off))
+                  : make_float2(0.f, 0.f);
+        const float2 gv =
+            has_g ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                        ex + 2 * L::kTile + off))
+                  : make_float2(0.f, 0.f);
+        float dpv[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = 8 * j + 2 * (l & 3) + q;
+          const float x = q ? xv.y : xv.x;
+          const float p = pre_act(x, vec[c], vec[BN + c], q ? rv.y : rv.x);
+          float d = acc[4 * j + 2 * h + q];
+          if (has_g) d = __fadd_rn(d, q ? gv.y : gv.x);
+          dpv[q] = p > 0.f ? d : 0.f;
+          const float xhat =
+              __fmul_rn(__fsub_rn(x, vec[2 * BN + c]), vec[3 * BN + c]);
+          s1[2 * j + q] += dpv[q];
+          s2[2 * j + q] = fmaf(dpv[q], xhat, s2[2 * j + q]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(od + off) =
+            __floats2bfloat162_rn(dpv[0], dpv[1]);
+      }
+    }
+    wg::fence_proxy_async();  // the dp tile, to the TMA store's proxy
+    wg::named_barrier(1, 256);
+    if (tid == 0) {
+      if (kBufs == 2) wg::mbar_arrive(epi_empty + e);  // x, r, dy are read
+      for (int p = 0; p < kPanels; ++p)
+        wg::tma_store_4d(&tdp, od + p * kDgPanel, c0 + 64 * p, m0, 0, 0);
+      wg::bulk_commit();
+    }
+  }
+  if (tid == 0) wg::bulk_wait<0>();
+
+  // the block's channel sums: over the 8 row lanes of a warp (butterfly),
+  // then over the 8 warps in order
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], o);
+      s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], o);
+    }
+  }
+  const int wi = wgi * 4 + w;
+  if (l < 4) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        red[(wi * 2) * BN + 8 * j + 2 * l + q] = s1[2 * j + q];
+        red[(wi * 2 + 1) * BN + 8 * j + 2 * l + q] = s2[2 * j + q];
+      }
+  }
+  wg::named_barrier(1, 256);
+  if (tid < BN && c0 + tid < C) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int v = 0; v < 8; ++v) {
+      t1 += red[(v * 2) * BN + tid];
+      t2 += red[(v * 2 + 1) * BN + tid];
+    }
+    float* row = part + static_cast<size_t>(rb) * 2 * C;
+    row[c0 + tid] = t1;
+    row[C + c0 + tid] = t2;
+  }
+}
+
 // ------------------------------------------------------------------ wgrad
 
 template <typename T>
@@ -379,6 +666,89 @@ int split_rows(int M, int C, int K) {
   return (rows + kBK - 1) / kBK * kBK;
 }
 
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    return 1;
+  return sms;
+}
+
+// the bf16 dgrad takes the wgmma kernel where TMA can read the rows
+bool dgrad_on_wgmma(int dtype, int C, int K) {
+  return dtype == 1 && C % 8 == 0 && K % 8 == 0;
+}
+
+// channels per tile of the wgmma dgrad for a product K deep: products
+// deeper than two ring steps take the BN 128 shape
+int dgrad_cols(int K) { return K > 128 ? 128 : 64; }
+
+// row-blocks of the wgmma dgrad: blocks per channel tile, one block per SM
+int dgrad_rows(int M, int C, int K) {
+  const int bn = dgrad_cols(K);
+  const int n_ct = (C + bn - 1) / bn;
+  const int n_mt = (M + kDgRows - 1) / kDgRows;
+  int rows = sm_count() / n_ct;
+  if (rows < 1) rows = 1;
+  return rows < n_mt ? rows : n_mt;
+}
+
+// a bf16 (inner, outer) row-major matrix read or written in boxes of
+// (64, box_outer) SW128 tiles
+cudaError_t matrix_map(CUtensorMap* map, const void* base, int inner,
+                       int outer, int box_outer) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(inner),
+                            static_cast<uint64_t>(outer), 1, 1};
+  const uint64_t row = 2ull * inner;
+  const uint64_t strides[3] = {row, row * outer, row * outer};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(box_outer), 1, 1};
+  return wg::tensor_map_bf16(map, base, dims, strides, box);
+}
+
+template <int BN, int kStages, int kBufs>
+cudaError_t launch_dgrad_shape(const void* dz, const void* w, const void* x,
+                               const void* r, const void* g,
+                               const float* scale, const float* shift,
+                               const float* mean, const float* inv_std,
+                               void* dp, float* q, float* part, int M, int C,
+                               int K, cudaStream_t st) {
+  using L = DgSmem<BN, kStages, kBufs>;
+  CUtensorMap tdz = {}, tw = {}, tx = {}, tr = {}, tg = {}, tdp = {};
+  cudaError_t e = matrix_map(&tdz, dz, K, M, kDgRows);
+  if (e == cudaSuccess) e = matrix_map(&tw, w, K, C, BN);
+  if (e == cudaSuccess) e = matrix_map(&tx, x, C, M, kDgRows);
+  if (e == cudaSuccess && r != nullptr) e = matrix_map(&tr, r, C, M, kDgRows);
+  if (e == cudaSuccess && g != nullptr) e = matrix_map(&tg, g, C, M, kDgRows);
+  if (e == cudaSuccess) e = matrix_map(&tdp, dp, C, M, kDgRows);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dgrad_wgmma<BN, kStages, kBufs>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kBytes);
+  if (e != cudaSuccess) return e;
+  const int n_ct = (C + BN - 1) / BN;
+  const int rows = dgrad_rows(M, C, K);
+  dgrad_wgmma<BN, kStages, kBufs><<<rows * n_ct, kDgThreads, L::kBytes, st>>>(
+      tdz, tw, tx, tr, tg, tdp, scale, shift, mean, inv_std, part, M, C, K,
+      n_ct, r != nullptr, g != nullptr);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_sum<float>(part, q, rows, 2 * C, st);
+}
+
+cudaError_t launch_dgrad_wgmma(const void* dz, const void* w, const void* x,
+                               const void* r, const void* g,
+                               const float* scale, const float* shift,
+                               const float* mean, const float* inv_std,
+                               void* dp, float* q, float* part, int M, int C,
+                               int K, cudaStream_t st) {
+  if (dgrad_cols(K) == 128)
+    return launch_dgrad_shape<128, 3, 1>(dz, w, x, r, g, scale, shift, mean,
+                                         inv_std, dp, q, part, M, C, K, st);
+  return launch_dgrad_shape<64, 3, 2>(dz, w, x, r, g, scale, shift, mean,
+                                      inv_std, dp, q, part, M, C, K, st);
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* r, const float* scale,
                        const float* shift, const void* w, void* z, void* y,
@@ -437,13 +807,18 @@ bool bad_dims(int M, int C, int K) { return M <= 0 || C <= 0 || K <= 0; }
 extern "C" long long bigdl_fused_conv_scratch(int which, int M, int C, int K) {
   if (bad_dims(M, C, K)) return 0;
   if (which == 0) return static_cast<long long>(row_blocks(M)) * 2 * K;
-  if (which == 1) return static_cast<long long>(row_blocks(M)) * 2 * C;
+  if (which == 1) {  // either dgrad kernel: the larger of their row counts
+    const int rows = dgrad_rows(M, C, K);
+    return static_cast<long long>(rows > row_blocks(M) ? rows : row_blocks(M)) *
+           2 * C;
+  }
   const int rows = split_rows(M, C, K);
   return static_cast<long long>((M + rows - 1) / rows) * C * K;
 }
 
-// dtype: 0 = float32 (scalar FMA), 1 = bfloat16 (tensor cores). r, y, g
-// may be null. Returns the cudaError_t of the launches (0 = launched).
+// dtype: 0 = float32 (scalar FMA), 1 = bfloat16 (tensor cores: mma.sync;
+// the dgrad on wgmma where C and K are multiples of 8). r, y, g may be
+// null. Returns the cudaError_t of the launches (0 = launched).
 extern "C" int bigdl_fused_fwd(const void* x, const void* r,
                                const float* scale, const float* shift,
                                const void* w, void* z, void* y, float* zstats,
@@ -467,6 +842,10 @@ extern "C" int bigdl_fused_dgrad(const void* dz, const void* w, const void* x,
                                  int K, int dtype, void* stream) {
   if (bad_dims(M, C, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dgrad_on_wgmma(dtype, C, K))
+    return static_cast<int>(launch_dgrad_wgmma(dz, w, x, r, g, scale, shift,
+                                               mean, inv_std, dp, q, part, M,
+                                               C, K, st));
   return static_cast<int>(
       dtype == 1 ? launch_dgrad<bf16>(dz, w, x, r, g, scale, shift, mean,
                                       inv_std, dp, q, part, M, C, K, st)

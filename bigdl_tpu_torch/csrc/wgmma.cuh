@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the wgmma kernels (conv3x3.cu, and the
-// flash forward, dq and dk/dv kernels of flash_attention.cu): shared-memory
-// matrix descriptors for bf16 tiles in the 128-byte swizzle, the warpgroup
-// matrix products (wgmma m64nNk16, f32 accumulate) the kernels use, TMA
-// tensor loads that complete on an mbarrier (the tensor maps encoded on the
+// Hopper building blocks shared by the wgmma kernels (conv3x3.cu, the
+// flash forward, dq and dk/dv kernels of flash_attention.cu, and the dgrad
+// of fused_conv.cu): shared-memory matrix descriptors for bf16 tiles in the
+// 128-byte swizzle, the warpgroup matrix products (wgmma m64nNk16, f32
+// accumulate) the kernels use, TMA tensor loads that complete on an
+// mbarrier and bulk-group tensor stores (the tensor maps encoded on the
 // host through the runtime's entry-point query, since the libraries link
 // only cudart), 4-byte cp.async copies that complete on an mbarrier, and the
 // mbarrier and named-barrier helpers. Compiled only for sm_90a
@@ -403,6 +404,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// the box at (c0, c1, c2, c3) of a 4-d tensor map written from the SW128
+// tile at src (a bulk-group store: commit, then wait before src is reused);
+// out-of-bounds elements are not written. The threads that wrote src must
+// have run fence_proxy_async() and met at a barrier first.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N committed bulk stores of this thread still read shared
+// memory (their sources may be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N committed bulk stores of this thread are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------------ host side

@@ -13,7 +13,8 @@ prologue: with x̂ = (x − μ)/σ, p = x̂·γ + β (+ r), y = relu(p), z = y·
   z), and the post-ReLU ``y`` when ``want_y`` (a second consumer needs it);
 * dgrad (:func:`fused_dgrad`, ``_dgrad_kernel`` ``:281``):
   ``dp = (dz @ Wᵀ (+ dy)) ⊙ 1[p > 0]`` with ``q = [Σdp, Σdp·x̂]`` per input
-  channel (dβ and dγ);
+  channel (dβ and dγ); in bf16 with C and K multiples of 8 on Hopper's
+  ``wgmma`` with TMA-streamed x, r, dy and dp tiles (``dgrad_wgmma``);
 * wgrad (:func:`fused_wgrad`, ``_wgrad_kernel`` ``:405``):
   ``dW = relu(x·scale + shift (+ r))ᵀ @ dz``, y recomputed, never stored.
 
@@ -219,8 +220,8 @@ def fused_dgrad_cuda(dz, w, x, scale, shift, mean, inv_std, residual=None,
     q = torch.zeros((2, c), dtype=torch.float32, device=x.device)
     if m == 0:
         return dp, q
-    scratch = _scratch(1, m, c, k, x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the scratch depends on its SMs
+        scratch = _scratch(1, m, c, k, x.device)
         err = _library().bigdl_fused_dgrad(
             dz.data_ptr(), w.data_ptr(), x.data_ptr(), _ptr(residual),
             _ptr(extra_dy), *(v.data_ptr() for v in vecs), dp.data_ptr(),

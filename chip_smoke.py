@@ -17,15 +17,17 @@ any failure raises, so the exit code is non-zero and no result prints:
               per source, all started together; registers and spills from
               ``ptxas -v``, and the count of ``HGMMA`` (wgmma) instructions
               in the SASS (``cuobjdump -sass``) of each wgmma kernel
-              (conv3x3's, the flash forward, dq and dk/dv), which must be
-              above zero; a ptxas line reporting wgmma serialized in dq or
-              dk/dv fails the build;
+              (conv3x3's, the flash forward, dq and dk/dv, the fused-conv
+              dgrad), which must be above zero; a ptxas line reporting wgmma
+              serialized in dq, dk/dv or the dgrad fails the build;
 3. kernels  — each kernel against its plain PyTorch version on the card at
               its main path's shapes: decode attention at the serving shape
               (N=16 rows, H=12 heads, L=512, D=64) with per-row positions
-              that include 0 and L-1, plus a ragged L; the flash forward, dq
-              and dk/dv kernels at the training shape (B=8, T=2048, H=12,
-              D=64, bf16, causal), non-causal at a ragged T=300, Tq != Tk,
+              that include 0 and L-1, plus a ragged L, timed with the mean,
+              median and min-max of its repetitions beside SDPA's; the
+              flash forward, dq and dk/dv kernels at the training shape
+              (B=8, T=2048, H=12, D=64, bf16, causal), non-causal at a
+              ragged T=300, Tq != Tk,
               and strict causal (causal_offset=-1): each output row's error
               relative to that row's largest plain value against the
               stated tolerance, kernel, plain and library times, and the
@@ -44,6 +46,8 @@ any failure raises, so the exit code is non-zero and no result prints:
               random weights from seed 0) served bf16 with int8 KV by
               ``ServingEngine(n_slots=16)``: 24 requests, prompts of 16-256
               tokens, 32 new tokens each, greedy and seeded-sampled rows;
+              then the device launches per decode step (``torch.profiler``
+              over 8 steps of a full pool);
 8. train    — the training path at full width: the same 137m model at
               max_len = T = 2048, ``output="logits"``, trained through
               ``Optimizer(...).optimize()`` with
@@ -57,15 +61,21 @@ any failure raises, so the exit code is non-zero and no result prints:
               case with ragged M, C and K; per-row errors and channel-sum
               errors against the stated tolerances, kernel, plain, bare
               cuBLAS product and unfused-torch times, and the bound;
-10. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
+10. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
+              K) that ResNet-50's step launches them at (batch 256, bf16):
+              the dgrad against its plain version, each kernel's median and
+              min-max time beside its bound, the cuBLAS product and the
+              unfused sequence, and per kernel the step's sum of launches x
+              (time - bound);
+11. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
               on the kernels) on the card against the CPU: losses,
               parameters and BN running statistics;
-11. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
+12. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
               momentum 0.9 / weight decay 1e-4, ``maybe_fuse`` with
               ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
               timed steps: step ms p50, images/s, peak memory, losses; then
               the unfused ``Graph`` on the same recipe;
-12. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+13. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
@@ -98,6 +108,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+HOST_GUARD_CYCLES = 2_000_000    # ~1 ms of device spin while the host enqueues
 
 
 def emit(phase: str, **fields) -> None:
@@ -123,9 +134,10 @@ def ptxas_summary(log: str) -> dict:
 
 #: the wgmma kernels, by library: each must hold HGMMA instructions
 WGMMA_KERNELS = {"conv3x3": ("conv3x3_wgmma",),
-                 "flash_attention": ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")}
+                 "flash_attention": ("fwd_wgmma", "dq_wgmma", "dkv_wgmma"),
+                 "fused_conv": ("dgrad_wgmma",)}
 #: kernels that must build without a "wgmma ... serialized" ptxas line
-NO_SERIALIZED_WGMMA = ("dq_wgmma", "dkv_wgmma")
+NO_SERIALIZED_WGMMA = ("dq_wgmma", "dkv_wgmma", "dgrad_wgmma")
 
 
 def hgmma_per_kernel(name: str) -> dict:
@@ -159,28 +171,88 @@ def serialized_wgmma(log: str) -> list:
             and any(k in line for k in NO_SERIALIZED_WGMMA)]
 
 
-def time_ms(fn, reps: int = 30, flush=None) -> float:
-    """Mean device time of ``fn`` by CUDA events. ``flush`` (a large
-    buffer) is overwritten before each launch so the caches start cold,
-    as the decode step finds the KV cache after the other layers' work,
-    and the write keeps the card busy while the host enqueues ``fn``."""
+#: host time to enqueue the event pair and ``fn`` of each timed launch of
+#: this run (:func:`time_stats`): the longest, the launches, those that
+#: took longer than the guard's spin (so the pair may hold host time; each
+#: is taken again) and those kept all the same (retakes ran out)
+HOST_ENQUEUE = {"max_ms": 0.0, "launches": 0, "over_guard": 0,
+                "kept_over_guard": 0}
+_GUARD_MS: list = []
+
+
+def guard_ms() -> float:
+    """Device time of one host guard (``torch.cuda._sleep`` of
+    ``HOST_GUARD_CYCLES``), by CUDA events, measured once."""
     import torch
 
+    if not _GUARD_MS:
+        torch.cuda._sleep(HOST_GUARD_CYCLES)          # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(HOST_GUARD_CYCLES)
+        end.record()
+        end.synchronize()
+        _GUARD_MS.append(start.elapsed_time(end))
+    return _GUARD_MS[0]
+
+
+def time_stats(fn, reps: int = 30, flush=None) -> dict:
+    """Device times of ``fn`` by CUDA events, one pair around each of
+    ``reps`` launches after 3 warm-up calls: mean, median, min and max in
+    ms, and the host's longest enqueue of one. ``flush`` (a large buffer)
+    is overwritten before each launch so the caches start cold, as the
+    decode step finds the KV cache after the other layers' work. Then the
+    card spins (``torch.cuda._sleep``) while the host enqueues the events
+    and ``fn``: without it a host slower than the flush leaves the card
+    idle inside the event pair, and the time of a short kernel measures
+    its wrapper's Python instead. A launch that
+    the host took longer to enqueue than the guard spins is taken again,
+    up to ``reps`` times in all; :data:`HOST_ENQUEUE` counts them."""
+    import torch
+
+    guard = guard_ms()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(reps):
+    times, retakes, host_max = [], reps, 0.0
+    while len(times) < reps:
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOST_GUARD_CYCLES)
+        t0 = time.perf_counter()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        host_max = max(host_max, host_ms)
+        HOST_ENQUEUE["max_ms"] = max(HOST_ENQUEUE["max_ms"], host_ms)
+        HOST_ENQUEUE["launches"] += 1
+        if host_ms >= guard:
+            HOST_ENQUEUE["over_guard"] += 1
+            if retakes > 0:
+                retakes -= 1
+                continue
+            HOST_ENQUEUE["kept_over_guard"] += 1
+        times.append(start.elapsed_time(end))
+    return {"mean": float(np.mean(times)), "median": float(np.median(times)),
+            "min": min(times), "max": max(times), "host_ms_max": host_max}
+
+
+def time_ms(fn, reps: int = 30, flush=None) -> float:
+    """Mean device time of ``fn`` (:func:`time_stats`)."""
+    return time_stats(fn, reps, flush)["mean"]
+
+
+def bound(ops: float, n_bytes: float, peak: float):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of ``ops`` at ``peak`` and ``n_bytes`` at the memory rate."""
+    t_ops, t_bytes = ops / peak, n_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def attention_inputs(kind, n, L, h, d, seed):
@@ -205,16 +277,48 @@ def attention_inputs(kind, n, L, h, d, seed):
     return q, k.to(dt), v.to(dt), pos, None, None
 
 
+# the serving decode step's call: 16 pooled rows, cache 512, 12 heads, D 64
+SERVING_DECODE = (16, 512, 12, 64)
+
+
+def decode_work(q, k_scale, pos, h, d):
+    """(live columns, bytes, operations) of one int8 decode-attention call:
+    the live K and V columns read once, q in and the output out (q's
+    dtype), both scales and pos; q.k and p.v, a multiply and an add each."""
+    cols = int((pos.long() + 1).sum())
+    n_bytes = (cols * h * d * 2 + q.numel() * q.element_size() * 2
+               + 2 * k_scale.numel() * 4 + pos.numel() * pos.element_size())
+    return cols, n_bytes, cols * h * d * 4
+
+
+def dequantized_sdpa(q, k, v, pos, k_scale, v_scale):
+    """The int8 decode kernel's library yardstick: one SDPA call over K/V
+    dequantized to q's dtype, with the per-row mask. Everything but the
+    call is prepared here, outside any timing; the call returns (N, H, 1,
+    D)."""
+    import torch
+    import torch.nn.functional as F
+
+    def deq(t, s):
+        t = (t.float() * s[:, None, :, None]).to(q.dtype)
+        return t.transpose(1, 2).contiguous()
+
+    kd, vd = deq(k, k_scale), deq(v, v_scale)
+    mask = (torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+            <= pos.long()[:, None, None, None])
+    qs = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask)
+
+
 def kernels_phase():
     """decode_attention against its plain version; returns the kernel's
     summary entry (times at the main path's call: bf16 q and output,
     int8 K/V)."""
     import torch
-    import torch.nn.functional as F
 
     from bigdl_tpu_torch.ops import decode_attention as da
 
-    n, L, h, d = 16, 512, 12, 64
+    n, L, h, d = SERVING_DECODE
     # (case, q/out dtype, L, tolerance and why)
     cases = [
         ("int8_serving", torch.bfloat16, L, 1.6e-2,
@@ -247,32 +351,26 @@ def kernels_phase():
                 f"decode_attention {case}: max abs err {err} > tol {tol}")
         if case != "int8_serving":
             continue
-        ms = time_ms(lambda: da.pooled_decode_attention(
+        kern = time_stats(lambda: da.pooled_decode_attention(
             q, k, v, pos, ks, vs, out_dtype=qdt), flush=flush)
+        ms = kern["mean"]
         plain_ms = time_ms(lambda: da.decode_attention_reference(
             q, k, v, pos, ks, vs, out_dtype=qdt), flush=flush)
-        # the library yardstick: one SDPA call over dequantized bf16 K/V
-        # with the per-row mask (prepared outside the timing)
-        kd = (k.float() * ks[:, None, :, None]).to(qdt).transpose(1, 2)
-        vd = (v.float() * vs[:, None, :, None]).to(qdt).transpose(1, 2)
-        kd, vd = kd.contiguous(), vd.contiguous()
-        mask = (torch.arange(Lc, device="cuda")[None, None, None, :]
-                <= pos.long()[:, None, None, None])
-        qs = q[:, :, None, :]
-        lib = F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask)
-        lib_err = float((lib[:, :, 0].float() - want.float()).abs().max())
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kd, vd, attn_mask=mask), flush=flush)
-        cols = int((pos.long() + 1).sum())
-        n_bytes = (cols * h * d * 2            # int8 K and V columns read
-                   + q.numel() * q.element_size() * 2      # q in, out
-                   + 2 * ks.numel() * 4 + pos.numel() * 4)
-        ops = cols * h * d * 4                 # q.k and p.v, mul + add
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-        bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
-                    >= ops / F32_FLOPS else "operations")
+        sdpa = dequantized_sdpa(q, k, v, pos, ks, vs)
+        lib_err = float((sdpa()[:, :, 0].float() - want.float()).abs().max())
+        lib_t = time_stats(sdpa, flush=flush)
+        library_ms = lib_t["mean"]
+        cols, n_bytes, ops = decode_work(q, ks, pos, h, d)
+        bound_ms, bound_by = bound(ops, n_bytes, F32_FLOPS)
         emit("kernels", kernel="decode_attention", case=case, ms=ms,
+             ms_median=kern["median"], ms_min_max=[kern["min"], kern["max"]],
+             host_ms_max=kern["host_ms_max"],
+             splits=da.split_count(n * h, Lc, torch.cuda.get_device_properties(
+                 0).multi_processor_count),
              plain_ms=plain_ms, library_ms=library_ms,
+             library_ms_median=lib_t["median"],
+             library_ms_min_max=[lib_t["min"], lib_t["max"]],
+             library_host_ms_max=lib_t["host_ms_max"],
              library="F.scaled_dot_product_attention, bf16 dequantized K/V",
              library_max_abs_err=lib_err, bound_ms=bound_ms,
              bound_by=bound_by, bytes=n_bytes, ops=ops, key_columns=cols,
@@ -451,9 +549,7 @@ def flash_phase():
             ms = time_ms(kern, flush=flush)
             plain_ms = time_ms(plain, reps=5, flush=flush)
             flops, n_bytes = work[name]
-            t_ops, t_bytes = flops / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S
-            bound_ms = max(t_ops, t_bytes) * 1e3
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            bound_ms, bound_by = bound(flops, n_bytes, BF16_FLOPS)
             emit("kernels", kernel=f"flash_{name}", case=case, ms=ms,
                  plain_ms=plain_ms, library_ms=lib[name],
                  library=("F.scaled_dot_product_attention forward"
@@ -534,6 +630,35 @@ def fused_work(m, c, k, es, res, extra):
             "wgrad": (flops, act + r + out + w + 2 * vec)}
 
 
+def unfused_sequences(d, dtype, res, extra):
+    """The unfused PyTorch sequences of the forward, dgrad and wgrad in
+    the data dtype, on the rows ``d`` of :func:`fused_inputs` (with the
+    residual if ``res``, with the extra dy if ``extra``)."""
+    import torch
+
+    sc, sh = d["scale"].to(dtype), d["shift"].to(dtype)
+    r = d["r"] if res else 0
+    g = d["dy"] if extra else 0
+
+    def fwd():
+        yy = torch.relu(d["x"] * sc + sh + r)
+        z = (yy @ d["w"]).float()
+        return z.sum(0), (z * z).sum(0)
+
+    def dgrad():
+        dy = d["dz"] @ d["w"].t() + g
+        p = d["x"] * sc + sh + r
+        dp = torch.where(p > 0, dy, 0)
+        xhat = (d["x"] - d["mean"].to(dtype)) * d["inv_std"].to(dtype)
+        return dp.float().sum(0), (dp * xhat).float().sum(0)
+
+    def wgrad():
+        yy = torch.relu(d["x"] * sc + sh + r)
+        return yy.t() @ d["dz"]
+
+    return {"fwd": fwd, "dgrad": dgrad, "wgrad": wgrad}
+
+
 def fused_conv_phase():
     """The forward, dgrad and wgrad kernels against their plain versions at
     the main path's shapes and a ragged f32 case, each timed beside its
@@ -573,31 +698,12 @@ def fused_conv_phase():
         # inputs; y is made outside the timing
         y = torch.relu(d["x"] * d["scale"].to(dtype) + d["shift"].to(dtype)
                        + (r if res else 0))
-        sc, sh = d["scale"].to(dtype), d["shift"].to(dtype)
-
-        def unfused_fwd():
-            yy = torch.relu(d["x"] * sc + sh + (r if res else 0))
-            z = (yy @ d["w"]).float()
-            return z.sum(0), (z * z).sum(0)
-
-        def unfused_dgrad():
-            dy = d["dz"] @ d["w"].t() + (g if extra else 0)
-            p = d["x"] * sc + sh + (r if res else 0)
-            dp = torch.where(p > 0, dy, 0)
-            xhat = (d["x"] - d["mean"].to(dtype)) * d["inv_std"].to(dtype)
-            return dp.float().sum(0), (dp * xhat).float().sum(0)
-
-        def unfused_wgrad():
-            yy = torch.relu(d["x"] * sc + sh + (r if res else 0))
-            return yy.t() @ d["dz"]
-
         lib = {"fwd": (lambda: y @ d["w"], "torch.matmul y @ W (cuBLAS)"),
                "dgrad": (lambda: d["dz"] @ d["w"].t(),
                          "torch.matmul dz @ W^T (cuBLAS)"),
                "wgrad": (lambda: y.t() @ d["dz"],
                          "torch.matmul y^T @ dz (cuBLAS)")}
-        unfused = {"fwd": unfused_fwd, "dgrad": unfused_dgrad,
-                   "wgrad": unfused_wgrad}
+        unfused = unfused_sequences(d, dtype, res, extra)
         rtol = fc.ROW_RTOL[dtype]
         work = fused_work(m, c, k, 2 if dt == "bf16" else 4, res, extra)
         for name, (kern, plain) in calls.items():
@@ -633,10 +739,8 @@ def fused_conv_phase():
             library_ms = time_ms(lib[name][0], flush=flush)
             unfused_ms = time_ms(unfused[name], flush=flush)
             flops, n_bytes = work[name]
-            peak = BF16_FLOPS if dt == "bf16" else F32_FLOPS
-            t_ops, t_bytes = flops / peak, n_bytes / HBM_BYTES_PER_S
-            bound_ms = max(t_ops, t_bytes) * 1e3
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            bound_ms, bound_by = bound(
+                flops, n_bytes, BF16_FLOPS if dt == "bf16" else F32_FLOPS)
             emit("fused_conv", kernel=f"fused_{name}", case=case, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms,
                  library=lib[name][1], unfused_torch_ms=unfused_ms,
@@ -654,6 +758,90 @@ def fused_conv_phase():
         del d, y
         torch.cuda.empty_cache()
     return entries
+
+
+# ResNet-50's fused edges at batch 256 (shortcut B, maybe_fuse with
+# BIGDL_PALLAS_MIN_C=128; counted on the CPU at batch 1 through the port's
+# plain versions): (M, C, K, residual with want_y and extra dy, launches per
+# step). Each edge launches the forward, the dgrad and the wgrad once per
+# step, so each kernel runs 28 times over these 10 (M, C, K).
+RESNET50_EDGES = [(802816, 256, 64, True, 2), (802816, 256, 128, True, 1),
+                  (200704, 128, 512, False, 4), (200704, 512, 128, True, 3),
+                  (200704, 512, 256, True, 1), (50176, 256, 1024, False, 6),
+                  (50176, 1024, 256, True, 5), (50176, 1024, 512, True, 1),
+                  (12544, 512, 2048, False, 3), (12544, 2048, 512, True, 2)]
+
+
+def fused_shapes_phase():
+    """The three fused-conv kernels at every (M, C, K) of ResNet-50's step
+    (bf16, batch 256): the dgrad held to its plain version at each (the
+    forward and wgrad are held at FUSED_CASES), each kernel's median time
+    beside its bound, the bare cuBLAS product and the unfused PyTorch
+    sequence; then per kernel the sum over the step of launches x (time -
+    bound), the time a kernel at its bound would save per step."""
+    import torch
+
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    dtype = torch.bfloat16
+    lost = {"fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+    kernel_ms = dict.fromkeys(lost, 0.0)
+    rtol = fc.ROW_RTOL[dtype]
+    for i, (m, c, k, res, n) in enumerate(RESNET50_EDGES):
+        d = fused_inputs(m, c, k, dtype, seed=400 + i)
+        r = d["r"] if res else None
+        g = d["dy"] if res else None
+        sc, sh = d["scale"].to(dtype), d["shift"].to(dtype)
+        dp, q = fc.fused_dgrad_cuda(d["dz"], d["w"], d["x"], d["scale"],
+                                    d["shift"], d["mean"], d["inv_std"], r, g)
+        dp_ref, q_ref = fc.fused_dgrad_reference(
+            d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
+            d["inv_std"], r, g)
+        torch.cuda.synchronize()
+        row_err = fc.max_row_rel_err(dp, dp_ref)
+        sum_err = fc.max_row_rel_err(q, q_ref)
+        finite = bool(torch.isfinite(dp).all())
+        del dp, q, dp_ref, q_ref
+        if not finite or row_err > rtol or sum_err > 1e-4:
+            raise AssertionError(f"fused dgrad at {(m, c, k)}: row err "
+                                 f"{row_err} > {rtol} or sum err {sum_err}")
+        y = torch.relu(d["x"] * sc + sh + (r if res else 0))
+        unfused = unfused_sequences(d, dtype, res, res)
+        runs = {
+            "fwd": (lambda: fc.fused_fwd_cuda(d["x"], d["scale"], d["shift"],
+                                              d["w"], r, res),
+                    lambda: y @ d["w"], unfused["fwd"]),
+            "dgrad": (lambda: fc.fused_dgrad_cuda(
+                d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
+                d["inv_std"], r, g), lambda: d["dz"] @ d["w"].t(),
+                unfused["dgrad"]),
+            "wgrad": (lambda: fc.fused_wgrad_cuda(d["x"], d["scale"],
+                                                  d["shift"], d["dz"], r,
+                                                  out_dtype=dtype),
+                      lambda: y.t() @ d["dz"], unfused["wgrad"])}
+        work = fused_work(m, c, k, 2, res, res)
+        for name, (kern, lib, unf) in runs.items():
+            t = time_stats(kern, flush=flush)
+            lib_ms = time_stats(lib, flush=flush)["median"]
+            unf_ms = time_stats(unf, flush=flush)["median"]
+            bound_ms, bound_by = bound(*work[name], BF16_FLOPS)
+            lost[name] += n * (t["median"] - bound_ms)
+            kernel_ms[name] += n * t["median"]
+            emit("fused_shapes", kernel=f"fused_{name}", shape=[m, c, k],
+                 residual=res, launches_per_step=n, ms_median=t["median"],
+                 ms_min_max=[t["min"], t["max"]],
+                 host_ms_max=t["host_ms_max"], bound_ms=bound_ms,
+                 bound_by=bound_by, roofline_share=bound_ms / t["median"],
+                 cublas_ms=lib_ms, unfused_torch_ms=unf_ms,
+                 dgrad_max_row_rel_err=row_err if name == "dgrad" else None,
+                 dgrad_max_sum_rel_err=sum_err if name == "dgrad" else None)
+        del d, y
+        torch.cuda.empty_cache()
+    emit("fused_shapes", what="per ResNet-50 step (28 launches each)",
+         kernel_ms_per_step=kernel_ms,
+         launches_x_time_minus_bound_ms=lost)
+    return lost
 
 
 # (case, N, H, W, C, K, dtype): ResNet-50's four 3x3 conv shapes at batch
@@ -745,9 +933,7 @@ def conv3x3_phase():
         del out, lib_out
         flops = 2.0 * n * h * w * c * k * 9
         n_bytes = (x.numel() + w9.numel() + n * h * w * k) * 2
-        t_ops, t_bytes = flops / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        bound_ms, bound_by = bound(flops, n_bytes, BF16_FLOPS)
         emit("conv3x3", case=case, ms=ms, entry_ms=entry_ms,
              plain_ms=plain_ms, library_ms=library_ms,
              library="F.conv2d (cuDNN), channels-last bf16, OIHW weight",
@@ -1163,6 +1349,32 @@ def train_phase(warm: int = 2, timed: int = 5):
     return launches
 
 
+def decode_step_launches(engine, vocab, rng, steps: int = 8) -> float:
+    """Device launches (kernels, copies, fills) per decode step, counted by
+    ``torch.profiler`` over ``steps`` steps with all 16 slots decoding
+    (after one admission step), as ``tools/torch_serving_profile.py``
+    counts them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = engine()
+    for _ in range(16):
+        p = rng.integers(1, vocab + 1, size=int(rng.integers(16, 257)))
+        eng.submit(p.tolist(), max_new_tokens=16)
+    with torch.no_grad():
+        eng.step()                         # admission: the prefills
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+        eng.drain()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / steps
+
+
 def serve_phase():
     """The main path at the 137m width; returns decode_attention launches."""
     import torch
@@ -1223,9 +1435,11 @@ def serve_phase():
             f"decode_attention launched {launches} times, expected "
             f"{steps} decode steps x {layers} layers")
     s = eng.summary()
+    per_step = decode_step_launches(engine, V, rng)
     emit("serve", model="137m", params=n_params, build_s=build_s,
          requests=len(reqs), new_tokens=32 * len(reqs), wall_s=wall,
          decode_steps=steps, decode_attention_launches=launches,
+         decode_step_device_launches=per_step,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(json.dumps({"tokens_per_s": s["serving/tokens_per_sec"]}))
     print(json.dumps({"ttft_p50_s": s["serving/ttft_p50_s"],
@@ -1278,10 +1492,16 @@ def main() -> int:
     for name, n in train_phase().items():
         flash[name]["launches"] = n
     fused = fused_conv_phase()
+    fused_shapes_phase()
     resnet_check_phase()
     for name, n in resnet_train_phase().items():
         fused[name]["launches"] = n
     conv = conv3x3_phase()
+    emit("timing_guard", guard_ms=guard_ms(),
+         host_enqueue_ms_max=HOST_ENQUEUE["max_ms"],
+         timed_launches=HOST_ENQUEUE["launches"],
+         launches_enqueued_after_the_guard=HOST_ENQUEUE["over_guard"],
+         kept_all_the_same=HOST_ENQUEUE["kept_over_guard"])
     print(json.dumps({"kernels": [entry]
                       + [flash[n] for n in ("fwd", "dq", "dkv")]
                       + [fused[n] for n in ("fwd", "dgrad", "wgrad")]

@@ -101,6 +101,83 @@ def test_decode_attention_kernel_refuses_what_it_does_not_support(card):
         da.pooled_decode_attention(q, k, v, pos.cpu())
 
 
+# The kernel splits each (row, head)'s live columns 0..pos over
+# split_count(N*H, L, SMs) blocks of one cluster, ceil((pos + 1) / splits)
+# columns each, and merges them in split order. The shapes below reach 1, 2
+# and MAX_SPLITS splits on any card: N*H >= 4 SMs gives 1, 2 SMs <= N*H < 4
+# SMs gives 2, N*H <= SMs/2 with L >= 256 gives 8. Positions lie on and next
+# to the split boundaries and below the split count (empty splits); every
+# result must repeat bitwise.
+def _split_shape(splits, sms):
+    """(N, H) at which split_count gives ``splits`` with ``sms`` SMs."""
+    if splits == 1:
+        return sms, 4
+    if splits == 2:
+        return -(-sms // 2), 4
+    return max(sms // 2, 1), 1
+
+
+def _boundary_positions(splits, L, n):
+    """pos below the split count (empty splits), pos where the share steps
+    from j to j + 1 columns (pos + 1 = splits*j - 1, splits*j, splits*j + 1),
+    pos on and next to s*j for a few shares j, and L - 1."""
+    pos = list(range(splits)) + [L - 1]
+    for j in (1, 3, 17, 37):
+        pos += [splits * j - 2, splits * j - 1, splits * j]
+    for j in (3, 17, 64):
+        for s in range(1, splits):
+            pos += [j * s - 1, j * s, j * s + 1]
+    pos = sorted({min(max(p, 0), L - 1) for p in pos})
+    return (pos * n)[:n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 8])
+@pytest.mark.parametrize("kind", ["int8", "bf16", "fp32"])
+def test_decode_attention_splits_at_their_boundaries(card, kind, splits):
+    from bigdl_tpu_torch.ops import decode_attention as da
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    (n, h), L = _split_shape(splits, sms), 300
+    assert da.split_count(n * h, L, sms) == splits
+    q, k, v, _, ks, vs = _inputs(kind, n, L, h, 64, seed=splits)
+    pos = torch.tensor(_boundary_positions(splits, L, n), device="cuda",
+                       dtype=torch.int32)
+    before = da.launches
+    got = da.pooled_decode_attention(q, k, v, pos, ks, vs,
+                                     out_dtype=torch.float32)
+    again = da.pooled_decode_attention(q, k, v, pos, ks, vs,
+                                       out_dtype=torch.float32)
+    want = da.decode_attention_reference(q, k, v, pos, ks, vs,
+                                         out_dtype=torch.float32)
+    merged = da.decode_attention_split_reference(
+        q, k, v, pos, ks, vs, out_dtype=torch.float32, splits=splits)
+    torch.cuda.synchronize()
+    assert da.launches == before + 2
+    assert float((got - want).abs().max()) <= TOL[kind]
+    assert float((got - merged).abs().max()) <= TOL[kind]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_decode_attention_reads_bf16_q_and_int64_pos_as_they_arrive(card):
+    """The int8 path widens q exactly and pos is read in either width, so
+    bf16 q with int64 pos (the engine's call) gives bitwise what the same
+    values as f32 q and int32 pos give."""
+    from bigdl_tpu_torch.ops import decode_attention as da
+
+    q, k, v, pos, ks, vs = _inputs("int8", 16, 512, 12, 64, seed=4)
+    qb = q.to(torch.bfloat16)
+    got = da.pooled_decode_attention(qb, k, v, pos.long(), ks, vs,
+                                     out_dtype=torch.bfloat16)
+    same = da.pooled_decode_attention(qb.float(), k, v, pos, ks, vs,
+                                      out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+    with pytest.raises(ValueError, match="pos dtype"):
+        da.pooled_decode_attention(qb, k, v, pos.short(), ks, vs)
+
+
 def _flash_inputs(b, tq, tk, h, d, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -359,6 +436,40 @@ def test_fused_conv_kernels_match_plain_versions(card, case, dtype):
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
     assert torch.equal(fc.fused_wgrad_cuda(d["x"], d["scale"], d["shift"],
                                            d["dz"], r, out_dtype=dtype), dw)
+
+
+# ResNet-50's 10 dgrad (C, K) pairs at a small ragged M (the bf16 kernel
+# takes its BN 64 shape for K <= 128 and its BN 128 shape above), and
+# whether the edge reads the residual and an extra dy
+RESNET50_DGRAD = [(256, 64, True), (256, 128, True), (128, 512, False),
+                  (512, 128, True), (512, 256, True), (256, 1024, False),
+                  (1024, 256, True), (1024, 512, True), (512, 2048, False),
+                  (2048, 512, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,k,res", RESNET50_DGRAD)
+def test_fused_dgrad_at_resnet50_shapes_repeats_bitwise(card, c, k, res,
+                                                        dtype):
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    m = 1000 + c % 97                     # several 128-row tiles, ragged
+    d = _fused_inputs(m, c, k, dtype, seed=c + k)
+    r = d["r"] if res else None
+    g = d["dy"] if res else None
+    args = (d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
+            d["inv_std"], r, g)
+    before = fc.dgrad_launches
+    dp, q = fc.fused_dgrad_cuda(*args)
+    dp2, q2 = fc.fused_dgrad_cuda(*args)
+    dp_ref, q_ref = fc.fused_dgrad_reference(*args)
+    torch.cuda.synchronize()
+    assert fc.dgrad_launches == before + 2
+    assert dp.dtype == dtype and bool(torch.isfinite(dp).all())
+    assert fc.max_row_rel_err(dp, dp_ref) <= fc.ROW_RTOL[dtype]
+    assert fc.max_row_rel_err(q, q_ref) <= 1e-4
+    assert torch.equal(dp, dp2) and torch.equal(q, q2)
 
 
 @pytest.mark.cuda

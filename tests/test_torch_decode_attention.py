@@ -125,3 +125,61 @@ def test_validation():
     with pytest.raises(ValueError, match="pos"):
         tda.decode_attention_reference(tq, tk, tv, tp[:2], k_scale=tks,
                                        v_scale=tvs)
+
+
+# the kernel splits each row's live columns over several blocks and merges
+# their online-softmax states in one launch: the wrapper's choice of the
+# split count, and the split-and-merge arithmetic in plain PyTorch
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+@pytest.mark.parametrize("L", [1, 2, 31, 32, 95, 512, 4096])
+def test_split_count_is_bounded_and_deterministic(L, sms):
+    for rows_heads in range(1, 193):
+        s = tda.split_count(rows_heads, L, sms)
+        assert 1 <= s <= min(tda.MAX_SPLITS, L)
+        assert s == tda.split_count(rows_heads, L, sms)
+    # few rows on a long cache split as far as a cluster allows
+    if L >= 32 * tda.MAX_SPLITS and sms >= 114:
+        assert tda.split_count(1, L, sms) == tda.MAX_SPLITS
+
+
+def test_split_count_at_the_serving_shape():
+    """16 slots x 12 heads on an H100's 132 SMs: 3 splits per (row, head)."""
+    assert tda.split_count(16 * 12, 512, 132) == 3
+
+
+@pytest.mark.parametrize("sms", [16, 78, 114, 132])
+def test_split_count_reaches_one_two_and_the_most_splits(sms):
+    """The card tests' shapes reach every split count they test from the
+    SM count alone: N*H >= 4 SMs gives 1, 2 SMs <= N*H < 4 SMs gives 2,
+    N*H <= SMs/2 over 300 columns gives MAX_SPLITS."""
+    assert tda.split_count(sms * 4, 300, sms) == 1
+    assert tda.split_count(-(-sms // 2) * 4, 300, sms) == 2
+    assert tda.split_count(sms // 2, 300, sms) == tda.MAX_SPLITS
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("kind", ["int8", "bf16", "fp32"])
+def test_split_merge_matches_jax_reference(kind, splits):
+    """Rows at pos 0 and 2 leave most of 8 splits empty (wholly past pos);
+    pos L-1 fills every split."""
+    args = list(_inputs(kind, n=5, L=70, seed=2))
+    args[3] = np.asarray([0, 69, 2, 40, 7], np.int32)
+    jq, jk, jv, jp, jks, jvs = _jax(kind, *args)
+    want = np.asarray(jax_reference(jq, jk, jv, jp, k_scale=jks,
+                                    v_scale=jvs, out_dtype=jnp.float32))
+    tq, tk, tv, tp, tks, tvs = _torch(kind, *args)
+    got = tda.decode_attention_split_reference(
+        tq, tk, tv, tp, k_scale=tks, v_scale=tvs, out_dtype=torch.float32,
+        splits=splits)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL[kind], rtol=0)
+
+
+def test_split_merge_with_one_split_is_the_plain_version():
+    tq, tk, tv, tp, tks, tvs = _torch("int8", *_inputs("int8", seed=3))
+    one = tda.decode_attention_split_reference(tq, tk, tv, tp, tks, tvs,
+                                               out_dtype=torch.float32)
+    want = tda.decode_attention_reference(tq, tk, tv, tp, tks, tvs,
+                                          out_dtype=torch.float32)
+    torch.testing.assert_close(one, want, atol=2e-6, rtol=0)

@@ -209,3 +209,39 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
                            torch.from_numpy(d["scale"]),
                            torch.from_numpy(d["shift"]),
                            torch.from_numpy(d["w"]))
+
+
+# ResNet-50's fused edges (shortcut B, BIGDL_PALLAS_MIN_C=128): the (C, K)
+# of its 28 dgrad launches per step, and whether the edge reads the block's
+# residual (those also take an extra dy, the join's second consumer). Small
+# ragged M: the JAX kernel runs in interpret mode, ~1 s per case at C 2048.
+RESNET50_DGRAD = [(256, 64, True), (256, 128, True), (128, 512, False),
+                  (512, 128, True), (512, 256, True), (256, 1024, False),
+                  (1024, 256, True), (1024, 512, True), (512, 2048, False),
+                  (2048, 512, True)]
+
+
+@pytest.mark.parametrize("c,k,res", RESNET50_DGRAD)
+def test_dgrad_plain_version_matches_jax_at_resnet50_edges(c, k, res):
+    m = 40 + (c + k) % 33                  # 40..72 rows, not a tile multiple
+    d = _inputs(m, c, k, seed=c + 2 * k)
+    r = d["r"] if res else None
+    g = d["dy"] if res else None
+    want = jfc.fused_dgrad(
+        jnp.asarray(d["dz"]), jnp.asarray(d["w"]), jnp.asarray(d["x"]),
+        jnp.asarray(d["scale"]), jnp.asarray(d["shift"]),
+        jnp.asarray(d["mean"]), jnp.asarray(d["inv_std"]),
+        residual=None if r is None else jnp.asarray(r),
+        extra_dy=None if g is None else jnp.asarray(g))
+    got = tfc.fused_dgrad(
+        torch.from_numpy(d["dz"]), torch.from_numpy(d["w"]),
+        torch.from_numpy(d["x"]), torch.from_numpy(d["scale"]),
+        torch.from_numpy(d["shift"]), torch.from_numpy(d["mean"]),
+        torch.from_numpy(d["inv_std"]),
+        residual=None if r is None else torch.from_numpy(r),
+        extra_dy=None if g is None else torch.from_numpy(g))
+    _close(got[0], want[0])
+    dp = got[0].double().numpy()
+    xhat = (d["x"] - d["mean"]) * d["inv_std"]
+    _close_sums(got[1][0], want[1][0], np.abs(dp).sum(0))
+    _close_sums(got[1][1], want[1][1], np.abs(dp * xhat).sum(0))

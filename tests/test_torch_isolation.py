@@ -90,7 +90,8 @@ def test_fresh_interpreter_imports_no_jax_and_no_jax_package():
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "tools/torch_serving_profile.py",
        "tools/torch_training_profile.py",
-       "tools/torch_flash_fault_check.py", "tools/torch_resnet_profile.py"]))
+       "tools/torch_flash_fault_check.py", "tools/torch_resnet_profile.py",
+       "tools/torch_kernel_times.py"]))
 def test_no_source_file_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     hits = []

@@ -12,8 +12,9 @@ first ``step()`` (admission: the bucketed prefills plus one decode step)
 and the next 8 steps (pure decode, all 16 slots running). One JSON line
 per window: wall time, device busy time (the kernels' device intervals,
 overlaps merged), the device's idle share, kernel launches per step,
-host synchronisation calls, the decode-attention kernel's share, and the
-top kernels by device time.
+host synchronisation calls, the decode-attention kernel's share, the
+top kernels by device time, and every device launch's name with its
+count per step.
 
 It imports neither jax nor the JAX package. Run it on the card; with no
 card it exits non-zero.
@@ -70,7 +71,10 @@ def _window(name, prof, wall, steps):
         "decode_attention_calls": sum(n for _, n in da),
         "decode_attention_share": sum(t for t, _ in da) / total,
         "top": [{"name": k[:80], "device_ms": t / 1e3, "calls": n,
-                 "share": t / total} for k, (t, n) in top]}))
+                 "share": t / total} for k, (t, n) in top],
+        "launches_per_step_by_name": {
+            k: n / max(steps, 1) for k, (_, n) in sorted(
+                by_name.items(), key=lambda kv: (-kv[1][1], kv[0]))}}))
 
 
 def main(argv=None) -> int:

@@ -1,12 +1,13 @@
 // Hopper building blocks shared by the wgmma kernels (conv3x3.cu, the
-// flash forward, dq and dk/dv kernels of flash_attention.cu, and the dgrad
-// of fused_conv.cu): shared-memory matrix descriptors for bf16 tiles in the
-// 128-byte swizzle, the warpgroup matrix products (wgmma m64nNk16, f32
-// accumulate) the kernels use, TMA tensor loads that complete on an
-// mbarrier and bulk-group tensor stores (the tensor maps encoded on the
-// host through the runtime's entry-point query, since the libraries link
-// only cudart), 4-byte cp.async copies that complete on an mbarrier, and the
-// mbarrier and named-barrier helpers. Compiled only for sm_90a
+// flash forward, dq and dk/dv kernels of flash_attention.cu, and the
+// forward, dgrad and wgrad of fused_conv.cu): shared-memory matrix
+// descriptors for bf16 tiles in the 128-byte swizzle, the warpgroup
+// matrix products (wgmma m64nNk16, f32 accumulate) the kernels use, TMA
+// tensor loads that complete on an mbarrier and bulk-group tensor stores
+// (the tensor maps encoded on the host through the runtime's entry-point
+// query, since the libraries link only cudart), 4-byte cp.async copies
+// that complete on an mbarrier, setmaxnreg, and the mbarrier and
+// named-barrier helpers. Compiled only for sm_90a
 // (utils/cuda_build.py): wgmma does not exist without the "a". Each kernel
 // source is its own library, so everything here is inline;
 // utils/cuda_build.py hashes this header into every library's name, so an
@@ -25,7 +26,9 @@
 //   * MN-major operand (the output index runs along a row: V, the conv
 //     weights w9[t, c, k] as they lie): each row is one k; the k16 step kk
 //     starts 16 rows = 2048 bytes further, and the panels of 64 output
-//     columns are the descriptor's leading-byte-offset apart.
+//     columns are the descriptor's leading-byte-offset apart. A is read
+//     MN-major too with kTransA (the fused wgrad's activation rows, whose
+//     channels are dW's rows): one panel covers its 64 rows.
 //
 // Accumulator layout of m64nNk16 (per thread of the warpgroup, warp w =
 // thread / 32 % 4, lane l): d[4j + 2i + e] is row 16w + l/4 + 8i, column
@@ -143,9 +146,9 @@ __device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
-// d (m64 x n64, f32) += A (smem, K-major) x B (smem, K-major or,
-// with kTransB, MN-major); scale_d = 0 overwrites d
-template <int kTransB>
+// d (m64 x n64, f32) += A (smem, K-major or, with kTransA, MN-major) x
+// B (smem, K-major or, with kTransB, MN-major); scale_d = 0 overwrites d
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d) {
   asm volatile(
@@ -155,7 +158,7 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
       "%30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -163,7 +166,7 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
 // d (m64 x n64, f32) += A (registers: the m64k16 fragment as bf16
@@ -192,9 +195,9 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
         "r"(scale_d), "n"(kTransB));
 }
 
-// d (m64 x n128, f32) += A (smem, K-major) x B (smem, K-major or,
-// with kTransB, MN-major); scale_d = 0 overwrites d
-template <int kTransB>
+// d (m64 x n128, f32) += A (smem, K-major or, with kTransA, MN-major) x
+// B (smem, K-major or, with kTransB, MN-major); scale_d = 0 overwrites d
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
                                            uint64_t db, int scale_d) {
   asm volatile(
@@ -206,7 +209,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
       "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
       "%58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -220,7 +223,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
 // d (m64 x n128, f32) += A (registers: the m64k16 fragment as bf16
@@ -257,9 +260,9 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
         "r"(scale_d), "n"(kTransB));
 }
 
-// d (m64 x n256, f32) += A (smem, K-major) x B (smem, K-major or,
-// with kTransB, MN-major); scale_d = 0 overwrites d
-template <int kTransB>
+// d (m64 x n256, f32) += A (smem, K-major or, with kTransA, MN-major) x
+// B (smem, K-major or, with kTransB, MN-major); scale_d = 0 overwrites d
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
                                            uint64_t db, int scale_d) {
   asm volatile(
@@ -276,7 +279,7 @@ __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
       "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
       "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
       "%122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      "%128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -304,7 +307,7 @@ __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
 // 2^x in one MUFU.EX2 (approximate, denormals flushed)
@@ -318,6 +321,23 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------ register reallocation
+
+// this warpgroup's threads give up registers down to N each (every thread
+// of the warpgroup executes it: a loader warpgroup that needs few)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// this warpgroup's threads take registers up to N each, from those given
+// up (a consumer warpgroup whose accumulators outgrow the block's even
+// share; ptxas allocates the code that follows within N)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ------------------------------------------------------------- mbarrier

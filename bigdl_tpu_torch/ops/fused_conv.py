@@ -11,12 +11,20 @@ prologue: with x̂ = (x − μ)/σ, p = x̂·γ + β (+ r), y = relu(p), z = y·
   ``zstats = [Σz, Σz²]`` over all M rows, taken from the f32 accumulator
   before z is rounded (the next BN's batch statistics, so no pass re-reads
   z), and the post-ReLU ``y`` when ``want_y`` (a second consumer needs it);
+  in bf16 with C and K multiples of 8 on Hopper's ``wgmma`` with x, r and
+  W streamed by TMA and y built once per tile in shared memory
+  (``fwd_wgmma``);
 * dgrad (:func:`fused_dgrad`, ``_dgrad_kernel`` ``:281``):
   ``dp = (dz @ Wᵀ (+ dy)) ⊙ 1[p > 0]`` with ``q = [Σdp, Σdp·x̂]`` per input
   channel (dβ and dγ); in bf16 with C and K multiples of 8 on Hopper's
   ``wgmma`` with TMA-streamed x, r, dy and dp tiles (``dgrad_wgmma``);
 * wgrad (:func:`fused_wgrad`, ``_wgrad_kernel`` ``:405``):
-  ``dW = relu(x·scale + shift (+ r))ᵀ @ dz``, y recomputed, never stored.
+  ``dW = relu(x·scale + shift (+ r))ᵀ @ dz``, y recomputed, never stored;
+  in bf16 with C and K multiples of 8 on ``wgmma`` with yᵀ read as a
+  transposed shared-memory operand (``wgrad_wgmma``).
+
+The other rows (f32, and bf16 with C or K not a multiple of 8) take the
+``mma.sync``/scalar kernels of the same file.
 
 :func:`bn_relu_conv1x1` is the differentiable edge (one
 ``torch.autograd.Function``, the JAX ``custom_vjp``): its backward is
@@ -139,10 +147,12 @@ def _card(*tensors):
 
 
 def _f32_vec(v, c, dev):
+    """A (C,) f32 vector on ``dev``, contiguous and 16-byte aligned (the
+    wgmma kernels read it 16 bytes at a time)."""
     v = v.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     if v.numel() != c:
         raise ValueError(f"per-channel vector of {v.numel()} for C={c}")
-    return v
+    return v.clone() if v.data_ptr() % 16 else v
 
 
 def _dtype_code(x, *others):
@@ -166,8 +176,10 @@ def _check(err, what):
             f"fused-conv {what} kernel launch failed: cudaError {err}")
 
 
-def _scratch(which: int, m: int, c: int, k: int, dev):
-    n = _library().bigdl_fused_conv_scratch(which, m, c, k)
+def _scratch(which: int, m: int, c: int, k: int, code: int, dev):
+    """The f32 partials' scratch of one call, sized for the kernel its
+    dtype and shape take (the size depends on the current card's SMs)."""
+    n = _library().bigdl_fused_conv_scratch(which, m, c, k, code)
     return torch.empty(max(n, 1), dtype=torch.float32, device=dev)
 
 
@@ -189,8 +201,8 @@ def fused_fwd_cuda(x, scale, shift, w, residual=None, want_y: bool = False):
     y = torch.empty_like(x) if want_y else None
     if m == 0:
         return (z, zstats, y) if want_y else (z, zstats)
-    scratch = _scratch(0, m, c, k, x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the scratch depends on its SMs
+        scratch = _scratch(0, m, c, k, code, x.device)
         err = _library().bigdl_fused_fwd(
             x.data_ptr(), _ptr(residual), scale.data_ptr(), shift.data_ptr(),
             w.data_ptr(), z.data_ptr(), _ptr(y), zstats.data_ptr(),
@@ -221,7 +233,7 @@ def fused_dgrad_cuda(dz, w, x, scale, shift, mean, inv_std, residual=None,
     if m == 0:
         return dp, q
     with torch.cuda.device(x.device):  # the scratch depends on its SMs
-        scratch = _scratch(1, m, c, k, x.device)
+        scratch = _scratch(1, m, c, k, code, x.device)
         err = _library().bigdl_fused_dgrad(
             dz.data_ptr(), w.data_ptr(), x.data_ptr(), _ptr(residual),
             _ptr(extra_dy), *(v.data_ptr() for v in vecs), dp.data_ptr(),
@@ -251,8 +263,8 @@ def fused_wgrad_cuda(x, scale, shift, dz, residual=None,
     dw = torch.empty((c, k), dtype=out_dtype, device=x.device)
     if m == 0:
         return dw.zero_()
-    scratch = _scratch(2, m, c, k, x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the scratch depends on its SMs
+        scratch = _scratch(2, m, c, k, code, x.device)
         err = _library().bigdl_fused_wgrad(
             x.data_ptr(), _ptr(residual), scale.data_ptr(), shift.data_ptr(),
             dz.data_ptr(), dw.data_ptr(), scratch.data_ptr(), m, c, k, code,
@@ -368,7 +380,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a library built from
     ``csrc/fused_conv.cu``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.bigdl_fused_conv_scratch.argtypes = [i] * 4
+    lib.bigdl_fused_conv_scratch.argtypes = [i] * 5
     lib.bigdl_fused_conv_scratch.restype = ctypes.c_longlong
     lib.bigdl_fused_fwd.argtypes = [vp] * 9 + [i] * 4 + [vp]
     lib.bigdl_fused_dgrad.argtypes = [vp] * 12 + [i] * 4 + [vp]

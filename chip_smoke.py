@@ -18,8 +18,9 @@ any failure raises, so the exit code is non-zero and no result prints:
               ``ptxas -v``, and the count of ``HGMMA`` (wgmma) instructions
               in the SASS (``cuobjdump -sass``) of each wgmma kernel
               (conv3x3's, the flash forward, dq and dk/dv, the fused-conv
-              dgrad), which must be above zero; a ptxas line reporting wgmma
-              serialized in dq, dk/dv or the dgrad fails the build;
+              forward, dgrad and wgrad), which must be above zero; a ptxas
+              line reporting wgmma serialized in dq, dk/dv or a fused-conv
+              kernel fails the build;
 3. kernels  — each kernel against its plain PyTorch version on the card at
               its main path's shapes: decode attention at the serving shape
               (N=16 rows, H=12 heads, L=512, D=64) with per-row positions
@@ -63,7 +64,7 @@ any failure raises, so the exit code is non-zero and no result prints:
               cuBLAS product and unfused-torch times, and the bound;
 10. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
               K) that ResNet-50's step launches them at (batch 256, bf16):
-              the dgrad against its plain version, each kernel's median and
+              each against its plain version, each kernel's median and
               min-max time beside its bound, the cuBLAS product and the
               unfused sequence, and per kernel the step's sum of launches x
               (time - bound);
@@ -135,9 +136,13 @@ def ptxas_summary(log: str) -> dict:
 #: the wgmma kernels, by library: each must hold HGMMA instructions
 WGMMA_KERNELS = {"conv3x3": ("conv3x3_wgmma",),
                  "flash_attention": ("fwd_wgmma", "dq_wgmma", "dkv_wgmma"),
-                 "fused_conv": ("dgrad_wgmma",)}
-#: kernels that must build without a "wgmma ... serialized" ptxas line
-NO_SERIALIZED_WGMMA = ("dq_wgmma", "dkv_wgmma", "dgrad_wgmma")
+                 "fused_conv": ("fwd_wgmma", "fwd_panel_wgmma", "dgrad_wgmma",
+                                "wgrad_wgmma")}
+#: kernels, by library, that must build without a "wgmma ... serialized"
+#: ptxas line (by library: both libraries have a ``fwd_wgmma``)
+NO_SERIALIZED_WGMMA = {"flash_attention": ("dq_wgmma", "dkv_wgmma"),
+                       "fused_conv": ("fwd_wgmma", "fwd_panel_wgmma",
+                                      "dgrad_wgmma", "wgrad_wgmma")}
 
 
 def hgmma_per_kernel(name: str) -> dict:
@@ -163,12 +168,14 @@ def hgmma_per_kernel(name: str) -> dict:
     return counts
 
 
-def serialized_wgmma(log: str) -> list:
-    """The ptxas lines (``-Xptxas -v``) that report wgmma serialized
-    (C7510-C7520) in a kernel of ``NO_SERIALIZED_WGMMA``."""
+def serialized_wgmma(name: str, log: str) -> list:
+    """The ptxas lines (``-Xptxas -v``) of library ``name`` that report
+    wgmma serialized (C7510-C7520) in a kernel of its
+    ``NO_SERIALIZED_WGMMA``."""
+    kernels = NO_SERIALIZED_WGMMA.get(name, ())
     return [line.strip() for line in log.splitlines()
             if re.search(r"C75(1\d|20)", line) and "wgmma" in line
-            and any(k in line for k in NO_SERIALIZED_WGMMA)]
+            and any(k in line for k in kernels)]
 
 
 #: host time to enqueue the event pair and ``fn`` of each timed launch of
@@ -659,6 +666,52 @@ def unfused_sequences(d, dtype, res, extra):
     return {"fwd": fwd, "dgrad": dgrad, "wgrad": wgrad}
 
 
+def fused_calls(d, dtype, r, g, want_y):
+    """The three fused-conv kernels and their plain versions on the rows
+    ``d`` of :func:`fused_inputs`: ``{name: (kernel, plain)}``; r, g: the
+    residual and extra dy or None; want_y: the forward also returns y."""
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    return {
+        "fwd": (lambda: fc.fused_fwd_cuda(d["x"], d["scale"], d["shift"],
+                                          d["w"], r, want_y),
+                lambda: fc.fused_fwd_reference(d["x"], d["scale"], d["shift"],
+                                               d["w"], r, want_y)),
+        "dgrad": (lambda: fc.fused_dgrad_cuda(
+            d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
+            d["inv_std"], r, g),
+            lambda: fc.fused_dgrad_reference(
+            d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
+            d["inv_std"], r, g)),
+        "wgrad": (lambda: fc.fused_wgrad_cuda(d["x"], d["scale"], d["shift"],
+                                              d["dz"], r, out_dtype=dtype),
+                  lambda: fc.fused_wgrad_reference(d["x"], d["scale"],
+                                                   d["shift"], d["dz"], r,
+                                                   out_dtype=dtype))}
+
+
+def fused_errors(name, kern, plain):
+    """Runs a fused kernel and its plain version: (max per-row relative
+    error of the outputs, of the f32 channel sums — zstats, q: output 1 of
+    fwd and dgrad; 0 for the wgrad —, max abs error of the outputs, all
+    finite)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    outs = [(a, b) for j, (a, b) in enumerate(zip(got, want))
+            if name == "wgrad" or j != 1]
+    row_err = max(fc.max_row_rel_err(a, b) for a, b in outs)
+    sum_err = 0.0 if name == "wgrad" else fc.max_row_rel_err(got[1], want[1])
+    abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in outs)
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    return row_err, sum_err, abs_err, finite
+
+
 def fused_conv_phase():
     """The forward, dgrad and wgrad kernels against their plain versions at
     the main path's shapes and a ragged f32 case, each timed beside its
@@ -675,24 +728,7 @@ def fused_conv_phase():
         d = fused_inputs(m, c, k, dtype, seed=200 + i)
         r = d["r"] if res else None
         g = d["dy"] if extra else None
-        calls = {
-            "fwd": (lambda: fc.fused_fwd_cuda(d["x"], d["scale"], d["shift"],
-                                              d["w"], r, extra),
-                    lambda: fc.fused_fwd_reference(d["x"], d["scale"],
-                                                   d["shift"], d["w"], r,
-                                                   extra)),
-            "dgrad": (lambda: fc.fused_dgrad_cuda(
-                d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
-                d["inv_std"], r, g),
-                lambda: fc.fused_dgrad_reference(
-                d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
-                d["inv_std"], r, g)),
-            "wgrad": (lambda: fc.fused_wgrad_cuda(d["x"], d["scale"],
-                                                  d["shift"], d["dz"], r,
-                                                  out_dtype=dtype),
-                      lambda: fc.fused_wgrad_reference(d["x"], d["scale"],
-                                                       d["shift"], d["dz"], r,
-                                                       out_dtype=dtype))}
+        calls = fused_calls(d, dtype, r, g, extra)
         # the bare cuBLAS product of each kernel (the library yardstick) and
         # the unfused PyTorch sequence in the data dtype, both on the same
         # inputs; y is made outside the timing
@@ -707,21 +743,10 @@ def fused_conv_phase():
         rtol = fc.ROW_RTOL[dtype]
         work = fused_work(m, c, k, 2 if dt == "bf16" else 4, res, extra)
         for name, (kern, plain) in calls.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
             # outputs held row by row; the f32 channel sums (zstats, q) by
             # their rows too, at 1e-4
-            errs, sums = [], []
-            for j, (a, b) in enumerate(zip(got, want)):
-                is_sum = name != "wgrad" and j == 1
-                (sums if is_sum else errs).append(fc.max_row_rel_err(a, b))
-            abs_err = max(float((a.float() - b.float()).abs().max())
-                          for j, (a, b) in enumerate(zip(got, want))
-                          if name == "wgrad" or j != 1)
-            finite = all(bool(torch.isfinite(a).all()) for a in got)
-            row_err, sum_err = max(errs), max(sums, default=0.0)
+            row_err, sum_err, abs_err, finite = fused_errors(name, kern,
+                                                             plain)
             emit("fused_conv", kernel=f"fused_{name}", case=case,
                  shape=[m, c, k], dtype=dt, residual=res, want_y_extra=extra,
                  max_abs_err=abs_err, max_row_rel_err=row_err, rtol=rtol,
@@ -733,7 +758,6 @@ def fused_conv_phase():
                 raise AssertionError(
                     f"fused {name} {case}: row err {row_err} > {rtol} or "
                     f"sum err {sum_err} > 1e-4")
-            del got, want
             ms = time_ms(kern, flush=flush)
             plain_ms = time_ms(plain, reps=5, flush=flush)
             library_ms = time_ms(lib[name][0], flush=flush)
@@ -774,11 +798,11 @@ RESNET50_EDGES = [(802816, 256, 64, True, 2), (802816, 256, 128, True, 1),
 
 def fused_shapes_phase():
     """The three fused-conv kernels at every (M, C, K) of ResNet-50's step
-    (bf16, batch 256): the dgrad held to its plain version at each (the
-    forward and wgrad are held at FUSED_CASES), each kernel's median time
-    beside its bound, the bare cuBLAS product and the unfused PyTorch
-    sequence; then per kernel the sum over the step of launches x (time -
-    bound), the time a kernel at its bound would save per step."""
+    (bf16, batch 256): each held to its plain version at each (outputs row
+    by row, the f32 sums at 1e-4), each kernel's median time beside its
+    bound, the bare cuBLAS product and the unfused PyTorch sequence; then
+    per kernel the sum over the step of launches x (time - bound), the time
+    a kernel at its bound would save per step."""
     import torch
 
     from bigdl_tpu_torch.ops import fused_conv as fc
@@ -793,33 +817,24 @@ def fused_shapes_phase():
         r = d["r"] if res else None
         g = d["dy"] if res else None
         sc, sh = d["scale"].to(dtype), d["shift"].to(dtype)
-        dp, q = fc.fused_dgrad_cuda(d["dz"], d["w"], d["x"], d["scale"],
-                                    d["shift"], d["mean"], d["inv_std"], r, g)
-        dp_ref, q_ref = fc.fused_dgrad_reference(
-            d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
-            d["inv_std"], r, g)
-        torch.cuda.synchronize()
-        row_err = fc.max_row_rel_err(dp, dp_ref)
-        sum_err = fc.max_row_rel_err(q, q_ref)
-        finite = bool(torch.isfinite(dp).all())
-        del dp, q, dp_ref, q_ref
-        if not finite or row_err > rtol or sum_err > 1e-4:
-            raise AssertionError(f"fused dgrad at {(m, c, k)}: row err "
-                                 f"{row_err} > {rtol} or sum err {sum_err}")
+        calls = fused_calls(d, dtype, r, g, res)
+        errs = {}
+        for name, (kern, plain) in calls.items():
+            row_err, sum_err, _, finite = fused_errors(name, kern, plain)
+            errs[name] = (row_err, sum_err)
+            if not finite or row_err > rtol or sum_err > 1e-4:
+                raise AssertionError(
+                    f"fused {name} at {(m, c, k)}: row err {row_err} > "
+                    f"{rtol} or sum err {sum_err} > 1e-4")
+        torch.cuda.empty_cache()
         y = torch.relu(d["x"] * sc + sh + (r if res else 0))
         unfused = unfused_sequences(d, dtype, res, res)
         runs = {
-            "fwd": (lambda: fc.fused_fwd_cuda(d["x"], d["scale"], d["shift"],
-                                              d["w"], r, res),
-                    lambda: y @ d["w"], unfused["fwd"]),
-            "dgrad": (lambda: fc.fused_dgrad_cuda(
-                d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
-                d["inv_std"], r, g), lambda: d["dz"] @ d["w"].t(),
-                unfused["dgrad"]),
-            "wgrad": (lambda: fc.fused_wgrad_cuda(d["x"], d["scale"],
-                                                  d["shift"], d["dz"], r,
-                                                  out_dtype=dtype),
-                      lambda: y.t() @ d["dz"], unfused["wgrad"])}
+            "fwd": (calls["fwd"][0], lambda: y @ d["w"], unfused["fwd"]),
+            "dgrad": (calls["dgrad"][0], lambda: d["dz"] @ d["w"].t(),
+                      unfused["dgrad"]),
+            "wgrad": (calls["wgrad"][0], lambda: y.t() @ d["dz"],
+                      unfused["wgrad"])}
         work = fused_work(m, c, k, 2, res, res)
         for name, (kern, lib, unf) in runs.items():
             t = time_stats(kern, flush=flush)
@@ -834,8 +849,8 @@ def fused_shapes_phase():
                  host_ms_max=t["host_ms_max"], bound_ms=bound_ms,
                  bound_by=bound_by, roofline_share=bound_ms / t["median"],
                  cublas_ms=lib_ms, unfused_torch_ms=unf_ms,
-                 dgrad_max_row_rel_err=row_err if name == "dgrad" else None,
-                 dgrad_max_sum_rel_err=sum_err if name == "dgrad" else None)
+                 max_row_rel_err=errs[name][0],
+                 max_sum_rel_err=errs[name][1] if name != "wgrad" else None)
         del d, y
         torch.cuda.empty_cache()
     emit("fused_shapes", what="per ResNet-50 step (28 launches each)",
@@ -1469,8 +1484,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
     hgmma = {name: hgmma_per_kernel(name) for name in WGMMA_KERNELS}
-    serialized = [line for log in logs.values()
-                  for line in serialized_wgmma(log)]
+    serialized = [line for name, log in logs.items()
+                  for line in serialized_wgmma(name, log)]
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={name: ptxas_summary(log) for name, log in logs.items()},
          hgmma=hgmma, wgmma_serialized=serialized)

@@ -438,10 +438,14 @@ def test_fused_conv_kernels_match_plain_versions(card, case, dtype):
                                            d["dz"], r, out_dtype=dtype), dw)
 
 
-# ResNet-50's 10 dgrad (C, K) pairs at a small ragged M (the bf16 kernel
-# takes its BN 64 shape for K <= 128 and its BN 128 shape above), and
-# whether the edge reads the residual and an extra dy
-RESNET50_DGRAD = [(256, 64, True), (256, 128, True), (128, 512, False),
+# ResNet-50's 10 (C, K) pairs of the fused edges, run at a small ragged M
+# (several 128-row tiles), and whether the edge reads the residual (those
+# also want y and take an extra dy). In bf16 they cover every tile shape
+# of the wgmma kernels: the dgrad's BN 64 (K <= 128) and BN 128; the
+# forward's BN 64 (K 64), BN 128 with 1 to 4 N tiles, and its resident y
+# panel (K > 256 without a residual); the wgrad's 256 x 64, 128 x 128 and
+# 128 x 64 tiles.
+RESNET50_EDGES = [(256, 64, True), (256, 128, True), (128, 512, False),
                   (512, 128, True), (512, 256, True), (256, 1024, False),
                   (1024, 256, True), (1024, 512, True), (512, 2048, False),
                   (2048, 512, True)]
@@ -449,7 +453,95 @@ RESNET50_DGRAD = [(256, 64, True), (256, 128, True), (128, 512, False),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("c,k,res", RESNET50_DGRAD)
+@pytest.mark.parametrize("c,k,res", RESNET50_EDGES)
+def test_fused_forward_at_resnet50_shapes_repeats_bitwise(card, c, k, res,
+                                                          dtype):
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    m = 1000 + c % 97                     # several 128-row tiles, ragged
+    d = _fused_inputs(m, c, k, dtype, seed=c + 3 * k)
+    args = (d["x"], d["scale"], d["shift"], d["w"], d["r"] if res else None,
+            res)
+    before = fc.fwd_launches
+    got = fc.fused_fwd_cuda(*args)
+    again = fc.fused_fwd_cuda(*args)
+    want = fc.fused_fwd_reference(*args)
+    torch.cuda.synchronize()
+    assert fc.fwd_launches == before + 2
+    assert len(got) == len(want) == (3 if res else 2)
+    for j, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        rtol = 1e-4 if j == 1 else fc.ROW_RTOL[dtype]
+        assert fc.max_row_rel_err(a, b) <= rtol
+        assert torch.equal(a, again[j])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,k,res", RESNET50_EDGES)
+def test_fused_wgrad_at_resnet50_shapes_repeats_bitwise(card, c, k, res,
+                                                        out_dtype):
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    m = 1000 + c % 97                     # several 128-row tiles, ragged
+    d = _fused_inputs(m, c, k, torch.bfloat16, seed=c + 5 * k)
+    args = (d["x"], d["scale"], d["shift"], d["dz"], d["r"] if res else None,
+            out_dtype)
+    before = fc.wgrad_launches
+    dw = fc.fused_wgrad_cuda(*args)
+    dw2 = fc.fused_wgrad_cuda(*args)
+    dw_ref = fc.fused_wgrad_reference(*args)
+    torch.cuda.synchronize()
+    assert fc.wgrad_launches == before + 2
+    assert dw.dtype == out_dtype and dw.shape == (c, k)
+    assert bool(torch.isfinite(dw).all())
+    # bf16 dW: one rounding of f32 sums taken in another order; f32 dW: the
+    # order alone (bf16 products are exact in f32), the f32 sums' 1e-4
+    rtol = fc.ROW_RTOL[torch.bfloat16] if out_dtype == torch.bfloat16 else 1e-4
+    assert fc.max_row_rel_err(dw, dw_ref) <= rtol
+    assert torch.equal(dw, dw2)
+
+
+# Rows past M and ragged C and K on the bf16 wgmma route: shift > 0 on
+# every channel, so relu(x*scale + shift) of the zero rows TMA fills in
+# past M is not zero, and the kernels must zero them (zstats would count
+# them); M of 1, one short of a 128-row tile and one past it. (C, K,
+# residual): the stage-1 join's pair; C 72, K 40 (multiples of 8, not of
+# 64: ragged 64-wide panels); C 328, K 264 (the forward keeps its y panel
+# of six 64-channel tiles, the last holding 8 channels, over three N tiles,
+# the last holding 8 columns; the wgrad's third 128-channel tile holds one
+# panel of 8 channels and one wholly past C)
+PADDED_ROW_CASES = [(256, 64, True), (72, 40, True), (328, 264, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 127, 129])
+@pytest.mark.parametrize("c,k,res", PADDED_ROW_CASES)
+def test_fused_wgmma_kernels_add_nothing_from_rows_past_m(card, c, k, res, m):
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    d = _fused_inputs(m, c, k, torch.bfloat16, seed=m + c + k)
+    shift = d["shift"].abs() + 0.5
+    r = d["r"] if res else None
+    got = fc.fused_fwd_cuda(d["x"], d["scale"], shift, d["w"], r, res)
+    want = fc.fused_fwd_reference(d["x"], d["scale"], shift, d["w"], r, res)
+    dw = fc.fused_wgrad_cuda(d["x"], d["scale"], shift, d["dz"], r,
+                             out_dtype=torch.bfloat16)
+    dw_ref = fc.fused_wgrad_reference(d["x"], d["scale"], shift, d["dz"], r,
+                                      out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rtol = fc.ROW_RTOL[torch.bfloat16]
+    assert fc.max_row_rel_err(got[1], want[1]) <= 1e-4
+    for a, b in [(got[0], want[0]), (dw, dw_ref)] + (
+            [(got[2], want[2])] if res else []):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert fc.max_row_rel_err(a, b) <= rtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,k,res", RESNET50_EDGES)
 def test_fused_dgrad_at_resnet50_shapes_repeats_bitwise(card, c, k, res,
                                                         dtype):
     from bigdl_tpu_torch.ops import fused_conv as fc

@@ -212,16 +212,55 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
 
 
 # ResNet-50's fused edges (shortcut B, BIGDL_PALLAS_MIN_C=128): the (C, K)
-# of its 28 dgrad launches per step, and whether the edge reads the block's
-# residual (those also take an extra dy, the join's second consumer). Small
-# ragged M: the JAX kernel runs in interpret mode, ~1 s per case at C 2048.
-RESNET50_DGRAD = [(256, 64, True), (256, 128, True), (128, 512, False),
+# of its 28 launches of each kernel per step, and whether the edge reads
+# the block's residual (those also want y and take an extra dy, the join's
+# second consumer). Small ragged M: the JAX kernels run in interpret mode,
+# ~1 s per case at C 2048.
+RESNET50_EDGES = [(256, 64, True), (256, 128, True), (128, 512, False),
                   (512, 128, True), (512, 256, True), (256, 1024, False),
                   (1024, 256, True), (1024, 512, True), (512, 2048, False),
                   (2048, 512, True)]
 
 
-@pytest.mark.parametrize("c,k,res", RESNET50_DGRAD)
+@pytest.mark.parametrize("c,k,res", RESNET50_EDGES)
+def test_forward_plain_version_matches_jax_at_resnet50_edges(c, k, res):
+    m = 40 + (c + k) % 33                  # 40..72 rows, not a tile multiple
+    d = _inputs(m, c, k, seed=c + 3 * k)
+    r = d["r"] if res else None
+    want = jfc.fused_scale_relu_matmul(
+        jnp.asarray(d["x"]), jnp.asarray(d["scale"]), jnp.asarray(d["shift"]),
+        jnp.asarray(d["w"]), None if r is None else jnp.asarray(r),
+        want_y=res)
+    got = tfc.fused_scale_relu_matmul(
+        torch.from_numpy(d["x"]), torch.from_numpy(d["scale"]),
+        torch.from_numpy(d["shift"]), torch.from_numpy(d["w"]),
+        None if r is None else torch.from_numpy(r), want_y=res)
+    assert len(got) == len(want) == (3 if res else 2)
+    _close(got[0], want[0])
+    z = got[0].double().numpy()
+    _close_sums(got[1][0], want[1][0], np.abs(z).sum(0))
+    _close_sums(got[1][1], want[1][1], (z * z).sum(0))
+    if res:
+        _close(got[2], want[2])
+
+
+@pytest.mark.parametrize("c,k,res", RESNET50_EDGES)
+def test_wgrad_plain_version_matches_jax_at_resnet50_edges(c, k, res):
+    m = 40 + (c + k) % 33                  # 40..72 rows, not a tile multiple
+    d = _inputs(m, c, k, seed=c + 5 * k)
+    r = d["r"] if res else None
+    want = jfc.fused_wgrad(
+        jnp.asarray(d["x"]), jnp.asarray(d["scale"]), jnp.asarray(d["shift"]),
+        jnp.asarray(d["dz"]), residual=None if r is None else jnp.asarray(r))
+    got = tfc.fused_wgrad(
+        torch.from_numpy(d["x"]), torch.from_numpy(d["scale"]),
+        torch.from_numpy(d["shift"]), torch.from_numpy(d["dz"]),
+        residual=None if r is None else torch.from_numpy(r))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (c, k)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("c,k,res", RESNET50_EDGES)
 def test_dgrad_plain_version_matches_jax_at_resnet50_edges(c, k, res):
     m = 40 + (c + k) % 33                  # 40..72 rows, not a tile multiple
     d = _inputs(m, c, k, seed=c + 2 * k)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the port's decode-attention and fused-conv dgrad kernels
-at their main-path shapes, for comparing two checkouts in one run.
+"""Device times of the port's decode-attention and fused-conv kernels at
+their main-path shapes, for comparing two checkouts in one run.
 
     python3 tools/torch_kernel_times.py [--repo DIR] [--reps N]
 
@@ -13,10 +13,10 @@ and unfused sequences), so two checkouts are timed by one method:
   D 64, int8 K/V with per-(row, head) scales, bf16 q and output, int64
   positions as the engine passes them), beside one SDPA call on the
   dequantized bf16 K/V;
-* the fused dgrad (bf16) at ``chip_smoke.FUSED_CASES``' ResNet-50 shapes,
-  the stage-1 join (M 802,816, C 256, K 64, residual and extra dy) and
-  the stage-4 edge (M 12,544, C 512, K 2048), beside the unfused PyTorch
-  sequence.
+* the fused forward, dgrad and wgrad (bf16) at ``chip_smoke.FUSED_CASES``'
+  ResNet-50 shapes, the stage-1 join (M 802,816, C 256, K 64, residual,
+  y and extra dy) and the stage-4 edge (M 12,544, C 512, K 2048), each
+  beside its unfused PyTorch sequence.
 
 One JSON line per kernel: median, mean, min and max in ms over N launches,
 the least time the card could take (bound) and the share of it reached by
@@ -66,10 +66,8 @@ def decode(cs, reps, flush):
         cs.dequantized_sdpa(q, k, v, pos, ks, vs), reps, flush), bound_ms)
 
 
-def dgrad(cs, reps, flush):
+def fused(cs, reps, flush):
     import torch
-
-    from bigdl_tpu_torch.ops import fused_conv as fc
 
     for i, (case, m, c, k, dt, res, extra) in enumerate(cs.FUSED_CASES):
         if dt != "bf16":
@@ -78,16 +76,17 @@ def dgrad(cs, reps, flush):
         d = cs.fused_inputs(m, c, k, dtype, seed=200 + i)
         r = d["r"] if res else None
         g = d["dy"] if extra else None
-        bound_ms, _ = cs.bound(*cs.fused_work(m, c, k, 2, res, extra)["dgrad"],
-                               cs.BF16_FLOPS)
-        t = cs.time_stats(lambda: fc.fused_dgrad_cuda(
-            d["dz"], d["w"], d["x"], d["scale"], d["shift"], d["mean"],
-            d["inv_std"], r, g), reps, flush)
-        emit(f"fused_dgrad {case}", t, bound_ms, shape=[m, c, k])
-        unfused = cs.unfused_sequences(d, dtype, res, extra)["dgrad"]
-        emit(f"unfused dgrad {case}", cs.time_stats(unfused, reps, flush),
-             bound_ms, shape=[m, c, k])
-        del d
+        work = cs.fused_work(m, c, k, 2, res, extra)
+        unfused = cs.unfused_sequences(d, dtype, res, extra)
+        calls = cs.fused_calls(d, dtype, r, g, extra)
+        for name, (kern, _) in calls.items():
+            bound_ms, _ = cs.bound(*work[name], cs.BF16_FLOPS)
+            emit(f"fused_{name} {case}", cs.time_stats(kern, reps, flush),
+                 bound_ms, shape=[m, c, k])
+            emit(f"unfused {name} {case}",
+                 cs.time_stats(unfused[name], reps, flush), bound_ms,
+                 shape=[m, c, k])
+        del d, unfused
         torch.cuda.empty_cache()
 
 
@@ -111,7 +110,7 @@ def main(argv=None) -> int:
         bigdl_tpu_torch.__file__)}), flush=True)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     decode(cs, args.reps, flush)
-    dgrad(cs, args.reps, flush)
+    fused(cs, args.reps, flush)
     print(json.dumps({"guard_ms": cs.guard_ms(),
                       "host_enqueue": cs.HOST_ENQUEUE}), flush=True)
     return 0

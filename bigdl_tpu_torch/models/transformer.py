@@ -12,7 +12,10 @@ runs:
 * :func:`make_batch_prefill_step` — masked multi-row prompt ingestion
   over ``(B, L)`` right-padded tokens with per-row ``lengths`` and start
   offsets (``carry["pos"]``); returns a NEW carry and never writes its
-  input carry, so one zero carry can serve every admission;
+  input carry, so one zero carry can serve every admission, and a cached
+  prefix can be continued without being changed;
+* :func:`make_prefill_step` — equal-length prompts into a fresh carry,
+  the per-request admission step (the same layer loop);
 * :func:`make_batch_decode_step` — one token for every pooled row at its
   own position, with the fused per-row sampler when ``sampling=True``.
   It updates the pooled carry IN PLACE (the JAX step donates it): active
@@ -360,15 +363,10 @@ def make_batch_prefill_step(model: Sequential, compute_dtype=None,
     same read the JAX wrapper's guard makes). Queries attend over the
     row's full cache window under an absolute causal mask; the int8
     path attends over the dequantized cache, the values decode reads."""
-    g = _model_geometry(model)
-    max_len, vocab, off, lnf = g["max_len"], g["vocab"], g["off"], g["lnf"]
-    heads, hd = g["heads"], g["hd"]
-    scale = hd ** -0.5
-    cache_dtype = compute_dtype or torch.float32
+    rows = _prefill_rows(model, compute_dtype, kv_quant)
+    max_len = rows.max_len
 
     def prefill(params, tokens, lengths, carry):
-        lookup_w, pos_w, blocks, lnf_p, lin_p = \
-            _resolve_decode_views(model, off, params)
         if tokens.dim() != 2:
             raise ValueError(f"tokens must be (B, L), got {tuple(tokens.shape)}")
         B, L = tokens.shape
@@ -385,6 +383,66 @@ def make_batch_prefill_step(model: Sequential, compute_dtype=None,
             raise ValueError(
                 f"rows would write past max_len {max_len}: "
                 f"pos={start_h.tolist()} + lengths={ln.tolist()}")
+        return rows(params, tokens, ln, start_h, carry)
+
+    return prefill
+
+
+def make_prefill_step(model: Sequential, compute_dtype=None,
+                      kv_quant: bool = False):
+    """One-pass prompt ingestion into a FRESH carry (``:685``), the
+    per-request admission step. Returns ``prefill(params, tokens, carry)
+    -> (logprobs_last, carry)``:
+
+    * ``tokens``: (B, P) 0-based ids, P <= max_len, every row a full
+      prompt of length P (no per-row lengths: ragged batches go through
+      :func:`make_batch_prefill_step`);
+    * ``carry`` must be fresh (``pos == 0`` in every row, as
+      ``init_carry`` builds it): K/V land at positions 0..P-1 and ``pos``
+      becomes P. A non-zero ``pos`` raises (one small read of ``pos``,
+      the JAX wrapper's guard).
+
+    It shares :func:`make_batch_prefill_step`'s layer loop with every
+    length P; on the int8 layout a fresh carry makes the write the
+    one-shot case of the grow-only scale merge (the old scale is 0, so
+    the prompt's amax sets it). The input carry is never written."""
+    rows = _prefill_rows(model, compute_dtype, kv_quant)
+
+    def prefill(params, tokens, carry):
+        if tokens.dim() != 2:
+            raise ValueError(f"tokens must be (B, P), got {tuple(tokens.shape)}")
+        B, P = tokens.shape
+        if P > rows.max_len:
+            raise ValueError(
+                f"prompt length {P} exceeds max_len {rows.max_len}")
+        start_h = carry["pos"].cpu().numpy().astype(np.int64)
+        if start_h.shape != (B,) or start_h.any():
+            raise ValueError(
+                "make_prefill_step requires a fresh carry (carry['pos'] "
+                "must be all zeros, one row per prompt): prefill writes "
+                "K/V at positions 0..P-1 and resets pos, which would "
+                "corrupt a partially filled cache (got pos="
+                f"{start_h.tolist()})")
+        return rows(params, tokens, np.full((B,), P, np.int64), start_h,
+                    carry)
+
+    return prefill
+
+
+def _prefill_rows(model: Sequential, compute_dtype, kv_quant: bool):
+    """The layer loop both prefill steps share: ``rows(params, tokens,
+    ln, start_h, carry)`` with the per-row lengths and start offsets
+    already checked, as host int64 arrays."""
+    g = _model_geometry(model)
+    max_len, off, lnf = g["max_len"], g["off"], g["lnf"]
+    heads, hd = g["heads"], g["hd"]
+    scale = hd ** -0.5
+    cache_dtype = compute_dtype or torch.float32
+
+    def rows(params, tokens, ln, start_h, carry):
+        lookup_w, pos_w, blocks, lnf_p, lin_p = \
+            _resolve_decode_views(model, off, params)
+        B, L = tokens.shape
         dev = tokens.device
         r_h = np.repeat(np.arange(B), ln)
         c_h = np.concatenate([np.arange(n) for n in ln]) if B else r_h
@@ -452,7 +510,8 @@ def make_batch_prefill_step(model: Sequential, compute_dtype=None,
         new_carry["pos"] = (start + lengths_t).to(start.dtype)
         return torch.log_softmax(logits.float(), dim=-1), new_carry
 
-    return prefill
+    rows.max_len = max_len
+    return rows
 
 
 # -- pooled per-row decode -------------------------------------------------

@@ -2,18 +2,28 @@
 
 Many requests share one pooled, slot-indexed KV cache (``kv_pool.py``)
 and one per-row decode step with a fused per-row sampler
-(``sampling.py``); admission is batched in power-of-two length buckets
-(``admission.py``); the engine (``engine.py``) reads back only token ids
-and their log-probs, once per step (``fences.py``).
+(``sampling.py``). Admission is batched in power-of-two length buckets
+with an optional shared-prefix cache (``admission.py``,
+``prefix_cache.py``), chunked between decode steps (``chunked.py``), or
+per request. The scheduler (``scheduler.py``) orders requests FIFO or by
+priority and deadline; the engine (``engine.py``) preempts loss-free,
+sheds and degrades under overload, recovers from failed steps (with a
+seeded fault injector and virtual clocks in ``faults.py``), and reads
+back only token ids and their log-probs, once per step (``fences.py``).
 """
 
+from bigdl_tpu_torch.serving.admission import Degrade, bucket_len
 from bigdl_tpu_torch.serving.engine import ServingEngine
-from bigdl_tpu_torch.serving.faults import FaultError, WatchdogConfig
+from bigdl_tpu_torch.serving.faults import (
+    FaultError, FaultInjector, SteppingClock, VirtualClock, WatchdogConfig,
+)
 from bigdl_tpu_torch.serving.kv_pool import KVPool
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
+from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
 from bigdl_tpu_torch.serving.sampling import SamplingParams
 from bigdl_tpu_torch.serving.scheduler import Request, Scheduler
 
 __all__ = ["ServingEngine", "KVPool", "Scheduler", "Request",
            "SamplingParams", "ServingMetrics", "FaultError",
-           "WatchdogConfig"]
+           "FaultInjector", "VirtualClock", "SteppingClock",
+           "WatchdogConfig", "PrefixCache", "Degrade", "bucket_len"]

@@ -6,12 +6,16 @@ KV cache (:class:`~bigdl_tpu_torch.serving.kv_pool.KVPool`) stepped by
 one per-row-position decode step with the per-row sampler fused in
 (:func:`~bigdl_tpu_torch.models.transformer.make_batch_decode_step`):
 
-* requests are ``submit()``-ed at any time and queue FIFO;
-* before every decode step the scheduler admits waiting requests into
-  free slots; the admitted prompts prefill in power-of-two length
-  buckets, one masked multi-row prefill call per bucket
-  (``admission.py``);
-* every ``step()`` decodes one token for ALL active rows at once and
+* requests are ``submit()``-ed at any time; the scheduler orders them
+  FIFO, run-to-completion, or by (priority, deadline, arrival);
+* before every decode step waiting requests are admitted into free
+  slots. ``admission="batched"`` prefills them in power-of-two length
+  buckets, one masked multi-row prefill call per bucket, optionally
+  through a shared-prefix cache; ``"chunked"`` binds them at once and
+  streams their prompts in ``chunk_budget``-token chunks between decode
+  steps; ``"per_request"`` prefills each prompt alone
+  (``admission.py``, ``chunked.py``, ``prefix_cache.py``);
+* every ``step()`` decodes one token for ALL running rows at once and
   reads back only the chosen token ids and their log-probs, in one
   batched readback (``fences.py``);
 * rows leave at eos, a stop token or sequence, or ``max_new_tokens``,
@@ -20,16 +24,36 @@ one per-row-position decode step with the per-row sampler fused in
 Each request carries its own :class:`~bigdl_tpu_torch.serving.sampling.
 SamplingParams` and its own counter-based RNG lane, so greedy and
 sampled rows mix in one step, and a seeded request replays its stream
-whatever its neighbours or its slot. The step-health check discards a
-step whose outputs are non-finite or out of range (or that overran the
-watchdog's timeout) and replays its rows from ``prompt + output``.
+whatever its neighbours or its slot.
+
+Resilience, all host-side:
+
+* ``policy="priority"`` preempts loss-free: when waiting requests
+  outrank the lowest-priority running row and no slot is free, the row's
+  whole ``row_state`` is stashed on the request (and shared into the
+  prefix cache), the slot freed, and the request requeued at its
+  original key; readmission restores the stash bitwise;
+* ``max_queue`` sheds at the door past a waiting backlog, expired
+  waiters are dropped (``"deadline"``), ``deadline_feasibility`` drops
+  waiters the measured step time says cannot finish (``"infeasible"``),
+  and ``degrade_at`` applies a request's :class:`Degrade` under pressure
+  (reverted if the row still waits when pressure drops);
+* the step-health check discards a step whose outputs are non-finite or
+  out of range, that raised, or that overran the watchdog's timeout, and
+  replays its rows from ``prompt + output``; past ``max_retries`` a
+  request finishes with ``"error"``, so the engine never wedges;
+* every device dispatch goes through :meth:`_dispatch` (sites
+  ``"decode"`` and ``"prefill"``), where a seeded
+  :class:`~bigdl_tpu_torch.serving.faults.FaultInjector` may fail,
+  corrupt or stall it; every time read goes through the one engine
+  clock (``clock=``, a ``VirtualClock`` in tests).
 
 ``kv_dtype="int8"`` stores the pooled K/V as per-(slot, head)-scaled
 int8 and reads it through the hand-written CUDA decode-attention kernel
-on the card (its plain version on the CPU). The engine runs on ``cuda``
-unless ``device="cpu"`` is passed; the model must live on that device.
-Knobs of the JAX engine that this slice does not port raise
-``NotImplementedError`` naming their ROADMAP.md item.
+on the card (its plain version on the CPU) in every admission mode. The
+engine runs on ``cuda`` unless ``device="cpu"`` is passed; the model
+must live on that device. Knobs of the JAX engine that the port does not
+carry yet raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -40,23 +64,30 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.transformer import (
-    make_batch_decode_step, make_batch_prefill_step, serving_params,
+    make_batch_decode_step, make_batch_prefill_step, make_prefill_step,
+    serving_params,
 )
-from bigdl_tpu_torch.serving.admission import AdmissionController
+from bigdl_tpu_torch.serving.admission import (
+    AdmissionController, PerRequestAdmissionController,
+)
+from bigdl_tpu_torch.serving.chunked import ChunkedAdmissionController
 from bigdl_tpu_torch.serving.faults import (
     FaultError, WatchdogConfig, default_clock,
 )
 from bigdl_tpu_torch.serving.fences import fence
 from bigdl_tpu_torch.serving.kv_pool import KVPool
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
+from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
 from bigdl_tpu_torch.serving.sampling import (
     SamplingParams, advance_lane, fold_lane, knob_row_values, lane_key,
     make_knob_rows, match_stop_sequences,
 )
-from bigdl_tpu_torch.serving.scheduler import FINISHED, Request, Scheduler
+from bigdl_tpu_torch.serving.scheduler import (
+    FINISHED, SHED, WAITING, Request, Scheduler,
+)
 from bigdl_tpu_torch.utils.device import resolve_device
 
-#: JAX-engine knobs this slice does not port, with their ROADMAP.md item
+#: JAX-engine knobs the port does not carry yet, with their ROADMAP.md item
 _NOT_PORTED = {
     "mesh": "A.2.g sharded serving (serving/sharded.py)",
     "parallelism": "A.2.g sharded serving (serving/sharded.py)",
@@ -64,8 +95,6 @@ _NOT_PORTED = {
     "adapters": "A.2.h multi-tenant LoRA (serving/lora.py)",
     "tier": "A.2.i host KV tier (serving/kv_tier.py)",
     "autopilot": "A.2.i SLO autopilot (serving/autopilot.py)",
-    "faults": "A.2.d fault injection (serving/faults.py FaultInjector)",
-    "prefix_cache": "A.2.b prefix cache (serving/prefix_cache.py)",
 }
 
 
@@ -76,16 +105,34 @@ class ServingEngine:
     precision of weights and float KV (e.g. ``torch.bfloat16``; scores
     and log-softmax stay f32); ``kv_dtype`` ``"fp32"``/``"bf16"`` (must
     match ``compute_dtype``) or ``"int8"``; ``policy``
-    ``"prefill_priority"`` or ``"fifo"``; ``seed`` is the base of the
-    RNG lanes of requests without their own seed; ``watchdog`` bounds
-    step time and per-request retries; ``device`` defaults to ``cuda``."""
+    ``"prefill_priority"``, ``"fifo"`` or ``"priority"`` (with
+    ``preemption``, on by default under it); ``admission``
+    ``"batched"``, ``"chunked"`` (with ``chunk_budget``, default 32) or
+    ``"per_request"``; ``prefix_cache`` True or a :class:`PrefixCache`
+    (batched or chunked admission only); ``seed`` the base of the RNG
+    lanes of requests without their own seed; ``watchdog`` bounds step
+    time and per-request retries; ``faults`` a ``FaultInjector``;
+    ``clock`` the engine's time source; ``max_queue``, ``degrade_at``
+    and ``deadline_feasibility`` the overload controls; ``keep_finished``
+    bounds the finished ledger; ``metrics`` a :class:`ServingMetrics` to
+    record into; ``device`` defaults to ``cuda``."""
 
     def __init__(self, model, n_slots: int = 8, compute_dtype=None,
                  policy: str = "prefill_priority",
+                 metrics: Optional[ServingMetrics] = None,
                  admission: str = "batched",
+                 chunk_budget: Optional[int] = None,
+                 deadline_feasibility: bool = False,
+                 prefix_cache=None,
+                 keep_finished: Optional[int] = None,
                  seed: int = 0,
                  kv_dtype: Optional[str] = None,
+                 clock=None,
+                 max_queue: Optional[int] = None,
+                 degrade_at: Optional[int] = None,
+                 preemption: Optional[bool] = None,
                  watchdog: Optional[WatchdogConfig] = None,
+                 faults=None,
                  dispatch_ahead: int = 0,
                  device=None,
                  **not_ported) -> None:
@@ -95,17 +142,42 @@ class ServingEngine:
             if value not in (None, False):
                 raise NotImplementedError(
                     f"{knob}= is not ported yet: ROADMAP.md {_NOT_PORTED[knob]}")
-        if admission != "batched":
-            raise NotImplementedError(
-                f"admission={admission!r} is not ported yet: ROADMAP.md "
-                "A.2.a per-request and A.2.c chunked admission")
-        if policy == "priority":
-            raise NotImplementedError(
-                "policy='priority' (and preemption) is not ported yet: "
-                "ROADMAP.md A.2.d")
-        if int(dispatch_ahead) != 0:
+        if admission not in ("batched", "per_request", "chunked"):
+            raise ValueError(
+                f"unknown admission mode {admission!r} "
+                "(one of 'batched', 'per_request', 'chunked')")
+        if chunk_budget is not None:
+            if admission != "chunked":
+                raise ValueError(
+                    "chunk_budget requires admission='chunked' — it is "
+                    "the streaming pump's per-step token budget")
+            if int(chunk_budget) < 1:
+                raise ValueError(
+                    f"chunk_budget must be >= 1, got {chunk_budget}")
+        if prefix_cache and admission == "per_request":
+            raise ValueError(
+                "prefix_cache requires admission='batched' or 'chunked' "
+                "(the per-request prefill cannot continue from a cached "
+                "carry)")
+        if keep_finished is not None and keep_finished < 0:
+            raise ValueError(
+                f"keep_finished must be >= 0 or None, got {keep_finished}")
+        if max_queue is not None and max_queue < 0:
+            raise ValueError(
+                f"max_queue must be >= 0 or None, got {max_queue}")
+        if degrade_at is not None and degrade_at < 0:
+            raise ValueError(
+                f"degrade_at must be >= 0 or None, got {degrade_at}")
+        if int(dispatch_ahead) < 0:
+            raise ValueError(
+                f"dispatch_ahead must be >= 0, got {dispatch_ahead}")
+        if int(dispatch_ahead) > 0:
             raise NotImplementedError(
                 "dispatch_ahead > 0 is not ported yet: ROADMAP.md A.2.f")
+        if preemption and policy != "priority":
+            raise ValueError(
+                "preemption=True requires policy='priority' — victim "
+                "selection is a priority-order decision")
         self.device = resolve_device(device)
         model_dev = model[0].weight.device
         if model_dev.type != self.device.type or (
@@ -114,6 +186,17 @@ class ServingEngine:
             raise ValueError(
                 f"the model lives on {model_dev} but the engine runs on "
                 f"{self.device} — build the model with the same device")
+        # the engine's ONE time source, the watchdog and the injector
+        self._clock = clock if clock is not None else default_clock
+        self.watchdog = watchdog if watchdog is not None \
+            else WatchdogConfig()
+        self._faults = faults
+        self.max_queue = max_queue
+        self.degrade_at = degrade_at
+        self.preemption = (policy == "priority") if preemption is None \
+            else bool(preemption)
+        self.deadline_feasibility = bool(deadline_feasibility)
+        self.keep_finished = keep_finished
         self.model = model
         self.max_len = model[1].max_len
         self._vocab = model[0].n_index
@@ -133,39 +216,82 @@ class ServingEngine:
                 f"dtype, {float_kv!r} here)")
         self.kv_dtype = kv_dtype
         kv_quant = kv_dtype == "int8"
-        self.watchdog = watchdog if watchdog is not None \
-            else WatchdogConfig()
         self.params = serving_params(model, compute_dtype)
         self._step_fn, self._pool_init = make_batch_decode_step(
             model, compute_dtype, sampling=True, kv_quant=kv_quant)
-        self._batch_prefill_fn = make_batch_prefill_step(
-            model, compute_dtype, kv_quant=kv_quant)
         self.pool = KVPool(self._pool_init, n_slots, kv_dtype=kv_dtype)
         self.scheduler = Scheduler(policy)
-        self.metrics = ServingMetrics()
+        self.metrics = metrics if metrics is not None else ServingMetrics()
         self.metrics.set_kv_format(kv_dtype, self.pool.kv_bytes_per_slot)
-        self.admitter = AdmissionController(self)
+        self.admission = admission
+        if admission == "per_request":
+            self.prefix_cache = None
+            self._prefill_fn = make_prefill_step(model, compute_dtype,
+                                                 kv_quant=kv_quant)
+            self.admitter = PerRequestAdmissionController(self)
+        else:
+            self._batch_prefill_fn = make_batch_prefill_step(
+                model, compute_dtype, kv_quant=kv_quant)
+            # True -> a default cache, None/False -> off, else the instance
+            self.prefix_cache = (PrefixCache() if prefix_cache is True
+                                 else (prefix_cache or None))
+            if admission == "chunked":
+                self.admitter = ChunkedAdmissionController(
+                    self, chunk_budget=chunk_budget or 32,
+                    prefix_cache=self.prefix_cache)
+            else:
+                self.admitter = AdmissionController(
+                    self, prefix_cache=self.prefix_cache)
         self.seed = int(seed)
         self._knobs = make_knob_rows(n_slots)
         self._knobs_device = None       # re-uploaded only after a change
         self._ban_base = np.zeros((n_slots,), bool)
         self._configured: set = set()
+        # slots whose occupant arrived as a whole row_state payload: its
+        # lane and penalty state came with it, so configuring the slot
+        # sets the host knob rows only
+        self._restored: set = set()
         self._warm = False              # arms the watchdog timeout
+        # engine-clock time of the last healthy decode dispatch, None
+        # while no rows are in flight: the anchor of decode_gap_s
+        self._last_decode_end: Optional[float] = None
         self._next_id = 0
         self._finished: Dict[int, Request] = {}
 
     # -- request surface ---------------------------------------------------
 
     def submit(self, prompt_ids: Sequence[int], max_new_tokens: int = 32,
-               eos_id: int = -1,
-               sampling: Optional[SamplingParams] = None) -> int:
+               eos_id: int = -1, sampling: Optional[SamplingParams] = None,
+               draft_tokens: Optional[int] = None, priority: int = 0,
+               deadline_s: Optional[float] = None, degrade=None,
+               adapter_id: int = 0, constraint=None) -> int:
         """Queue one generation request (1-based prompt ids); returns its
         request id. ``eos_id`` is the request's own eos (1-based, -1 =
-        none); ``sampling.max_tokens`` overrides ``max_new_tokens``.
-        Raises if the request could overflow the cache."""
+        none); ``sampling.max_tokens`` overrides ``max_new_tokens``;
+        ``priority`` orders the queue under ``policy="priority"``;
+        ``deadline_s`` is the completion SLO in seconds after submit;
+        ``degrade`` a :class:`Degrade` applied under pressure. Raises if
+        the request could overflow the cache. Past ``max_queue`` the
+        request is shed: it lands in the finished ledger with
+        ``finish_reason="shed"`` and empty output."""
+        if draft_tokens is not None:
+            raise NotImplementedError(
+                "draft_tokens= is not ported yet: ROADMAP.md A.2.e "
+                "speculative decoding (serving/speculative.py)")
+        if int(adapter_id) != 0:
+            raise NotImplementedError(
+                "adapter_id= is not ported yet: ROADMAP.md A.2.h "
+                "multi-tenant LoRA (serving/lora.py)")
+        if constraint is not None:
+            raise NotImplementedError(
+                "constraint= is not ported yet: ROADMAP.md A.2.h "
+                "constrained decoding (serving/constrain.py)")
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
             raise ValueError("need a non-empty prompt")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(
+                f"deadline_s must be positive or None, got {deadline_s}")
         sp = sampling if sampling is not None else SamplingParams()
         if sp.max_tokens is not None:
             max_new_tokens = sp.max_tokens
@@ -177,24 +303,63 @@ class ServingEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds the model's max_len "
                 f"{self.max_len}")
+        # every validation precedes the submitted counter and the shed
         rid = self._next_id
         self._next_id += 1
         req = Request(req_id=rid, prompt=prompt,
                       max_new_tokens=int(max_new_tokens), eos_id=int(eos_id),
-                      sampling=sp, submit_time=default_clock())
+                      sampling=sp, priority=int(priority),
+                      deadline_s=None if deadline_s is None
+                      else float(deadline_s),
+                      degrade=degrade, submit_time=self._clock())
         self.metrics.on_submit()
+        # the bound is on the BACKLOG beyond what the free slots absorb
+        # at the next admission: an idle engine never sheds
+        if self.max_queue is not None \
+                and (self.scheduler.queue_depth - self.pool.free_slots
+                     >= self.max_queue):
+            self._shed(req, "shed")
+            return rid
         self.scheduler.submit(req)
         return rid
 
     def result(self, req_id: int) -> Optional[np.ndarray]:
-        """Generated 1-based ids of a FINISHED request, else None."""
+        """Generated 1-based ids of a finished (or shed, cancelled)
+        request, else None — also None once evicted from the ledger."""
         req = self._finished.get(req_id)
         return None if req is None else np.asarray(req.output, np.int32)
 
+    def pop_result(self, req_id: int) -> Optional[np.ndarray]:
+        """Like :meth:`result`, but releases the ledger entry."""
+        req = self._finished.pop(req_id, None)
+        return None if req is None else np.asarray(req.output, np.int32)
+
     def logprobs(self, req_id: int) -> Optional[np.ndarray]:
-        """Chosen-token raw model log-probs of a FINISHED request."""
+        """Chosen-token raw model log-probs of a finished request."""
         req = self._finished.get(req_id)
         return None if req is None else np.asarray(req.logprobs, np.float32)
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a WAITING, PARTIAL or RUNNING request: a waiting one
+        never takes a slot; a slot-holding one frees its slot now and
+        emits nothing more. It lands in the ledger as 'cancelled' with
+        what it had emitted. False for a finished or unknown request."""
+        req = self.scheduler.cancel(req_id)
+        if req is None:
+            req = self.scheduler.cancel_running(req_id)
+            if req is None:
+                return False
+            slot, req.slot = req.slot, None
+            self.pool.free(slot)
+            self._configured.discard(slot)
+            self._restored.discard(slot)
+            self.admitter.drop(slot)
+        req.resume_carry = None          # a stash must not outlive it
+        self.metrics.on_cancel()
+        self.metrics.on_finish_reason("cancelled")
+        self._finished[req_id] = req
+        self._evict_finished()
+        return True
 
     def request(self, req_id: int) -> Optional[Request]:
         return self._finished.get(req_id)
@@ -203,9 +368,58 @@ class ServingEngine:
         """The serving counters (:meth:`ServingMetrics.summary`)."""
         return self.metrics.summary()
 
-    # -- admission and recovery --------------------------------------------
+    def _evict_finished(self) -> None:
+        # insertion order is finish order: evict oldest first
+        if self.keep_finished is None:
+            return
+        while len(self._finished) > self.keep_finished:
+            self._finished.pop(next(iter(self._finished)))
+
+    # -- admission ------------------------------------------------------------
 
     def _admit(self) -> None:
+        now = self._clock()
+        for req in self.scheduler.pop_expired(now):
+            self._shed(req, "deadline")
+        # the revert half of degrade: once the queue is back below the
+        # threshold, still-waiting degraded rows get their limits back
+        if (self.degrade_at is not None
+                and self.scheduler.queue_depth < self.degrade_at):
+            for req in self.scheduler.iter_waiting():
+                self._restore_degrade(req)
+        if self.deadline_feasibility:
+            est = self.metrics.service_time_estimate()
+            if est is not None:
+                def _infeasible(req: Request) -> bool:
+                    dl = req.deadline_time
+                    if dl is None:
+                        return False
+                    # price the budget the request would get: a degrade
+                    # that applies at this admission caps it
+                    cap = req.max_new_tokens
+                    if (req.degrade is not None and not req.degraded
+                            and not req.output
+                            and self.degrade_at is not None
+                            and self.scheduler.queue_depth
+                            >= self.degrade_at
+                            and req.degrade.max_new_tokens is not None):
+                        cap = min(cap, int(req.degrade.max_new_tokens))
+                    return now + est * (cap - len(req.output)) > dl
+
+                for req in self.scheduler.pop_waiting(_infeasible):
+                    self.metrics.on_infeasible()
+                    self._shed(req, "infeasible")
+        # loss-free preemption: evict lowest-priority running rows while
+        # strictly higher-priority requests wait without a free slot
+        if self.preemption:
+            while True:
+                victim = self.scheduler.lowest_running()
+                if victim is None:
+                    break
+                demand = self.scheduler.waiting_higher_than(victim.priority)
+                if demand <= self.pool.free_slots:
+                    break
+                self._preempt_row(victim)
         n = self.scheduler.admissible(self.pool.free_slots)
         if n:
             self.admitter.admit(n)
@@ -213,21 +427,113 @@ class ServingEngine:
     def _admitted_prefill_tokens(self, req: Request) -> List[int]:
         """0-based tokens whose K/V must be resident before ``req``
         decodes: the prompt plus everything already emitted (the replay
-        source of a fault-evicted row). Sets ``req.next_token`` to the
-        last fed token and returns everything before it."""
+        source of an evicted row). Applies the degrade knob under
+        pressure, sets ``req.next_token`` to the last fed token and
+        returns everything before it."""
+        self._maybe_degrade(req)
         fed0 = [t - 1 for t in req.prompt] + [t - 1 for t in req.output]
         req.next_token = fed0[-1]
         return fed0[:-1]
 
-    def _recover_rows(self, rows) -> None:
+    def _resume_payload(self, req: Request) -> Optional[dict]:
+        """A readmitted request's stash, or None (then it replays
+        ``prompt + output`` through prefill)."""
+        payload = req.resume_carry
+        if payload is not None and req.output:
+            self.metrics.on_resume_without_prefill()
+        return payload
+
+    # -- overload: shedding and degradation -----------------------------------
+
+    def _shed(self, req: Request, reason: str) -> None:
+        """Ledger a request that never ran (``"shed"`` at submit,
+        ``"deadline"``, ``"infeasible"``), dropping any stash it carries
+        so the ledger pins no device tensors."""
+        req.state = SHED
+        req.finish_reason = reason
+        req.resume_carry = None
+        self._finished[req.req_id] = req
+        self._evict_finished()
+        self.metrics.on_finish_reason(reason)
+        self.metrics.on_shed(deadline=reason in ("deadline", "infeasible"))
+
+    def _maybe_degrade(self, req: Request) -> None:
+        """Apply the request's degrade knob at its FIRST admission when
+        the waiting queue is at or past ``degrade_at``."""
+        if (req.degrade is None or req.degraded or req.output
+                or self.degrade_at is None
+                or self.scheduler.queue_depth < self.degrade_at):
+            return
+        self._apply_degrade(req)
+
+    def _apply_degrade(self, req: Request) -> bool:
+        """The one degrade writer: clamp to the request's :class:`Degrade`
+        and record the originals so the clamp can be reverted."""
+        d = req.degrade
+        if d is None or req.degraded:
+            return False
+        req._pre_degrade = req.max_new_tokens
+        if d.max_new_tokens is not None:
+            req.max_new_tokens = min(req.max_new_tokens,
+                                     int(d.max_new_tokens))
+        req.degraded = True
+        self.metrics.on_degrade()
+        return True
+
+    def _restore_degrade(self, req: Request) -> bool:
+        """Revert :meth:`_apply_degrade` for a still-WAITING row, never
+        below what it already emitted."""
+        if (not req.degraded or req._pre_degrade is None
+                or req.state != WAITING):
+            return False
+        req.max_new_tokens = max(int(req._pre_degrade), len(req.output))
+        req._pre_degrade = None
+        req.degraded = False
+        self.metrics.on_degrade_restored()
+        return True
+
+    # -- dispatch, preemption and recovery ------------------------------------
+
+    def _dispatch(self, site: str, fn, *args):
+        """Every device dispatch of the serving path goes through here,
+        so a fault injector can fail, corrupt or stall it."""
+        if self._faults is None:
+            return fn(*args)
+        return self._faults.call(site, fn, *args)
+
+    def _preempt_row(self, victim: Request) -> None:
+        """Loss-free preemption of one RUNNING row: stash its whole
+        ``row_state`` on the request (fresh copies, restored bitwise at
+        readmission), share its carry into the prefix cache, free the
+        slot and requeue the request at its original key."""
+        slot = victim.slot
+        if len(victim.prompt) + len(victim.output) > 1:
+            payload = self.pool.row_state(slot)
+            victim.resume_carry = payload
+            if self.prefix_cache is not None:
+                fed0 = [t - 1 for t in victim.prompt] + \
+                       [t - 1 for t in victim.output]
+                self.prefix_cache.insert(fed0[:-1], payload["carry"])
+        victim.preemptions += 1
+        self.scheduler.requeue(victim)
+        self.pool.free(slot)
+        self._configured.discard(slot)
+        self._restored.discard(slot)
+        self.metrics.on_preempt()
+
+    def _recover_rows(self, rows, now: Optional[float] = None) -> None:
         """Evict rows of a failed dispatch for loss-free replay (requeued
-        at their arrival position, re-prefilled from ``prompt + output``)
-        or fail them out with ``finish_reason='error'`` past the
-        watchdog's retry budget."""
-        now = default_clock()
+        at their original key, their carry and any stash distrusted, so
+        they re-prefill ``prompt + output``) or fail them out with
+        ``finish_reason='error'`` past the watchdog's retry budget."""
+        if now is None:
+            now = self._clock()
         for slot, req in rows:
             self._configured.discard(slot)
+            self._restored.discard(slot)
+            self.admitter.drop(slot)
             req.retries += 1
+            req.resume_carry = None
             mr = self.watchdog.max_retries
             if mr is not None and req.retries > mr:
                 self._finish_row(req, "error", now)
@@ -235,6 +541,14 @@ class ServingEngine:
                 self.scheduler.requeue(req)
                 self.pool.free(slot)
                 self.metrics.on_retry()
+
+    def _recover_admission(self, rows) -> None:
+        """An admission-side prefill faulted: evict exactly its rows."""
+        self._recover_rows(rows, self._clock())
+
+    def _recover_step(self, running) -> None:
+        """A decode step failed: evict every row it carried."""
+        self._recover_rows(list(running.items()), self._clock())
 
     def _step_unhealthy(self, nxt, lps, active) -> Optional[str]:
         """"garbage" when an active row read back a non-finite log-prob
@@ -251,6 +565,8 @@ class ServingEngine:
         to = self.watchdog.step_timeout_s
         return to is not None and self._warm and elapsed > to
 
+    # -- slots and finishing --------------------------------------------------
+
     def _lane_key(self, req: Request):
         """An explicit seed pins the lane; otherwise it is folded from the
         engine seed and the request id — a function of the REQUEST, never
@@ -262,8 +578,9 @@ class ServingEngine:
 
     def _configure_slot(self, slot: int, req: Request) -> None:
         """Write one admitted request's knobs into its slot's host rows
-        and seed its lane and penalty state on the device; a readmitted
-        request resumes its lane ``len(output)`` draws on."""
+        and, unless the slot was restored from a stash, seed its lane and
+        penalty state on the device; a readmitted request resumes its
+        lane ``len(output)`` draws on."""
         sp = req.sampling
         scal, ban_row = knob_row_values(sp, req.eos_id)
         for k, v in scal.items():
@@ -273,9 +590,12 @@ class ServingEngine:
         if self._ban_base[slot] and req.output:
             self._knobs["ban"][slot] = len(req.output) < sp.min_tokens
         self._knobs_device = None
-        key = advance_lane(self._lane_key(req), len(req.output))
-        self.pool.write_sampling(slot, key, req.prompt,
-                                 output_ids=req.output)
+        if slot in self._restored:
+            self._restored.discard(slot)
+        else:
+            key = advance_lane(self._lane_key(req), len(req.output))
+            self.pool.write_sampling(slot, key, req.prompt,
+                                     output_ids=req.output)
         self._configured.add(slot)
 
     def _finish_check(self, req: Request) -> Optional[str]:
@@ -294,18 +614,28 @@ class ServingEngine:
         return None
 
     def _finish_row(self, req: Request, reason: str, now: float) -> None:
+        """Free a finishing row's slot and ledger it: reason counter,
+        latency and log-prob, the SLO verdict and the recovery counter."""
         freed = self.scheduler.finish(req)
         self.pool.free(freed)
         self._configured.discard(freed)
+        self._restored.discard(freed)
         req.finish_reason = reason
+        req.resume_carry = None
         self._finished[req.req_id] = req
+        self._evict_finished()
         self.metrics.on_finish_reason(reason)
-        if reason != "error" and req.retries > 0:
-            self.metrics.on_recovered()
+        met = None              # an error is neither goodput nor a miss
+        if reason != "error":
+            dl = req.deadline_time
+            met = dl is None or now <= dl
+            if req.retries > 0:
+                self.metrics.on_recovered()
         self.metrics.on_finish(
             now - req.submit_time, len(req.output),
             mean_logprob=(float(np.mean(req.logprobs))
-                          if req.logprobs else None))
+                          if req.logprobs else None),
+            met_deadline=met)
 
     def _maybe_flip_ban(self, slot: int, req: Request) -> None:
         """The min-tokens ban lifts the step the floor is met."""
@@ -315,14 +645,24 @@ class ServingEngine:
                 self._knobs["ban"][slot] = ban
                 self._knobs_device = None
 
+    def _note_decode_gap(self, had_running: bool) -> None:
+        """The engine-clock gap since the last healthy decode dispatch,
+        when rows stayed in flight across it: the decode-stall sample."""
+        now = self._clock()
+        if had_running and self._last_decode_end is not None:
+            self.metrics.on_decode_gap(now - self._last_decode_end)
+        self._last_decode_end = now
+
     # -- the serving loop --------------------------------------------------
 
     def step(self) -> Dict[int, int]:
-        """Admit waiting requests, then decode one token for every
+        """Admit waiting requests (chunked admission then feeds at most
+        ``chunk_budget`` prompt tokens), then decode one token for every
         running row. Returns ``{req_id: 1-based token}`` emitted this
-        step (empty when idle). Records one ``host_step_s`` sample per
-        decode step: the step's wall time minus its fence wait."""
-        t_step = default_clock()
+        step (empty when idle or when every slot-holding row is still
+        mid-prefill). Records one ``host_step_s`` sample per decode step:
+        the step's wall time minus its fence wait."""
+        t_step = self._clock()
         dev0 = self.metrics.device_seconds
         ndec0 = self.metrics.decode_step_count
         try:
@@ -331,13 +671,16 @@ class ServingEngine:
             if self.metrics.decode_step_count > ndec0:
                 dev = self.metrics.device_seconds - dev0
                 self.metrics.add_phase(
-                    "host_step", max(0.0, default_clock() - t_step - dev))
+                    "host_step", max(0.0, self._clock() - t_step - dev))
 
     def _step_impl(self) -> Dict[int, int]:
         emitted: Dict[int, int] = {}
+        had_running = bool(self.scheduler.running)
         self._admit()
+        self.admitter.pump()
         running = self.scheduler.running
         if not running:
+            self._last_decode_end = None
             return emitted
         N = self.pool.n_slots
         tokens = np.zeros((N,), np.int64)
@@ -353,21 +696,23 @@ class ServingEngine:
         if self._knobs_device is None:
             self._knobs_device = {k: torch.from_numpy(v).to(self.device)
                                   for k, v in self._knobs.items()}
-        t0 = default_clock()
+        t0 = self._clock()
         try:
-            tok, chosen, carry = self._step_fn(
-                self.params, torch.from_numpy(tokens).to(self.device),
+            tok, chosen, carry = self._dispatch(
+                "decode", self._step_fn, self.params,
+                torch.from_numpy(tokens).to(self.device),
                 torch.from_numpy(active).to(self.device), self.pool.carry,
                 self._knobs_device)
         except FaultError:
-            self._recover_rows(list(rows.items()))
+            self._recover_step(rows)
+            self._last_decode_end = None
             return emitted
         self.pool.carry = carry
         # ONE batched readback per step: token ids + chosen log-probs
         # (the (N, vocab) distribution never leaves the card)
-        t_f = default_clock()
+        t_f = self._clock()
         nxt, lps = fence("decode", tok, chosen)
-        now = default_clock()
+        now = self._clock()
         self.metrics.add_phase("fence_wait", now - t_f)
         elapsed = now - t0
         self.metrics.add_phase("decode_step", elapsed)
@@ -375,9 +720,11 @@ class ServingEngine:
         if bad is None and self._timed_out(elapsed):
             bad = "timeout"
         if bad is not None:
-            self._recover_rows(list(rows.items()))
+            self._recover_step(rows)
+            self._last_decode_end = None
             return emitted
         self._warm = True
+        self._note_decode_gap(had_running)
         self.metrics.on_step(self.scheduler.queue_depth,
                              self.pool.occupancy(), len(rows))
         self.metrics.on_sample_rows(n_sampled, len(rows) - n_sampled)
@@ -398,10 +745,24 @@ class ServingEngine:
         return emitted
 
     def drain(self) -> Dict[int, np.ndarray]:
-        """Step until every submitted request has finished; returns
-        ``{req_id: generated 1-based ids}`` for every finished request."""
+        """Step until every submitted request has left the engine; returns
+        ``{req_id: generated 1-based ids}`` for every request in the
+        ledger that FINISHED (shed and cancelled ones excluded)."""
         while not self.scheduler.idle():
             self.step()
         return {rid: np.asarray(r.output, np.int32)
                 for rid, r in self._finished.items()
                 if r.state == FINISHED}
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def queue_depth(self) -> int:
+        return self.scheduler.queue_depth
+
+    @property
+    def active(self) -> int:
+        return self.scheduler.active
+
+    def idle(self) -> bool:
+        return self.scheduler.idle()

@@ -12,7 +12,13 @@ Invariants: a slot is never handed out twice without an intervening
 drains, the free list holds all ``n_slots`` again. On the int8 layout
 the per-(slot, head) scales reset to zero on ``free`` — scales only grow
 while a row lives, so a recycled slot must not inherit its previous
-occupant's range.
+occupant's range. The chunk-progress mirrors (``chunk_done``,
+``chunk_target``) are host ints kept in lockstep with the device ``pos``
+and reset with the slot the same way.
+
+:meth:`row_state` / :meth:`restore_row` serialize one slot whole — every
+carry leaf (fresh copies), the chunk mirrors — and write it back bitwise:
+the preemption stash of the engine.
 """
 
 from __future__ import annotations
@@ -53,6 +59,12 @@ class KVPool:
         # LIFO free list: the most recently freed row is handed out next
         self._free: List[int] = list(range(self.n_slots - 1, -1, -1))
         self._in_use: set = set()
+        # host mirrors of chunked admission (chunked.py): how much of a
+        # slot's prompt is resident (== its device pos) and how much it
+        # needs before it may decode (0 = no chunk plan), so the chunk
+        # pump plans without reading the device back
+        self.chunk_done = np.zeros((self.n_slots,), np.int64)
+        self.chunk_target = np.zeros((self.n_slots,), np.int64)
 
     # -- allocator ---------------------------------------------------------
 
@@ -77,6 +89,8 @@ class KVPool:
             for i in range(self.n_layers):
                 self.carry[f"k{i}_scale"][slot] = 0
                 self.carry[f"v{i}_scale"][slot] = 0
+        self.chunk_done[slot] = 0
+        self.chunk_target[slot] = 0
 
     @property
     def free_slots(self) -> int:
@@ -116,10 +130,12 @@ class KVPool:
                 if skey in self.carry:
                     self.carry[skey][slot].copy_(prefill_carry[skey][row])
         self.carry["pos"][slot] = int(prompt_len)
+        self.chunk_done[slot] = prompt_len
 
     def read_row(self, slot: int) -> Dict:
         """One allocated slot's carry as a B=1 dict of fresh copies of
-        every leaf (K/V layers + scales, pos, sampling state)."""
+        every leaf (K/V layers + scales, pos, sampling state): never a
+        view, which would pin the pool and change with the next step."""
         self._check(slot)
         return {k: v[slot:slot + 1].clone() for k, v in self.carry.items()}
 
@@ -127,6 +143,50 @@ class KVPool:
         """Set one slot's position (a 1-token prompt starts at pos 0)."""
         self._check(slot)
         self.carry["pos"][slot] = int(pos)
+        self.chunk_done[slot] = int(pos)
+
+    # -- row serialization (the preemption stash) --------------------------
+
+    def row_state(self, slot: int) -> Dict:
+        """Everything one allocated slot carries: ``carry`` (every leaf
+        of :meth:`read_row`, cloned), the ``chunk_done``/``chunk_target``
+        mirrors, ``adapter`` (always 0: LoRA is ROADMAP.md A.2.h) and
+        ``draft`` (always None: speculation is A.2.e).
+        :meth:`restore_row` is its bitwise inverse."""
+        return {"carry": self.read_row(slot),
+                "chunk_done": int(self.chunk_done[slot]),
+                "chunk_target": int(self.chunk_target[slot]),
+                "adapter": 0, "draft": None}
+
+    def restore_row(self, slot: int, payload: Dict) -> None:
+        """Write a :meth:`row_state` payload into an allocated slot,
+        bitwise: every carry leaf copied in place into the pool's tensors
+        (``pos`` too, device to device, so nothing is read back), the
+        chunk mirrors from the payload's own values. The payload is only
+        read."""
+        self._check(slot)
+        for key, src in payload["carry"].items():
+            self.carry[key][slot:slot + 1].copy_(src)
+        self.chunk_done[slot] = int(payload["chunk_done"])
+        self.chunk_target[slot] = int(payload["chunk_target"])
+
+    # -- chunk progress (chunked admission) ----------------------------------
+
+    def begin_chunks(self, slot: int, done: int, target: int) -> None:
+        """Open a chunk plan: ``done`` prompt tokens are resident (0, or
+        the matched length after a prefix-cache head write) and the row
+        needs ``target`` before it may decode."""
+        self._check(slot)
+        if not 0 <= done <= target <= self.max_len:
+            raise ValueError(
+                f"chunk plan done={done}..target={target} outside "
+                f"0..{self.max_len}")
+        self.chunk_done[slot] = int(done)
+        self.chunk_target[slot] = int(target)
+
+    def chunk_remaining(self, slot: int) -> int:
+        """Prompt tokens still to stream (0 = complete or no plan)."""
+        return int(max(0, self.chunk_target[slot] - self.chunk_done[slot]))
 
     # -- sampling lanes ----------------------------------------------------
 

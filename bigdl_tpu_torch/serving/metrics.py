@@ -1,26 +1,39 @@
 """Serving counters (``bigdl_tpu/serving/metrics.py``), on top of
 :class:`bigdl_tpu_torch.optim.metrics.Metrics`.
 
-The slice records, under the ``serving/`` prefix:
+Counters, under the ``serving/`` prefix:
 
 * ``ttft_s``        — per request, submit → first generated token on host
 * ``tokens_out`` / ``latency_s`` / ``finished`` — at finish; with the
-  first/last step timestamps they give ``tokens_per_sec``
+  first/last step timestamps they give ``tokens_per_sec``;
+  ``finished_in_slo`` / ``deadline_missed`` for requests with a deadline
+  (no-deadline finishes count as met), and ``goodput`` in ``summary()``
 * ``decode_step_s`` — per decode step, dispatch → fenced readback (the
   fence waits for the card, so this is device work plus launch)
 * ``host_step_s``   — per step, step wall minus the fence wait: the host
   Python the card waits on
+* ``decode_gap_s``  — wall gap between consecutive healthy decode
+  dispatches while rows stayed in flight: the decode-stall signal chunked
+  admission bounds
 * ``finish_<reason>`` — one counter per disposition (closed vocabulary)
 * ``queue_depth`` / ``slot_occupancy`` / ``batch_active`` per step,
   ``rows_sampled`` / ``rows_greedy``, ``prefill_batch`` (+ ``_padded``),
-  ``retries`` / ``recovered_rows``, and the KV format
-  (``kv_bits``, ``kv_bytes_per_slot``, ``kv_slots_per_gib``).
+  ``prefill_bucket_compiles`` (novel prefill shapes),
+  ``prefix_lookups`` / ``prefix_hits`` / ``prefix_hit_tokens``,
+  ``chunks`` / ``chunk_tokens`` / ``partial_rows`` (chunked admission),
+  ``preempted``, ``shed``, ``infeasible``, ``degraded`` /
+  ``degrade_restored``, ``cancelled``, ``retries`` / ``recovered_rows``,
+  ``resumed_without_prefill``, and the KV format (``kv_bits``,
+  ``kv_bytes_per_slot``, ``kv_slots_per_gib``).
+
+Count-like counters surface in ``summary()`` as sums, the rest as means.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from collections import deque
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -30,21 +43,35 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 class ServingMetrics:
     """Queue/latency/throughput counters for :class:`ServingEngine`."""
 
-    #: THE closed finish-reason vocabulary of this slice.
+    #: THE closed finish-reason vocabulary.
     FINISH_REASONS = frozenset({
-        "eos",      # the request's private eos token appeared
-        "stop",     # stop-token / stop-sequence hit
-        "length",   # max_new_tokens reached
-        "error",    # fault-recovery retry budget exhausted
+        "eos",         # the request's private eos token appeared
+        "stop",        # stop-token / stop-sequence hit
+        "length",      # max_new_tokens reached
+        "shed",        # queue-full backpressure at submit
+        "deadline",    # expired while WAITING
+        "infeasible",  # feasibility admission control drop
+        "error",       # fault-recovery retry budget exhausted
+        "cancelled",   # caller cancel()
     })
 
     #: phases during which the host is blocked on the card
     DEVICE_PHASES = frozenset({"fence_wait"})
 
+    #: counters ``summary()`` reports as sums
+    _SUMS = ("submitted", "finished", "retries", "recovered_rows",
+             "preempted", "shed", "deadline_missed", "degraded",
+             "degrade_restored", "finished_in_slo", "infeasible", "chunks",
+             "chunk_tokens", "resumed_without_prefill")
+
     def __init__(self, backing: Optional[Metrics] = None) -> None:
         self.metrics = backing if backing is not None else Metrics()
         self._t_start: Optional[float] = None
         self._t_last: Optional[float] = None
+        # recent decode steps for the feasibility estimate: _admit reads
+        # it every step, so it stays O(window), and a recent window
+        # follows drift where a lifetime median lags
+        self._step_window: deque = deque(maxlen=512)
         self._device_s = 0.0
         self._n_decode_steps = 0
 
@@ -55,6 +82,8 @@ class ServingMetrics:
 
     def on_step(self, queue_depth: int, occupancy: float,
                 batch_active: int) -> None:
+        # serve-duration anchors on the wall clock: observability, never
+        # a scheduling decision (those run on the engine clock)
         now = time.perf_counter()
         if self._t_start is None:
             self._t_start = now
@@ -67,12 +96,16 @@ class ServingMetrics:
         self.metrics.add("serving/ttft_s", float(ttft_s))
 
     def on_finish(self, latency_s: float, n_tokens: int,
-                  mean_logprob: Optional[float] = None) -> None:
+                  mean_logprob: Optional[float] = None,
+                  met_deadline: Optional[bool] = None) -> None:
         self.metrics.add("serving/finished", 1.0)
         self.metrics.add("serving/latency_s", float(latency_s))
         self.metrics.add("serving/tokens_out", float(n_tokens))
         if mean_logprob is not None:
             self.metrics.add("serving/mean_logprob", float(mean_logprob))
+        if met_deadline is not None:
+            self.metrics.add("serving/finished_in_slo" if met_deadline
+                             else "serving/deadline_missed", 1.0)
 
     def on_finish_reason(self, reason: str) -> None:
         if reason not in self.FINISH_REASONS:
@@ -81,11 +114,30 @@ class ServingMetrics:
                 f"{sorted(self.FINISH_REASONS)}")
         self.metrics.add(f"serving/finish_{reason}", 1.0)
 
+    def on_preempt(self) -> None:
+        self.metrics.add("serving/preempted", 1.0)
+
+    def on_shed(self, deadline: bool = False) -> None:
+        """A request shed without running; ``deadline=True`` (an expired
+        or infeasible waiter) also counts as a deadline miss."""
+        self.metrics.add("serving/shed", 1.0)
+        if deadline:
+            self.metrics.add("serving/deadline_missed", 1.0)
+
     def on_retry(self) -> None:
         self.metrics.add("serving/retries", 1.0)
 
     def on_recovered(self) -> None:
         self.metrics.add("serving/recovered_rows", 1.0)
+
+    def on_degrade(self) -> None:
+        self.metrics.add("serving/degraded", 1.0)
+
+    def on_degrade_restored(self) -> None:
+        self.metrics.add("serving/degrade_restored", 1.0)
+
+    def on_cancel(self) -> None:
+        self.metrics.add("serving/cancelled", 1.0)
 
     def on_sample_rows(self, n_sampled: int, n_greedy: int) -> None:
         self.metrics.add("serving/rows_sampled", float(n_sampled))
@@ -94,6 +146,35 @@ class ServingMetrics:
     def on_prefill_batch(self, n_rows: int, n_padded: int) -> None:
         self.metrics.add("serving/prefill_batch", float(n_rows))
         self.metrics.add("serving/prefill_batch_padded", float(n_padded))
+
+    def on_bucket_compile(self) -> None:
+        self.metrics.add("serving/prefill_bucket_compiles", 1.0)
+
+    def on_prefix_lookup(self, matched_tokens: int,
+                         total_tokens: int) -> None:
+        self.metrics.add("serving/prefix_lookups", 1.0)
+        if matched_tokens > 0:
+            self.metrics.add("serving/prefix_hits", 1.0)
+            self.metrics.add("serving/prefix_hit_tokens",
+                             float(matched_tokens))
+
+    def on_chunk(self, n_tokens: int) -> None:
+        """One chunk prefill carrying ``n_tokens`` prompt tokens."""
+        self.metrics.add("serving/chunks", 1.0)
+        self.metrics.add("serving/chunk_tokens", float(n_tokens))
+
+    def on_partial_rows(self, n: int) -> None:
+        self.metrics.add("serving/partial_rows", float(n))
+
+    def on_decode_gap(self, gap_s: float) -> None:
+        self.metrics.add("serving/decode_gap_s", float(gap_s))
+
+    def on_infeasible(self) -> None:
+        self.metrics.add("serving/infeasible", 1.0)
+
+    def on_resume_without_prefill(self) -> None:
+        """A mid-stream row re-seated from its stashed ``row_state``."""
+        self.metrics.add("serving/resumed_without_prefill", 1.0)
 
     def set_kv_format(self, kv_dtype: str, bytes_per_slot: int) -> None:
         bits = {"fp32": 32.0, "bf16": 16.0, "int8": 8.0}.get(kv_dtype, 0.0)
@@ -105,6 +186,7 @@ class ServingMetrics:
     def add_phase(self, name: str, seconds: float) -> None:
         self.metrics.add(f"serving/{name}_s", float(seconds))
         if name == "decode_step":
+            self._step_window.append(float(seconds))
             self._n_decode_steps += 1
         if name in self.DEVICE_PHASES:
             self._device_s += float(seconds)
@@ -117,7 +199,43 @@ class ServingMetrics:
     def decode_step_count(self) -> int:
         return self._n_decode_steps
 
+    # -- estimates and windows -----------------------------------------------
+
+    def decode_step_estimate(self, n: int = 64) -> Optional[float]:
+        """Median of the last ``n`` decode-step samples (seconds), None
+        before the first: robust to the cold first step and to stalls."""
+        if not self._step_window:
+            return None
+        return self._window_stats(list(self._step_window)[-int(n):])["p50"]
+
+    def service_time_estimate(self) -> Optional[float]:
+        """Estimated seconds per emitted token — what feasibility
+        admission multiplies a request's remaining budget by. One token
+        per row per decode step here (the speculative division is
+        ROADMAP.md A.2.e)."""
+        return self.decode_step_estimate()
+
+    @staticmethod
+    def _window_stats(vals) -> Dict[str, float]:
+        arr = np.asarray(vals, dtype=float)
+        return {"n": int(arr.size), "mean": float(arr.mean()),
+                "p50": float(np.percentile(arr, 50)),
+                "p99": float(np.percentile(arr, 99))}
+
+    def window(self, name: str, n: int) -> Optional[Dict[str, float]]:
+        """mean/p50/p99 (and the sample count ``n``) over the last ``n``
+        samples of ``serving/<name>``; None before the first sample."""
+        if n < 1:
+            raise ValueError(f"window size must be >= 1, got {n}")
+        vals = self._values(name)
+        if not vals:
+            return None
+        return self._window_stats(vals[-int(n):])
+
     # -- derived views -----------------------------------------------------
+
+    def _values(self, name: str) -> List[float]:
+        return self.metrics.values(f"serving/{name}")
 
     def tokens_per_sec(self) -> float:
         """Generated tokens over the first-step → last-step window."""
@@ -128,7 +246,7 @@ class ServingMetrics:
         return total / (self._t_last - self._t_start)
 
     def _pctl(self, name: str, qs) -> Dict[str, float]:
-        vals = self.metrics.values(f"serving/{name}")
+        vals = self._values(name)
         if not vals:
             return {f"p{q}": 0.0 for q in qs}
         arr = np.asarray(vals)
@@ -143,21 +261,36 @@ class ServingMetrics:
     def host_step_percentiles(self, qs=(50, 90, 99)) -> Dict[str, float]:
         return self._pctl("host_step_s", qs)
 
+    def decode_gap_percentiles(self, qs=(50, 90, 99)) -> Dict[str, float]:
+        return self._pctl("decode_gap_s", qs)
+
     def summary(self) -> Dict[str, float]:
         """Means of every counter plus throughput, percentiles and the
         count-like counters as SUMS — one flat dict."""
         out = {k: v for k, v in self.metrics.summary().items()
                if k.startswith("serving/")}
         out["serving/tokens_per_sec"] = self.tokens_per_sec()
+        n_look, _ = self.metrics.get("serving/prefix_lookups")
+        if n_look:
+            n_hit, _ = self.metrics.get("serving/prefix_hits")
+            out["serving/prefix_hit_rate"] = n_hit / n_look
         n_s, _ = self.metrics.get("serving/rows_sampled")
         n_g, _ = self.metrics.get("serving/rows_greedy")
         if n_s + n_g > 0:
             out["serving/sampled_row_frac"] = n_s / (n_s + n_g)
-        for name in ("submitted", "finished", "retries", "recovered_rows",
+        for name in (*self._SUMS,
                      *(f"finish_{r}" for r in sorted(self.FINISH_REASONS))):
             total, n = self.metrics.get(f"serving/{name}")
             if n:
                 out[f"serving/{name}"] = total
+        n_sub, _ = self.metrics.get("serving/submitted")
+        if n_sub:
+            n_slo, _ = self.metrics.get("serving/finished_in_slo")
+            out["serving/goodput"] = n_slo / n_sub
+        _, n_gap = self.metrics.get("serving/decode_gap_s")
+        if n_gap:
+            out["serving/decode_gap_p99_s"] = \
+                self.decode_gap_percentiles()["p99"]
         for metric, fn in (("ttft", self.ttft_percentiles),
                            ("decode_step", self.decode_step_percentiles),
                            ("host_step", self.host_step_percentiles)):

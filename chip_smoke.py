@@ -49,34 +49,49 @@ any failure raises, so the exit code is non-zero and no result prints:
               tokens, 32 new tokens each, greedy and seeded-sampled rows;
               then the device launches per decode step (``torch.profiler``
               over 8 steps of a full pool);
-8. train    — the training path at full width: the same 137m model at
+8. serve_modes — the admission and scheduling modes of ``ServingEngine`` on
+              the same model (bf16, int8 KV, 16 slots), each run held to:
+              every request at its length, ids in 1..V, finite log-probs
+              <= 0, and decode-attention launches = decode steps x 12:
+              ``per_request`` on the serve phase's 24 requests; ``prefix``
+              (prefix cache on 24 chat requests, one shared 192-token
+              head with 16-64-token tails: every request after the first
+              round must hit);
+              ``chunked`` (budget 64 on the serve requests: no step may
+              spend more, its decode-gap p99 beside the serve phase's);
+              ``priority`` (16 priority-0 requests of 64 new tokens fill
+              the slots, 8 priority-1 ones arrive after 4 steps: 8
+              preemptions, every stash restored bitwise); ``faults``
+              (a seeded ``FaultInjector``, up to 8 faults, 8 retries: all
+              finish at length, faults and retries happen);
+9. train    — the training path at full width: the same 137m model at
               max_len = T = 2048, ``output="logits"``, trained through
               ``Optimizer(...).optimize()`` with
               ``MaskedSoftmaxCECriterion(0)``, ``Adam(1e-4)``, bf16 compute,
               batch 8, 2 warm + 5 timed steps on one seeded batch: step ms
               p50, tokens/s, MFU, peak memory, first and last loss;
-9. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
+10. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
               kernels against their plain versions: the stage-1 block join
               (M 802,816, C 256, K 64, residual, y and extra dy, bf16), the
               stage-4 bn2 edge (M 12,544, C 512, K 2048, bf16) and an f32
               case with ragged M, C and K; per-row errors and channel-sum
               errors against the stated tolerances, kernel, plain, bare
               cuBLAS product and unfused-torch times, and the bound;
-10. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
+11. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
               K) that ResNet-50's step launches them at (batch 256, bf16):
               each against its plain version, each kernel's median and
               min-max time beside its bound, the cuBLAS product and the
               unfused sequence, and per kernel the step's sum of launches x
               (time - bound);
-11. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
+12. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
               on the kernels) on the card against the CPU: losses,
               parameters and BN running statistics;
-12. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
+13. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
               momentum 0.9 / weight decay 1e-4, ``maybe_fuse`` with
               ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
               timed steps: step ms p50, images/s, peak memory, losses; then
               the unfused ``Graph`` on the same recipe;
-13. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+14. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
@@ -88,7 +103,7 @@ any failure raises, so the exit code is non-zero and no result prints:
 
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; each of its kernels must have launched (decode attention once
-per layer per decode step, each flash kernel once per layer per step, each
+per layer per decode step in serve and serve_modes, each flash kernel once per layer per step, each
 fused-conv kernel exactly 28 times per ResNet-50 step, the conv3x3 kernel
 once per checked case and 33 times per timed shape).
 
@@ -1390,21 +1405,45 @@ def decode_step_launches(engine, vocab, rng, steps: int = 8) -> float:
     return n / steps
 
 
-def serve_phase():
-    """The main path at the 137m width; returns decode_attention launches."""
+def serve_traffic(rng, vocab: int):
+    """The serve phase's 24 requests: prompts of 16-256 tokens, every
+    third one sampled (seeded), the rest greedy; ``(prompt, sampling)``."""
+    from bigdl_tpu_torch.serving import SamplingParams
+
+    out = []
+    for i in range(24):
+        prompt = rng.integers(1, vocab + 1, size=int(rng.integers(16, 257)))
+        sp = (SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i)
+              if i % 3 == 2 else None)
+        out.append((prompt.tolist(), sp))
+    return out
+
+
+def lm_137m():
+    """The "137m" TransformerLM (``benchmarks/serving_bench.py:146``) on
+    the card, random weights from seed 0; returns (model, build seconds)."""
     import torch
 
     from bigdl_tpu_torch.models.transformer import TransformerLM
-    from bigdl_tpu_torch.ops import decode_attention as da
-    from bigdl_tpu_torch.serving import SamplingParams, ServingEngine
 
-    V, layers = 32768, 12
     t0 = time.perf_counter()
-    lm = TransformerLM(V, hidden_size=768, n_heads=12, n_layers=layers,
+    lm = TransformerLM(32768, hidden_size=768, n_heads=12, n_layers=12,
                        max_len=512, output="logits", seed=0)
     lm.evaluate()
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    return lm, time.perf_counter() - t0
+
+
+def serve_phase():
+    """The main path at the 137m width; returns decode_attention launches
+    and the run's decode-gap p99 (the chunked run's yardstick)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    V, layers = 32768, 12
+    lm, build_s = lm_137m()
     n_params = sum(p.numel() for p in lm.parameters())
 
     def engine():
@@ -1421,13 +1460,8 @@ def serve_phase():
 
     rng = np.random.default_rng(0)
     eng = engine()
-    reqs = []
-    for i in range(24):
-        prompt = rng.integers(1, V + 1, size=int(rng.integers(16, 257)))
-        sp = (SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i)
-              if i % 3 == 2 else None)
-        reqs.append((eng.submit(prompt.tolist(), max_new_tokens=32,
-                                sampling=sp), sp))
+    reqs = [(eng.submit(prompt, max_new_tokens=32, sampling=sp), sp)
+            for prompt, sp in serve_traffic(rng, V)]
     torch.cuda.synchronize()
     da.launches = 0
     t0 = time.perf_counter()
@@ -1455,12 +1489,198 @@ def serve_phase():
          requests=len(reqs), new_tokens=32 * len(reqs), wall_s=wall,
          decode_steps=steps, decode_attention_launches=launches,
          decode_step_device_launches=per_step,
+         decode_gap_p99_s=s["serving/decode_gap_p99_s"],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(json.dumps({"tokens_per_s": s["serving/tokens_per_sec"]}))
     print(json.dumps({"ttft_p50_s": s["serving/ttft_p50_s"],
                       "ttft_p99_s": s["serving/ttft_p99_s"]}))
     print(json.dumps({"decode_step_p50_s": s["serving/decode_step_p50_s"],
                       "host_step_p50_s": s["serving/host_step_p50_s"]}))
+    return launches, s["serving/decode_gap_p99_s"]
+
+
+def serve_modes_run(lm, mode, knobs, submit, between=None):
+    """Serve one traffic through ``ServingEngine(**knobs)`` at the 137m
+    width (bf16, int8 KV, 16 slots): ``submit(eng)`` queues requests and
+    returns their ids, ``between(eng, step)`` runs after each step (more
+    arrivals, checks). Checks every request ran to its length with ids in
+    1..V and finite log-probs <= 0; returns (engine, ids, line fields)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    V = lm[0].n_index
+    eng = ServingEngine(lm, n_slots=16, compute_dtype=torch.bfloat16,
+                        kv_dtype="int8", **knobs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.launches = 0
+    rids = submit(eng)
+    t0 = time.perf_counter()
+    n = 0
+    with torch.no_grad():
+        while not eng.scheduler.idle():
+            eng.step()
+            n += 1
+            if between is not None:
+                rids += between(eng, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for rid in rids:
+        req, out, lps = eng.request(rid), eng.result(rid), eng.logprobs(rid)
+        if req is None or req.finish_reason != "length" \
+                or len(out) != req.max_new_tokens:
+            raise AssertionError(f"{mode}: request {rid} did not run to "
+                                 f"its length ({req and req.finish_reason})")
+        if not (out.min() >= 1 and out.max() <= V):
+            raise AssertionError(f"{mode}: request {rid}: bad ids {out}")
+        if not (np.isfinite(lps).all() and (lps <= 0).all()):
+            raise AssertionError(f"{mode}: request {rid}: bad logprobs")
+    s = eng.summary()
+    m = eng.metrics.metrics
+    fields = dict(
+        mode=mode, requests=len(rids), wall_s=wall,
+        new_tokens=int(m.get("serving/tokens_out")[0]),
+        tokens_per_s=s["serving/tokens_per_sec"],
+        ttft_p50_s=s["serving/ttft_p50_s"], ttft_p99_s=s["serving/ttft_p99_s"],
+        decode_step_p50_s=s["serving/decode_step_p50_s"],
+        decode_gap_p99_s=s.get("serving/decode_gap_p99_s", 0.0),
+        prefix_hits=m.get("serving/prefix_hits")[0],
+        prefix_matched_tokens=m.get("serving/prefix_hit_tokens")[0],
+        chunks=m.get("serving/chunks")[0],
+        preempted=m.get("serving/preempted")[0],
+        retries=m.get("serving/retries")[0], shed=m.get("serving/shed")[0],
+        decode_steps=eng.metrics.decode_step_count,
+        decode_attention_launches=da.launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return eng, rids, fields
+
+
+def serve_modes_phase(batched_gap_p99_s):
+    """The admission and scheduling modes of ``ServingEngine`` at the 137m
+    width, each on its own traffic (see the module docstring);
+    ``batched_gap_p99_s`` is the serve phase's decode-gap p99 on the same
+    requests as the chunked run. Returns the decode_attention launches of
+    all runs."""
+    import torch
+
+    from bigdl_tpu_torch.serving import FaultInjector, WatchdogConfig
+
+    lm, _ = lm_137m()
+    V, layers = 32768, 12
+    traffic = serve_traffic(np.random.default_rng(0), V)
+
+    def serve_submit(eng):
+        return [eng.submit(p, max_new_tokens=32, sampling=sp)
+                for p, sp in traffic]
+
+    def check_launches(f):
+        if f["decode_attention_launches"] != f["decode_steps"] * layers:
+            raise AssertionError(
+                f"{f['mode']}: decode_attention launched "
+                f"{f['decode_attention_launches']} times, expected "
+                f"{f['decode_steps']} decode steps x {layers} layers")
+
+    launches = 0
+    runs = {}
+
+    _, _, f = serve_modes_run(lm, "per_request",
+                              {"admission": "per_request"}, serve_submit)
+    runs["per_request"] = f
+
+    # chat traffic behind one system prompt: a shared 192-token head and
+    # distinct 16-64-token tails
+    rng = np.random.default_rng(1)
+    head = rng.integers(1, V + 1, size=192).tolist()
+    chat = [head + rng.integers(1, V + 1, size=int(rng.integers(16, 65)))
+            .tolist() for _ in range(24)]
+    eng, _, f = serve_modes_run(
+        lm, "prefix", {"prefix_cache": True},
+        lambda e: [e.submit(p, max_new_tokens=32) for p in chat])
+    fed = sum(len(p) - 1 for p in chat)
+    f["prefix_matched_share"] = f["prefix_matched_tokens"] / fed
+    if f["prefix_hits"] != 24 - 16:
+        raise AssertionError(f"prefix: {f['prefix_hits']} hits, expected "
+                             "every request after the first round (8)")
+    runs["prefix"] = f
+
+    spend = []
+
+    def chunk_spend(eng, n):
+        total = eng.metrics.metrics.get("serving/chunk_tokens")[0]
+        spend.append(total - sum(spend))
+        return []
+
+    _, _, f = serve_modes_run(lm, "chunked", {"admission": "chunked",
+                                              "chunk_budget": 64},
+                              serve_submit, chunk_spend)
+    f["max_chunk_tokens_per_step"] = max(spend)
+    f["batched_decode_gap_p99_s"] = batched_gap_p99_s
+    if max(spend) > 64:
+        raise AssertionError(f"chunked: a step spent {max(spend)} prompt "
+                             "tokens, over the budget of 64")
+    runs["chunked"] = f
+
+    # 16 priority-0 requests fill the slots; after 4 steps 8 priority-1
+    # requests arrive and preempt 8 of them; every restore of a stash is
+    # held bitwise against the slot it lands in. Inside the timed loop a
+    # restore only snapshots its slot (device copies, no read back); the
+    # compares run once the wall time is taken
+    rng = np.random.default_rng(2)
+    low = [rng.integers(1, V + 1, size=int(rng.integers(16, 257))).tolist()
+           for _ in range(16)]
+    high = [rng.integers(1, V + 1, size=int(rng.integers(16, 257))).tolist()
+            for _ in range(8)]
+    restored = []           # (stashed payload, its slot right after)
+
+    def arrive(eng, n):
+        if n != 4:
+            return []
+        restore = eng.pool.restore_row
+
+        def restore_and_snapshot(slot, payload):
+            restore(slot, payload)
+            restored.append((payload["carry"],
+                             eng.pool.row_state(slot)["carry"]))
+
+        eng.pool.restore_row = restore_and_snapshot
+        return [eng.submit(p, max_new_tokens=32, priority=1) for p in high]
+
+    eng, _, f = serve_modes_run(
+        lm, "priority", {"policy": "priority"},
+        lambda e: [e.submit(p, max_new_tokens=64) for p in low], arrive)
+    f["resumed_without_prefill"] = \
+        eng.metrics.metrics.get("serving/resumed_without_prefill")[0]
+    restores = [all(torch.equal(after[k], v) for k, v in stash.items())
+                for stash, after in restored]
+    f["restores_bitwise"] = f"{sum(restores)}/{len(restores)}"
+    f["stash_bytes_per_row"] = max(
+        (sum(v.numel() * v.element_size() for v in stash.values())
+         for stash, _ in restored), default=0)
+    if f["preempted"] != 8 or not restores or not all(restores) \
+            or f["resumed_without_prefill"] <= 0:
+        raise AssertionError(f"priority: {f}")
+    runs["priority"] = f
+
+    inj = FaultInjector(seed=0, p_fail=0.05, p_garbage=0.05,
+                        p_admit_fail=0.05, max_faults=8)
+    _, _, f = serve_modes_run(
+        lm, "faults", {"faults": inj,
+                       "watchdog": WatchdogConfig(max_retries=8)},
+        serve_submit)
+    f["faults"] = dict(inj.counts)
+    # a failed dispatch raises before the step runs and a garbage step
+    # still launches, so every counted decode step launched once a layer
+    if not (inj.total > 0 and f["retries"] > 0):
+        raise AssertionError(f"faults: {f}")
+    f["healthy_decode_steps"] = f["decode_steps"] - inj.counts["garbage"]
+    runs["faults"] = f
+
+    for f in runs.values():
+        check_launches(f)
+        launches += f["decode_attention_launches"]
+        emit("serve_modes", **f)
     return launches
 
 
@@ -1501,9 +1721,10 @@ def main() -> int:
     kv_merge_phase()
     check_phase()
     train_check_phase()
-    entry["launches"] = serve_phase()
+    entry["launches"], batched_gap_p99_s = serve_phase()
     if not entry["launches"]:
         raise AssertionError("decode_attention never launched on the main path")
+    entry["launches"] += serve_modes_phase(batched_gap_p99_s)
     for name, n in train_phase().items():
         flash[name]["launches"] = n
     fused = fused_conv_phase()

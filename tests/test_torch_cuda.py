@@ -669,3 +669,108 @@ def test_conv3x3_kernel_takes_views_and_refuses_rather_than_falls_back(card):
         cv.conv3x3(x.transpose(1, 2), w9)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cv.conv3x3(x, w9.cpu())
+
+
+# -- the serving engine's admission and scheduling modes on the card -------
+
+def _serving_lm():
+    """make_pair()'s vocabulary, width, depth and max_len on the card,
+    with one head so the head dim is the kernel's smallest (32)."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    lm = TransformerLM(29, hidden_size=32, n_heads=1, n_layers=2,
+                       max_len=48, device="cuda", seed=9)
+    lm.evaluate()
+    return lm
+
+
+def _serving_engine(**kw):
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    kw.setdefault("n_slots", 3)
+    return ServingEngine(_serving_lm(), kv_dtype="int8", **kw)
+
+
+def _serving_reqs(n=7, seed=14):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randint(1, 30, (int(torch.randint(1, 20, (1,),
+                                                      generator=g)),),
+                           generator=g).tolist(), 8) for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_serving_row_state_round_trip_is_bitwise(card):
+    eng = _serving_engine()
+    with torch.no_grad():
+        eng.submit(list(range(3, 20)), max_new_tokens=12)
+        for _ in range(3):
+            eng.step()
+        slot = next(iter(eng.scheduler.running))
+        payload = eng.pool.row_state(slot)
+        other = eng.pool.alloc()
+        eng.pool.restore_row(other, payload)
+        again = eng.pool.row_state(other)
+    assert set(again["carry"]) == set(payload["carry"])
+    for k, v in payload["carry"].items():
+        assert v.is_cuda and torch.equal(again["carry"][k], v), k
+
+
+@pytest.mark.cuda
+def test_serving_prefix_hit_leaves_the_cached_entry_unchanged(card):
+    head = list(range(3, 19))
+    eng = _serving_engine(prefix_cache=True)
+    with torch.no_grad():
+        eng.submit(head, max_new_tokens=3)
+        eng.drain()
+        nodes = list(eng.prefix_cache._carry_nodes)
+        snap = [{k: v.clone() for k, v in n.carry.items()} for n in nodes]
+        rids = [eng.submit(head, max_new_tokens=6),
+                eng.submit(head + [5, 9], max_new_tokens=6),
+                eng.submit(head[:9], max_new_tokens=6)]
+        eng.drain()
+    assert eng.metrics.metrics.get("serving/prefix_hits")[0] == 3
+    assert all(len(eng.result(r)) == 6 for r in rids)
+    for node, before in zip(nodes, snap):
+        for k, v in before.items():
+            assert torch.equal(node.carry[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [{"admission": "per_request"},
+                                  {"admission": "chunked", "chunk_budget": 8},
+                                  {"policy": "priority"}])
+def test_serving_modes_launch_decode_attention_every_step(card, mode):
+    from bigdl_tpu_torch.ops import decode_attention as da
+
+    eng = _serving_engine(**mode)
+    reqs = _serving_reqs()
+    with torch.no_grad():
+        rids = [eng.submit(p, max_new_tokens=n) for p, n in reqs[:3]]
+        eng.step()
+        rids += [eng.submit(p, max_new_tokens=n, priority=1)
+                 for p, n in reqs[3:]]
+        da.launches = 0
+        steps = -eng.metrics.decode_step_count
+        eng.drain()
+    steps += eng.metrics.decode_step_count
+    assert steps > 0 and da.launches == steps * 2
+    assert all(eng.request(r).finish_reason == "length" for r in rids)
+    assert eng.pool.free_slots == eng.pool.n_slots
+
+
+@pytest.mark.cuda
+def test_serving_seeded_faults_finish_every_request(card):
+    from bigdl_tpu_torch.serving import FaultInjector, WatchdogConfig
+
+    inj = FaultInjector(seed=0, p_fail=0.1, p_garbage=0.1,
+                        p_admit_fail=0.1, max_faults=8)
+    eng = _serving_engine(faults=inj,
+                          watchdog=WatchdogConfig(max_retries=8))
+    with torch.no_grad():
+        rids = [eng.submit(p, max_new_tokens=n)
+                for p, n in _serving_reqs(seed=3)]
+        eng.drain()
+    assert inj.total > 0
+    assert all(eng.request(r).finish_reason == "length" for r in rids)
+    assert all(len(eng.result(r)) == 8 for r in rids)
+    assert eng.summary()["serving/retries"] > 0

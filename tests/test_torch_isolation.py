@@ -45,6 +45,10 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.models.transformer",
               "bigdl_tpu_torch.ops.decode_attention",
               "bigdl_tpu_torch.serving.engine",
+              "bigdl_tpu_torch.serving.scheduler",
+              "bigdl_tpu_torch.serving.faults",
+              "bigdl_tpu_torch.serving.prefix_cache",
+              "bigdl_tpu_torch.serving.chunked",
               "bigdl_tpu_torch.ops.flash_attention",
               "bigdl_tpu_torch.nn.criterion",
               "bigdl_tpu_torch.nn.criterion_more",

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import make_pair
+from tests.torch_parity import make_pair, top2_gaps
 
 LOGP_TOL = 1e-3
 GAP = 1e-2
@@ -56,22 +56,6 @@ def _run_port(tlm, reqs, sampling=None, **kw):
     return eng, rids, eng.drain()
 
 
-def _top2_gaps(jlm, prompt, output):
-    """Top-1 minus top-2 log-prob of the JAX model at every generated
-    position of ``output``, teacher-forced; negative where the chosen
-    token is not the argmax."""
-    import jax.numpy as jnp
-
-    seq = np.asarray(prompt + list(output[:-1]), np.float32)[None]
-    lp = np.asarray(jlm.forward(jnp.asarray(seq)))[0]
-    gaps = []
-    for i, tok in enumerate(output):
-        row = lp[len(prompt) - 1 + i]
-        others = np.delete(row, tok - 1)
-        gaps.append(row[tok - 1] - others.max())
-    return np.asarray(gaps)
-
-
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp32"])
 def test_engine_greedy_matches_jax_engine(pair, kv_dtype):
     from bigdl_tpu.serving import ServingEngine as JaxEngine
@@ -85,7 +69,7 @@ def test_engine_greedy_matches_jax_engine(pair, kv_dtype):
     for (p, n), jr, r in zip(reqs, jrids, rids):
         want = jouts[jr]
         assert len(want) == n
-        assert _top2_gaps(jlm, p, want.tolist()).min() > GAP, p
+        assert top2_gaps(jlm, p, want.tolist()).min() > GAP, p
         np.testing.assert_array_equal(outs[r], want, err_msg=str(p))
         np.testing.assert_allclose(eng.logprobs(r), jeng.logprobs(jr),
                                    atol=LOGP_TOL, rtol=0)
@@ -213,18 +197,24 @@ def test_entry_points_need_a_card_or_cpu_by_name(pair):
         TransformerLM(29, hidden_size=32, n_heads=4, n_layers=1, max_len=8)
 
 
-@pytest.mark.parametrize("knob", [
-    {"mesh": object()}, {"parallelism": {"data": 2}},
-    {"speculative": object()}, {"adapters": object()}, {"tier": True},
-    {"autopilot": object()}, {"faults": object()}, {"prefix_cache": True},
-    {"admission": "chunked"}, {"admission": "per_request"},
-    {"policy": "priority"}, {"dispatch_ahead": 2}])
-def test_knobs_outside_the_slice_raise(pair, knob):
-    from bigdl_tpu_torch.serving import ServingEngine
+@pytest.mark.parametrize("where,knob", [
+    ("engine", {"mesh": object()}), ("engine", {"parallelism": {"data": 2}}),
+    ("engine", {"speculative": object()}), ("engine", {"adapters": object()}),
+    ("engine", {"tier": True}), ("engine", {"autopilot": object()}),
+    ("engine", {"dispatch_ahead": 2}), ("submit", {"draft_tokens": 0}),
+    ("submit", {"adapter_id": 1}), ("submit", {"constraint": object()}),
+    ("degrade", {"draft_tokens": 0})])
+def test_knobs_outside_the_slice_raise(pair, where, knob):
+    from bigdl_tpu_torch.serving import Degrade, ServingEngine
 
     _, tlm = pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(tlm, device="cpu", **knob)
+        if where == "engine":
+            ServingEngine(tlm, device="cpu", **knob)
+        elif where == "submit":
+            ServingEngine(tlm, device="cpu").submit([3, 7], **knob)
+        else:
+            Degrade(max_new_tokens=3, **knob)
 
 
 def test_kv_dtype_validation(pair):

@@ -1,7 +1,9 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): one
 JAX TransformerLM and its port twin holding the same weights, carried
-across with ``load_jax_params``, plus numpy conversions. A plain module
-(no fixtures, no test functions), imported by the test files."""
+across with ``load_jax_params``, numpy conversions, and the top-2 gap
+check that decides which greedy streams may be compared token for
+token. A plain module (no fixtures, no test functions), imported by the
+test files."""
 
 import jax
 import numpy as np
@@ -38,3 +40,19 @@ def np_tree(tree):
     for k, v in tree.items():
         out[k] = v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
+
+
+def top2_gaps(jlm, prompt, output):
+    """Top-1 minus top-2 log-prob of the JAX model at every generated
+    position of ``output`` (1-based ids), teacher-forced; negative where
+    the chosen token is not the argmax."""
+    import jax.numpy as jnp
+
+    seq = np.asarray(prompt + list(output[:-1]), np.float32)[None]
+    lp = np.asarray(jlm.forward(jnp.asarray(seq)))[0]
+    gaps = []
+    for i, tok in enumerate(output):
+        row = lp[len(prompt) - 1 + i]
+        others = np.delete(row, tok - 1)
+        gaps.append(row[tok - 1] - others.max())
+    return np.asarray(gaps)

@@ -24,7 +24,12 @@ runs:
   read goes through :func:`bigdl_tpu_torch.ops.decode_attention.
   decode_attention` — the CUDA kernel on the card, the plain version on
   the CPU; float KV stays inline PyTorch, as the JAX step leaves it to
-  XLA.
+  XLA. The int8 grow-only scale merge stays on the device too
+  (:func:`bigdl_tpu_torch.ops.kv_requant.kv_requant`, the port of the
+  JAX step's ``lax.cond``), so the step reads nothing back to the host;
+* :func:`make_batch_verify_step` — the speculative engine's target step:
+  a per-row chunk of candidate tokens scored in one call, each row
+  advanced by the draws the target confirms.
 
 Numerics follow the JAX serving conventions: projections in the serving
 dtype, scores/softmax/log-softmax in f32, GELU in its tanh form (JAX's
@@ -253,10 +258,8 @@ def _model_geometry(model: Sequential):
 
 
 # -- int8 KV: the grow-only per-(row, head) scale rule ---------------------
-
-# Over-provision a growing scale by this factor (``transformer.py:594``):
-# one growth jumps past the running max, so requantizations stay rare.
-_KV_SCALE_HEADROOM = 1.25
+# (the rule itself, ``kv_scale_merge``, lives beside its kernel in
+# :mod:`bigdl_tpu_torch.ops.kv_requant`)
 
 
 def _kv_quant_merge(qc, s_old, amax_new):
@@ -265,37 +268,28 @@ def _kv_quant_merge(qc, s_old, amax_new):
     f32. Returns ``(requantized NEW cache, s_new, s_safe)``; rows whose
     scale does not grow have ratio exactly 1.0 and requantize to
     themselves bitwise."""
-    s_cand = amax_new / 127.0
-    s_new = torch.where(s_cand > s_old, s_cand * _KV_SCALE_HEADROOM, s_old)
-    s_safe = torch.where(s_new > 0, s_new, 1.0)
-    ratio = torch.where(s_new > 0, s_old / s_safe, 1.0)
-    qc2 = torch.round(qc.float() * ratio[:, None, :, None]).to(torch.int8)
-    return qc2, s_new, s_safe
+    from bigdl_tpu_torch.ops.kv_requant import (
+        kv_requant_reference, kv_scale_merge,
+    )
+
+    s_new, s_safe, ratio = kv_scale_merge(s_old, amax_new)
+    return kv_requant_reference(qc, ratio), s_new, s_safe
 
 
 def _kv_quant_merge_step(kc, vc, ks_old, vs_old, k_amax, v_amax):
     """Decode-step spelling of the merge (``:628``), IN PLACE on the
-    pooled ``kc``/``vc``.
+    pooled ``kc``/``vc``, with no read back to the host.
 
     The JAX step skips the full-cache requantization under ``lax.cond``
-    when no scale grew. PyTorch has no device-side branch, so this reads
-    the ``grew`` flag back to the host — one small device→host sync per
-    layer per decode step — and requantizes only on growth. The
-    alternative, an unconditional merge, is bitwise equal (ratio-1.0
-    rows requantize to themselves) but reads and writes the whole cache
-    every step; PERF.md holds the measured cost of both."""
-    grew = bool(((k_amax / 127.0 > ks_old).any()
-                 | (v_amax / 127.0 > vs_old).any()).item())
-    if grew:
-        kc2, ks, _ = _kv_quant_merge(kc, ks_old, k_amax)
-        vc2, vs, _ = _kv_quant_merge(vc, vs_old, v_amax)
-        kc.copy_(kc2)
-        vc.copy_(vc2)
-    else:
-        ks, vs = ks_old, vs_old
-    ks_safe = torch.where(ks > 0, ks, 1.0)
-    vs_safe = torch.where(vs > 0, vs, 1.0)
-    return kc, vc, ks, vs, ks_safe, vs_safe
+    when no scale grew. Here :func:`bigdl_tpu_torch.ops.kv_requant.
+    kv_requant` does the scale rule and the requantize of both caches: on
+    the card one kernel launch whose (row, head) pairs with ratio 1.0 exit
+    after writing their scales (the common no-growth step touches no cache
+    byte), on the CPU the unconditional merge. Both are bitwise the
+    unconditional merge. Returns ``(kc, vc, ks, vs, ks_safe, vs_safe)``."""
+    from bigdl_tpu_torch.ops.kv_requant import kv_requant
+
+    return kv_requant(kc, vc, ks_old, vs_old, k_amax, v_amax)
 
 
 def _kv_quantize(x32, s_safe):
@@ -536,7 +530,9 @@ def make_batch_decode_step(model: Sequential, compute_dtype=None,
 
     ``kv_quant=True`` stores K/V as int8 with one f32 scale per
     (slot, head) and reads them through the pooled decode-attention op
-    (the CUDA kernel on the card)."""
+    (the CUDA kernel on the card); a scale that grows requantizes its
+    row through the kv_requant op. The step makes no device→host read:
+    its outputs can feed the next step on the device."""
     from bigdl_tpu_torch.ops.decode_attention import decode_attention
 
     g = _model_geometry(model)
@@ -620,3 +616,179 @@ def make_batch_decode_step(model: Sequential, compute_dtype=None,
         return tok, chosen, carry
 
     return (sample_step if sampling else forward), init_carry
+
+
+# -- speculative verify ----------------------------------------------------
+
+
+def _write_cols(dst, rows, cols, mask, vals):
+    """``dst[r, cols[r, j]] = vals[r, j]`` where ``mask[r, j]``, one chunk
+    column ``j`` at a time: each write's (row, column) pairs are distinct,
+    and a masked-off pair writes back the value it reads, so a column
+    clamped onto another one's position leaves it as that one wrote it."""
+    shape = (-1,) + (1,) * (vals.dim() - 2)
+    for j in range(cols.shape[1]):
+        idx = cols[:, j]
+        dst[rows, idx] = torch.where(mask[:, j].view(shape),
+                                     vals[:, j].to(dst.dtype),
+                                     dst[rows, idx])
+
+
+def make_batch_verify_step(model: Sequential, compute_dtype=None,
+                           width: int = 4, kv_quant: bool = False):
+    """The speculative engine's target step (``:1648``): one call scores a
+    per-row CHUNK of candidate tokens and advances each row by the draws
+    the target confirms. Returns ``(verify_fn, init_carry)``;
+    ``init_carry`` builds the :func:`make_batch_decode_step`
+    ``sampling=True`` carry (one layout: a pool built by either serves
+    the other).
+
+    ``verify_fn(params, tokens, lengths, carry, knobs) -> (tokens_out,
+    logps_out, n_emit, carry)``:
+
+    * ``tokens``: (N, ``width``) 0-based ids on the device — column 0 is
+      row r's current decode input, columns ``1..lengths[r]-1`` its draft
+      proposals, later columns pad the step never reads;
+    * ``lengths``: (N,) ints on the device, ``0 <= lengths[r] <=
+      width`` — chunk positions row r runs. ``lengths[r] == 1`` is the
+      plain sampled decode step; ``0`` is ballast (carry bitwise
+      untouched, outputs garbage);
+    * ``tokens_out``/``logps_out``: (N, width) — position j's draw by the
+      one per-row sampler (:func:`bigdl_tpu_torch.serving.sampling.
+      sample_rows`) from the target's distribution after chunk inputs
+      ``0..j``, the row's lane and penalty counts advanced once per
+      position in order, as the plain step would draw them had the
+      accepted prefix been fed token by token;
+    * ``n_emit``: (N,) int32 — ``1 +`` the leading positions whose draw
+      equals the next chunk input (sampled-token agreement; greedy rows:
+      argmax agreement), 0 for ballast rows.
+
+    Rollback is pointer arithmetic: K/V of all ``lengths[r]`` inputs are
+    written at ``pos[r]..``, but ``pos``, the lane and the counts advance
+    by ``n_emit[r]`` only; positions past the accepted prefix are stale
+    bytes behind ``pos``. The carry is updated IN PLACE and returned, as
+    the decode step's is. Attention is plain PyTorch over the cache (the
+    JAX verify step reaches no Pallas kernel either).
+
+    ``kv_quant``: the chunk attends over the stored cache dequantized at
+    its CURRENT scales with the chunk's own float K/V laid over it; the
+    grow-only scale merge and the quantized write are deferred until
+    ``n_emit`` is known and cover the EMITTED columns only (the requantize
+    through :func:`bigdl_tpu_torch.ops.kv_requant.kv_requant`), so a
+    rejected draft touches neither a row's scales nor its stored bytes.
+
+    Caller contract (the engine keeps it): ``pos[r] + lengths[r] <=
+    max_len``."""
+    from bigdl_tpu_torch.serving.sampling import sample_rows
+
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    g = _model_geometry(model)
+    max_len, vocab, off, lnf = g["max_len"], g["vocab"], g["off"], g["lnf"]
+    heads, hd = g["heads"], g["hd"]
+    scale = hd ** -0.5
+    cache_dtype = compute_dtype or torch.float32
+    S = int(width)
+    init_carry = _serving_init_carry(g["n_layers"], max_len, heads, hd,
+                                     cache_dtype, kv_quant, True, vocab,
+                                     g["device"])
+
+    def verify(params, tokens, lengths, carry, knobs):
+        lookup_w, pos_w, blocks, lnf_p, lin_p = \
+            _resolve_decode_views(model, off, params)
+        N = tokens.shape[0]
+        dev = tokens.device
+        rows = torch.arange(N, device=dev)
+        cols = torch.arange(S, device=dev)
+        lengths = lengths.long()
+        qpos = carry["pos"].long()[:, None] + cols[None]      # (N, S)
+        inb = cols[None] < lengths[:, None]
+        wcol = qpos.clamp(max=max_len - 1)
+        x = lookup_w[tokens.long().clamp(0, lookup_w.shape[0] - 1)]
+        x = x + pos_w[wcol.clamp(min=0)]
+        valid = (torch.arange(max_len, device=dev)[None, None, None, :]
+                 <= qpos[:, None, :, None])
+        chunk_kv = []            # per-layer float chunk K/V (int8 path)
+        for i, (blk, bp) in enumerate(blocks):
+            lp = bp[blk._child_key(0)]
+            h = layer_norm(x, lp["weight"], lp["bias"], blk.ln1.eps)
+            ap = bp[blk._child_key(1)]
+            q = _serving_proj(ap["wq"], h).reshape(N, S, heads, hd)
+            k = _serving_proj(ap["wk"], h).reshape(N, S, heads, hd)
+            v = _serving_proj(ap["wv"], h).reshape(N, S, heads, hd)
+            if kv_quant:
+                k32, v32 = k.float(), v.float()
+                katt = (carry[f"k{i}"].float()
+                        * carry[f"k{i}_scale"][:, None, :, None])
+                vatt = (carry[f"v{i}"].float()
+                        * carry[f"v{i}_scale"][:, None, :, None])
+                _write_cols(katt, rows, wcol, inb, k32)
+                _write_cols(vatt, rows, wcol, inb, v32)
+                qatt = (q * scale).float()
+                p_dt = torch.float32
+                chunk_kv.append((k32, v32))
+            else:
+                katt, vatt = carry[f"k{i}"], carry[f"v{i}"]
+                _write_cols(katt, rows, wcol, inb, k)
+                _write_cols(vatt, rows, wcol, inb, v)
+                qatt = (q * scale).to(cache_dtype)
+                p_dt = cache_dtype
+            s = torch.einsum("blhd,bmhd->bhlm", qatt.float(), katt.float())
+            p = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
+            ctx = torch.einsum("bhlm,bmhd->blhd", p.to(p_dt).float(),
+                               vatt.float()).to(x.dtype)
+            x = x + _serving_proj(ap["wo"], ctx.reshape(N, S, heads * hd))
+            x = _block_mlp(blk, bp, x)
+        # EVERY position's next-token distribution
+        xf = layer_norm(x, lnf_p["weight"], lnf_p["bias"], lnf.eps)
+        logp = torch.log_softmax(_serving_proj(lin_p, xf).float(), dim=-1)
+        # sequential per-position draws through the one sampler: the lane
+        # and the counts advance once per position, in order
+        keys, counts = carry["rng"], carry["tok_counts"]
+        toks_out, lps_out = [], []
+        for j in range(S):
+            t_j, lp_j, keys, counts = sample_rows(
+                logp[:, j], keys, knobs, counts, carry["prompt_mask"])
+            toks_out.append(t_j)
+            lps_out.append(lp_j)
+        s_tok = torch.stack(toks_out, dim=1)                   # (N, S)
+        s_lp = torch.stack(lps_out, dim=1)
+        # acceptance: position j emits iff every draft before it matched
+        # the draw before it; the first mismatch still emits
+        if S > 1:
+            match = s_tok[:, :-1] == tokens[:, 1:].long()
+            has_draft = cols[None, 1:] < lengths[:, None]
+            n_acc = torch.cumprod((match & has_draft).long(), dim=1).sum(1)
+        else:
+            n_acc = torch.zeros((N,), dtype=torch.int64, device=dev)
+        active = lengths > 0
+        n_emit = torch.where(active, n_acc + 1, 0)
+        if kv_quant:
+            # the deferred accepted-only int8 commit
+            emit = cols[None] < n_emit[:, None]                # (N, S)
+            emitf = emit[:, :, None, None]
+            for i, (k32, v32) in enumerate(chunk_kv):
+                kc, vc, ks, vs, ks_safe, vs_safe = _kv_quant_merge_step(
+                    carry[f"k{i}"], carry[f"v{i}"], carry[f"k{i}_scale"],
+                    carry[f"v{i}_scale"],
+                    (k32.abs() * emitf).amax(dim=(1, 3)),
+                    (v32.abs() * emitf).amax(dim=(1, 3)))
+                _write_cols(kc, rows, wcol, emit,
+                            _kv_quantize(k32, ks_safe[:, None, :, None]))
+                _write_cols(vc, rows, wcol, emit,
+                            _kv_quantize(v32, vs_safe[:, None, :, None]))
+                carry[f"k{i}_scale"] = ks
+                carry[f"v{i}_scale"] = vs
+        # lane and counts advance by exactly n_emit draws; inactive rows
+        # add nothing
+        lanes = carry["rng"].clone()
+        lanes[:, 1] += n_emit
+        carry["rng"] = lanes
+        for j in range(S):
+            carry["tok_counts"].index_put_(
+                (rows, s_tok[:, j]), (j < n_emit).to(torch.int32),
+                accumulate=True)
+        carry["pos"] += n_emit.to(carry["pos"].dtype)
+        return s_tok, s_lp, n_emit.to(torch.int32), carry
+
+    return verify, init_carry

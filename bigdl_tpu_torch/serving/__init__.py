@@ -9,7 +9,9 @@ per request. The scheduler (``scheduler.py``) orders requests FIFO or by
 priority and deadline; the engine (``engine.py``) preempts loss-free,
 sheds and degrades under overload, recovers from failed steps (with a
 seeded fault injector and virtual clocks in ``faults.py``), and reads
-back only token ids and their log-probs, once per step (``fences.py``).
+back only token ids and their log-probs, once per step (``fences.py``),
+optionally up to ``dispatch_ahead`` steps behind their dispatch.
+``speculative.py`` adds draft-and-verify decoding.
 """
 
 from bigdl_tpu_torch.serving.admission import Degrade, bucket_len
@@ -22,8 +24,10 @@ from bigdl_tpu_torch.serving.metrics import ServingMetrics
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
 from bigdl_tpu_torch.serving.sampling import SamplingParams
 from bigdl_tpu_torch.serving.scheduler import Request, Scheduler
+from bigdl_tpu_torch.serving.speculative import SpeculativeConfig
 
 __all__ = ["ServingEngine", "KVPool", "Scheduler", "Request",
            "SamplingParams", "ServingMetrics", "FaultError",
            "FaultInjector", "VirtualClock", "SteppingClock",
-           "WatchdogConfig", "PrefixCache", "Degrade", "bucket_len"]
+           "WatchdogConfig", "PrefixCache", "Degrade", "bucket_len",
+           "SpeculativeConfig"]

@@ -38,10 +38,11 @@ class Degrade:
     """A request's degradation knobs, applied at admission when the
     waiting queue is at or past the engine's ``degrade_at``:
     ``max_new_tokens`` caps the token budget (never raises it);
-    ``None`` leaves it as it is. The clamp is revertible: when pressure
-    drops while the row still waits, the engine puts the original back.
-    ``draft_tokens`` (the speculative budget) raises until speculative
-    decoding is ported (ROADMAP.md A.2.e)."""
+    ``draft_tokens`` replaces the speculative budget (0 turns speculation
+    off for the request: on a loaded engine its draft dispatches are
+    added latency for the whole batch); ``None`` leaves a field as it
+    is. The clamp is revertible: when pressure drops while the row still
+    waits, the engine puts the originals back."""
 
     max_new_tokens: Optional[int] = None
     draft_tokens: Optional[int] = None
@@ -51,10 +52,9 @@ class Degrade:
             raise ValueError(
                 f"max_new_tokens must be positive, got "
                 f"{self.max_new_tokens}")
-        if self.draft_tokens is not None:
-            raise NotImplementedError(
-                "Degrade(draft_tokens=) is not ported yet: ROADMAP.md "
-                "A.2.e speculative decoding (serving/speculative.py)")
+        if self.draft_tokens is not None and self.draft_tokens < 0:
+            raise ValueError(
+                f"draft_tokens must be >= 0, got {self.draft_tokens}")
 
 
 def bucket_len(n: int, cap: int) -> int:

@@ -17,7 +17,14 @@ one per-row-position decode step with the per-row sampler fused in
   (``admission.py``, ``chunked.py``, ``prefix_cache.py``);
 * every ``step()`` decodes one token for ALL running rows at once and
   reads back only the chosen token ids and their log-probs, in one
-  batched readback (``fences.py``);
+  batched readback (``fences.py``). With ``dispatch_ahead=W`` up to W
+  further steps are dispatched, each chained on the previous step's
+  device tokens, before a step's readback is consumed: the decode step
+  reads nothing back itself, so the card runs ahead of the host's
+  bookkeeping. ``W=0`` consumes each step's readback in the step;
+* ``speculative=SpeculativeConfig(draft, k)`` replaces the decode step
+  by a draft-and-verify super-step that emits 1 to ``k + 1`` tokens per
+  row (``speculative.py``);
 * rows leave at eos, a stop token or sequence, or ``max_new_tokens``,
   and their slot returns to the free list for the next admission.
 
@@ -58,6 +65,7 @@ carry yet raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -74,7 +82,7 @@ from bigdl_tpu_torch.serving.chunked import ChunkedAdmissionController
 from bigdl_tpu_torch.serving.faults import (
     FaultError, WatchdogConfig, default_clock,
 )
-from bigdl_tpu_torch.serving.fences import fence
+from bigdl_tpu_torch.serving.fences import start_readback
 from bigdl_tpu_torch.serving.kv_pool import KVPool
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
@@ -91,11 +99,34 @@ from bigdl_tpu_torch.utils.device import resolve_device
 _NOT_PORTED = {
     "mesh": "A.2.g sharded serving (serving/sharded.py)",
     "parallelism": "A.2.g sharded serving (serving/sharded.py)",
-    "speculative": "A.2.e speculative decoding (serving/speculative.py)",
     "adapters": "A.2.h multi-tenant LoRA (serving/lora.py)",
     "tier": "A.2.i host KV tier (serving/kv_tier.py)",
     "autopilot": "A.2.i SLO autopilot (serving/autopilot.py)",
 }
+
+
+class _InFlight:
+    """One dispatched-but-not-yet-consumed decode step of the dispatch-ahead
+    window: its device outputs (``tok`` feeds a chained dispatch), the
+    started readback of ``(tok, chosen)`` the delayed consumer waits on,
+    and the host facts frozen at dispatch (the active mask and its device
+    twin, the row snapshot, the pre-dispatch clock read the watchdog's
+    elapsed runs from, the sampled-row count, and whether rows were
+    already in flight — the decode-gap anchor)."""
+
+    __slots__ = ("tok", "readback", "active", "active_dev", "rows", "t0",
+                 "n_sampled", "had_running")
+
+    def __init__(self, tok, readback, active, active_dev, rows, t0,
+                 n_sampled, had_running):
+        self.tok = tok
+        self.readback = readback
+        self.active = active
+        self.active_dev = active_dev
+        self.rows = rows
+        self.t0 = t0
+        self.n_sampled = n_sampled
+        self.had_running = had_running
 
 
 class ServingEngine:
@@ -113,7 +144,10 @@ class ServingEngine:
     lanes of requests without their own seed; ``watchdog`` bounds step
     time and per-request retries; ``faults`` a ``FaultInjector``;
     ``clock`` the engine's time source; ``max_queue``, ``degrade_at``
-    and ``deadline_feasibility`` the overload controls; ``keep_finished``
+    and ``deadline_feasibility`` the overload controls;
+    ``dispatch_ahead`` the decode dispatches kept in flight beyond the
+    one being consumed; ``speculative`` a :class:`SpeculativeConfig` (or
+    a bare draft model); ``keep_finished``
     bounds the finished ledger; ``metrics`` a :class:`ServingMetrics` to
     record into; ``device`` defaults to ``cuda``."""
 
@@ -134,6 +168,7 @@ class ServingEngine:
                  watchdog: Optional[WatchdogConfig] = None,
                  faults=None,
                  dispatch_ahead: int = 0,
+                 speculative=None,
                  device=None,
                  **not_ported) -> None:
         for knob, value in not_ported.items():
@@ -171,9 +206,6 @@ class ServingEngine:
         if int(dispatch_ahead) < 0:
             raise ValueError(
                 f"dispatch_ahead must be >= 0, got {dispatch_ahead}")
-        if int(dispatch_ahead) > 0:
-            raise NotImplementedError(
-                "dispatch_ahead > 0 is not ported yet: ROADMAP.md A.2.f")
         if preemption and policy != "priority":
             raise ValueError(
                 "preemption=True requires policy='priority' — victim "
@@ -217,9 +249,22 @@ class ServingEngine:
         self.kv_dtype = kv_dtype
         kv_quant = kv_dtype == "int8"
         self.params = serving_params(model, compute_dtype)
-        self._step_fn, self._pool_init = make_batch_decode_step(
-            model, compute_dtype, sampling=True, kv_quant=kv_quant)
+        # the sampled pooled step is the one decode step; a SPECULATIVE
+        # engine runs the fixed-width verify step instead, over the same
+        # carry layout, with the draft's carry attached to the pool
+        if speculative is None:
+            self._spec = None
+            self._step_fn, self._pool_init = make_batch_decode_step(
+                model, compute_dtype, sampling=True, kv_quant=kv_quant)
+        else:
+            from bigdl_tpu_torch.serving.speculative import Speculator
+
+            self._spec = Speculator(self, speculative, kv_quant=kv_quant)
+            self._step_fn = None
+            self._pool_init = self._spec.pool_init
         self.pool = KVPool(self._pool_init, n_slots, kv_dtype=kv_dtype)
+        if self._spec is not None:
+            self._spec.attach_pool(self.pool)
         self.scheduler = Scheduler(policy)
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self.metrics.set_kv_format(kv_dtype, self.pool.kv_bytes_per_slot)
@@ -257,6 +302,14 @@ class ServingEngine:
         self._last_decode_end: Optional[float] = None
         self._next_id = 0
         self._finished: Dict[int, Request] = {}
+        # the dispatch-ahead window: up to ``dispatch_ahead`` decode
+        # dispatches stay in flight behind the one being consumed, each
+        # chained on the previous dispatch's device token tensor, so the
+        # readback of step N overlaps the device work of steps N+1..N+W.
+        # _InFlight entries, oldest first; W=0 consumes each entry in the
+        # step that dispatched it (the engine without a window)
+        self.dispatch_ahead = int(dispatch_ahead)
+        self._window: deque = deque()
 
     # -- request surface ---------------------------------------------------
 
@@ -270,14 +323,16 @@ class ServingEngine:
         none); ``sampling.max_tokens`` overrides ``max_new_tokens``;
         ``priority`` orders the queue under ``policy="priority"``;
         ``deadline_s`` is the completion SLO in seconds after submit;
-        ``degrade`` a :class:`Degrade` applied under pressure. Raises if
+        ``degrade`` a :class:`Degrade` applied under pressure;
+        ``draft_tokens`` the speculative budget hint (None = the engine's
+        ``k``, 0 = plain decode for this request, n = at most n drafts
+        per super-step; ignored by a plain engine). Raises if
         the request could overflow the cache. Past ``max_queue`` the
         request is shed: it lands in the finished ledger with
         ``finish_reason="shed"`` and empty output."""
-        if draft_tokens is not None:
-            raise NotImplementedError(
-                "draft_tokens= is not ported yet: ROADMAP.md A.2.e "
-                "speculative decoding (serving/speculative.py)")
+        if draft_tokens is not None and int(draft_tokens) < 0:
+            raise ValueError(
+                f"draft_tokens must be >= 0 or None, got {draft_tokens}")
         if int(adapter_id) != 0:
             raise NotImplementedError(
                 "adapter_id= is not ported yet: ROADMAP.md A.2.h "
@@ -309,6 +364,8 @@ class ServingEngine:
         req = Request(req_id=rid, prompt=prompt,
                       max_new_tokens=int(max_new_tokens), eos_id=int(eos_id),
                       sampling=sp, priority=int(priority),
+                      draft_tokens=None if draft_tokens is None
+                      else int(draft_tokens),
                       deadline_s=None if deadline_s is None
                       else float(deadline_s),
                       degrade=degrade, submit_time=self._clock())
@@ -419,6 +476,13 @@ class ServingEngine:
                 demand = self.scheduler.waiting_higher_than(victim.priority)
                 if demand <= self.pool.free_slots:
                     break
+                if self._window:
+                    # with dispatches in flight the victim's device state
+                    # is up to W positions ahead of its emitted tokens: a
+                    # stash now would resume it out of step. Flush, then
+                    # choose again (the flush may finish the victim)
+                    self._drain_window({})
+                    continue
                 self._preempt_row(victim)
         n = self.scheduler.admissible(self.pool.free_slots)
         if n:
@@ -472,10 +536,12 @@ class ServingEngine:
         d = req.degrade
         if d is None or req.degraded:
             return False
-        req._pre_degrade = req.max_new_tokens
+        req._pre_degrade = (req.max_new_tokens, req.draft_tokens)
         if d.max_new_tokens is not None:
             req.max_new_tokens = min(req.max_new_tokens,
                                      int(d.max_new_tokens))
+        if d.draft_tokens is not None:
+            req.draft_tokens = int(d.draft_tokens)
         req.degraded = True
         self.metrics.on_degrade()
         return True
@@ -486,13 +552,24 @@ class ServingEngine:
         if (not req.degraded or req._pre_degrade is None
                 or req.state != WAITING):
             return False
-        req.max_new_tokens = max(int(req._pre_degrade), len(req.output))
+        mnt, dt = req._pre_degrade
+        req.max_new_tokens = max(int(mnt), len(req.output))
+        req.draft_tokens = dt
         req._pre_degrade = None
         req.degraded = False
         self.metrics.on_degrade_restored()
         return True
 
     # -- dispatch, preemption and recovery ------------------------------------
+
+    def _upload(self, a: np.ndarray):
+        """A host array as a tensor on the engine's device. On the card
+        the copy goes through pinned memory without blocking the host, so
+        it does not wait for the work already queued."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _dispatch(self, site: str, fn, *args):
         """Every device dispatch of the serving path goes through here,
@@ -579,8 +656,9 @@ class ServingEngine:
     def _configure_slot(self, slot: int, req: Request) -> None:
         """Write one admitted request's knobs into its slot's host rows
         and, unless the slot was restored from a stash, seed its lane and
-        penalty state on the device; a readmitted request resumes its
-        lane ``len(output)`` draws on."""
+        penalty state on the device (and, on a speculative engine,
+        prefill its draft cache); a readmitted request resumes its lane
+        ``len(output)`` draws on."""
         sp = req.sampling
         scal, ban_row = knob_row_values(sp, req.eos_id)
         for k, v in scal.items():
@@ -596,6 +674,10 @@ class ServingEngine:
             key = advance_lane(self._lane_key(req), len(req.output))
             self.pool.write_sampling(slot, key, req.prompt,
                                      output_ids=req.output)
+            if self._spec is not None:
+                # the draft cache ingests the fed stream beside the
+                # target's (a FaultError here evicts the row)
+                self._spec.prefill_draft(slot, req)
         self._configured.add(slot)
 
     def _finish_check(self, req: Request) -> Optional[str]:
@@ -655,23 +737,141 @@ class ServingEngine:
 
     # -- the serving loop --------------------------------------------------
 
+    def _note_host_step(self, t_begin: float, device_before: float,
+                        n_samples: int = 1) -> None:
+        """Record the step's host residue: its wall time minus the waits
+        on the card inside it (``ServingMetrics.DEVICE_PHASES``). A step
+        that consumed several window entries (a flush) records the
+        residue once and pads with zeros, so the ``host_step_s`` and
+        ``decode_step_s`` series stay paired sample for sample."""
+        dev = self.metrics.device_seconds - device_before
+        self.metrics.add_phase(
+            "host_step", max(0.0, (self._clock() - t_begin) - dev))
+        for _ in range(max(0, int(n_samples) - 1)):
+            self.metrics.add_phase("host_step", 0.0)
+
     def step(self) -> Dict[int, int]:
         """Admit waiting requests (chunked admission then feeds at most
-        ``chunk_budget`` prompt tokens), then decode one token for every
-        running row. Returns ``{req_id: 1-based token}`` emitted this
-        step (empty when idle or when every slot-holding row is still
-        mid-prefill). Records one ``host_step_s`` sample per decode step:
-        the step's wall time minus its fence wait."""
+        ``chunk_budget`` prompt tokens), then decode for every running
+        row: one token per row, or up to ``k + 1`` on a speculative
+        engine. Returns ``{req_id: 1-based token}`` emitted this step
+        (the last token per request when a step lands several; empty when
+        idle, when every slot-holding row is still mid-prefill, or while
+        the dispatch-ahead window fills). Records one ``host_step_s``
+        sample per consumed decode step: the step's wall time minus its
+        waits on the card."""
         t_step = self._clock()
         dev0 = self.metrics.device_seconds
         ndec0 = self.metrics.decode_step_count
         try:
             return self._step_impl()
         finally:
-            if self.metrics.decode_step_count > ndec0:
-                dev = self.metrics.device_seconds - dev0
-                self.metrics.add_phase(
-                    "host_step", max(0.0, self._clock() - t_step - dev))
+            n_new = self.metrics.decode_step_count - ndec0
+            if n_new > 0:
+                self._note_host_step(t_step, dev0, n_samples=n_new)
+
+    def _account_token(self, slot: int, req: Request, tok0: int,
+                       lp: float, now: float,
+                       emitted: Dict[int, int]) -> Optional[str]:
+        """Host bookkeeping of ONE emitted token (0-based ``tok0``, chosen
+        log-prob ``lp``): append it, record it in ``emitted``, stamp the
+        first-token latency, and return the finish verdict. The window's
+        delayed consumer and the speculative emission loop share it."""
+        tok1 = tok0 + 1                      # back to 1-based ids
+        req.output.append(tok1)
+        req.logprobs.append(lp)
+        emitted[req.req_id] = tok1
+        if req.first_token_time is None:
+            req.first_token_time = now
+            self.metrics.on_first_token(now - req.submit_time)
+        return self._finish_check(req)
+
+    def _window_open(self, running) -> bool:
+        """May this step chain a decode dispatch on the newest in-flight
+        one without consuming anything first? Only while nothing the
+        in-flight dispatches assumed changed: the same requests in the
+        same slots, every slot configured, the device knobs still the
+        cached ones, and no row whose min-tokens ban may lift at a
+        consume."""
+        if not self._window or self.dispatch_ahead < 1:
+            return False
+        if self._knobs_device is None:
+            return False
+        prev = self._window[-1]
+        if len(prev.rows) != len(running):
+            return False
+        for slot, req in prev.rows.items():
+            if running.get(slot) is not req or slot not in self._configured:
+                return False
+            if self._ban_base[slot] and self._knobs["ban"][slot]:
+                return False
+        return True
+
+    def _consume_window(self, emitted: Dict[int, int]) -> bool:
+        """THE delayed consumer: wait for the OLDEST in-flight dispatch's
+        readback and run its host bookkeeping (health, watchdog, metrics,
+        per-token accounting, finish checks). Rows that left ``running``
+        since the dispatch have their values discarded. Returns False
+        when the entry was unhealthy: its rows are evicted for replay and
+        the REST of the window is discarded unconsumed (every newer
+        dispatch chained through the poisoned carry)."""
+        entry = self._window.popleft()
+        t_f = self._clock()
+        nxt, lps = entry.readback.wait()
+        now = self._clock()
+        self.metrics.add_phase("fence_wait", now - t_f)
+        # dispatch to readback landed: a stall at dispatch time is inside
+        # it however far behind the window consumes
+        elapsed = now - entry.t0
+        self.metrics.add_phase("decode_step", elapsed)
+        running = self.scheduler.running
+        rows = {slot: req for slot, req in entry.rows.items()
+                if running.get(slot) is req}
+        bad = self._step_unhealthy(nxt, lps, entry.active)
+        if bad is None and self._timed_out(elapsed):
+            bad = "timeout"
+        if bad is not None:
+            self._window.clear()
+            self._recover_step(rows)
+            self._last_decode_end = None
+            return False
+        self._warm = True
+        self._note_decode_gap(entry.had_running)
+        self.metrics.on_step(self.scheduler.queue_depth,
+                             self.pool.occupancy(), len(entry.rows))
+        self.metrics.on_sample_rows(entry.n_sampled,
+                                    len(entry.rows) - entry.n_sampled)
+        for slot, req in rows.items():
+            tok0 = int(nxt[slot])
+            reason = self._account_token(slot, req, tok0, float(lps[slot]),
+                                         now, emitted)
+            if reason is not None:
+                self._finish_row(req, reason, now)
+            else:
+                req.next_token = tok0
+                self._maybe_flip_ban(slot, req)
+        return True
+
+    def _drain_window(self, emitted: Dict[int, int]) -> bool:
+        """Consume every in-flight dispatch, oldest first. False when one
+        was unhealthy (the consumer then discarded the rest)."""
+        while self._window:
+            if not self._consume_window(emitted):
+                return False
+        return True
+
+    def flush_window(self) -> None:
+        """Consume every in-flight dispatch outside a step (``drain``'s
+        teardown), recording the host/device split as a step would."""
+        if not self._window:
+            return
+        t0 = self._clock()
+        dev0 = self.metrics.device_seconds
+        ndec0 = self.metrics.decode_step_count
+        self._drain_window({})
+        n_new = self.metrics.decode_step_count - ndec0
+        if n_new > 0:
+            self._note_host_step(t0, dev0, n_samples=n_new)
 
     def _step_impl(self) -> Dict[int, int]:
         emitted: Dict[int, int] = {}
@@ -680,68 +880,75 @@ class ServingEngine:
         self.admitter.pump()
         running = self.scheduler.running
         if not running:
+            # nothing to dispatch: consume what is still in flight (its
+            # rows left; the consumer discards their values)
+            self._drain_window(emitted)
             self._last_decode_end = None
             return emitted
-        N = self.pool.n_slots
-        tokens = np.zeros((N,), np.int64)
-        active = np.zeros((N,), bool)
-        n_sampled = 0
-        for slot, req in list(running.items()):
-            if slot not in self._configured:
-                self._configure_slot(slot, req)
-            tokens[slot] = req.next_token
-            active[slot] = True
-            n_sampled += not req.sampling.is_greedy
-        rows = dict(running)
+        if self._spec is not None:
+            # the speculative super-step consumes its own readback at once
+            # (its draft budgets are decided from it): no window
+            out = self._spec.step(running)
+            if out:
+                self._note_decode_gap(had_running)
+            else:
+                self._last_decode_end = None
+            return out
+        if self._window_open(running):
+            # chain on the newest dispatch's device tokens — the values
+            # its consumer will set next_token to — and its active mask:
+            # no upload, no readback before this dispatch
+            prev = self._window[-1]
+            tokens_dev, active = prev.tok, prev.active
+            active_dev, rows = prev.active_dev, dict(prev.rows)
+            n_sampled = prev.n_sampled
+        else:
+            # the window's assumptions broke (or it is empty): consume
+            # everything in flight, then dispatch from host-built rows
+            if not self._drain_window(emitted):
+                return emitted
+            running = self.scheduler.running
+            if not running:
+                self._last_decode_end = None
+                return emitted
+            N = self.pool.n_slots
+            tokens = np.zeros((N,), np.int64)
+            active = np.zeros((N,), bool)
+            n_sampled = 0
+            for slot, req in list(running.items()):
+                if slot not in self._configured:
+                    self._configure_slot(slot, req)
+                tokens[slot] = req.next_token
+                active[slot] = True
+                n_sampled += not req.sampling.is_greedy
+            tokens_dev = self._upload(tokens)
+            active_dev = self._upload(active)
+            rows = dict(running)
         if self._knobs_device is None:
-            self._knobs_device = {k: torch.from_numpy(v).to(self.device)
+            self._knobs_device = {k: self._upload(v)
                                   for k, v in self._knobs.items()}
         t0 = self._clock()
         try:
             tok, chosen, carry = self._dispatch(
-                "decode", self._step_fn, self.params,
-                torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(active).to(self.device), self.pool.carry,
-                self._knobs_device)
+                "decode", self._step_fn, self.params, tokens_dev,
+                active_dev, self.pool.carry, self._knobs_device)
         except FaultError:
-            self._recover_step(rows)
+            # raised before the step ran: what is in flight is healthy,
+            # consume it, then evict and replay the rows that remain
+            self._drain_window(emitted)
+            self._recover_step(self.scheduler.running)
             self._last_decode_end = None
             return emitted
         self.pool.carry = carry
-        # ONE batched readback per step: token ids + chosen log-probs
-        # (the (N, vocab) distribution never leaves the card)
-        t_f = self._clock()
-        nxt, lps = fence("decode", tok, chosen)
-        now = self._clock()
-        self.metrics.add_phase("fence_wait", now - t_f)
-        elapsed = now - t0
-        self.metrics.add_phase("decode_step", elapsed)
-        bad = self._step_unhealthy(nxt, lps, active)
-        if bad is None and self._timed_out(elapsed):
-            bad = "timeout"
-        if bad is not None:
-            self._recover_step(rows)
-            self._last_decode_end = None
-            return emitted
-        self._warm = True
-        self._note_decode_gap(had_running)
-        self.metrics.on_step(self.scheduler.queue_depth,
-                             self.pool.occupancy(), len(rows))
-        self.metrics.on_sample_rows(n_sampled, len(rows) - n_sampled)
-        for slot, req in rows.items():
-            tok0 = int(nxt[slot])
-            req.output.append(tok0 + 1)          # back to 1-based ids
-            req.logprobs.append(float(lps[slot]))
-            emitted[req.req_id] = tok0 + 1
-            if req.first_token_time is None:
-                req.first_token_time = now
-                self.metrics.on_first_token(now - req.submit_time)
-            reason = self._finish_check(req)
-            if reason is not None:
-                self._finish_row(req, reason, now)
-            else:
-                req.next_token = tok0
-                self._maybe_flip_ban(slot, req)
+        # ONE batched readback per step, token ids + chosen log-probs (the
+        # (N, vocab) distribution never leaves the card), started now and
+        # waited on by this entry's consumer alone
+        self._window.append(_InFlight(
+            tok, start_readback("decode", tok, chosen), active, active_dev,
+            rows, t0, n_sampled, had_running))
+        while len(self._window) > self.dispatch_ahead:
+            if not self._consume_window(emitted):
+                break
         return emitted
 
     def drain(self) -> Dict[int, np.ndarray]:
@@ -750,6 +957,9 @@ class ServingEngine:
         ledger that FINISHED (shed and cancelled ones excluded)."""
         while not self.scheduler.idle():
             self.step()
+        # the last consume can finish every row while newer dispatches
+        # are in flight (values of finished rows): consume them too
+        self.flush_window()
         return {rid: np.asarray(r.output, np.int32)
                 for rid, r in self._finished.items()
                 if r.state == FINISHED}

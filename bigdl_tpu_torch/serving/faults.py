@@ -97,15 +97,17 @@ class WatchdogConfig:
 
 
 #: Dispatch sites the engine routes through the injector: "decode" is the
-#: pooled decode step, "prefill" every admission-side prefill (per-request,
-#: bucketed, prefix suffix and chunk alike).
-SITES = ("decode", "prefill")
+#: pooled decode step, "verify"/"draft" the speculative plane's two
+#: dispatches, "prefill" every admission-side prefill (per-request,
+#: bucketed, prefix suffix, chunk and draft alike).
+SITES = ("decode", "verify", "draft", "prefill")
 
 
 class FaultInjector:
     """Deterministic per-dispatch fault source.
 
-    ``p_fail``/``p_garbage``/``p_stall`` apply to the "decode" site:
+    ``p_fail``/``p_garbage``/``p_stall`` apply to the step sites
+    ("decode", "verify", "draft"):
     raise before dispatching, corrupt the returned outputs (float leaves
     → NaN, int leaves → -1), or advance the shared clock by ``stall_s``
     after the dispatch. ``p_admit_fail`` applies to "prefill". At most one

@@ -17,8 +17,12 @@ occupant's range. The chunk-progress mirrors (``chunk_done``,
 and reset with the slot the same way.
 
 :meth:`row_state` / :meth:`restore_row` serialize one slot whole — every
-carry leaf (fresh copies), the chunk mirrors — and write it back bitwise:
-the preemption stash of the engine.
+carry leaf (fresh copies), the chunk mirrors, the draft carry's row — and
+write it back bitwise: the preemption stash of the engine.
+
+A speculative engine attaches its DRAFT model's pooled carry
+(:meth:`attach_draft`): slot ``s`` of it always belongs to the request in
+slot ``s`` here — one allocator, two caches, freed together.
 """
 
 from __future__ import annotations
@@ -65,6 +69,9 @@ class KVPool:
         # pump plans without reading the device back
         self.chunk_done = np.zeros((self.n_slots,), np.int64)
         self.chunk_target = np.zeros((self.n_slots,), np.int64)
+        # the draft model's slot-aligned carry (attach_draft)
+        self.draft_carry: Optional[Dict] = None
+        self.draft_max_len = 0
 
     # -- allocator ---------------------------------------------------------
 
@@ -84,11 +91,13 @@ class KVPool:
             raise ValueError(f"slot {slot} is not allocated")
         self._in_use.remove(slot)
         self._free.append(slot)
-        self.carry["pos"][slot] = 0
-        if self.quantized:
-            for i in range(self.n_layers):
-                self.carry[f"k{i}_scale"][slot] = 0
-                self.carry[f"v{i}_scale"][slot] = 0
+        for carry in (self.carry, self.draft_carry):
+            if carry is None:
+                continue
+            carry["pos"][slot] = 0
+            for key, t in carry.items():
+                if key.endswith("_scale"):
+                    t[slot] = 0
         self.chunk_done[slot] = 0
         self.chunk_target[slot] = 0
 
@@ -123,12 +132,7 @@ class KVPool:
             raise ValueError(
                 f"row {row} outside the prefill carry's "
                 f"{prefill_carry['pos'].shape[0]} rows")
-        for key, dst in self.carry.items():
-            if _KV_KEY.match(key):
-                dst[slot].copy_(prefill_carry[key][row])
-                skey = f"{key}_scale"
-                if skey in self.carry:
-                    self.carry[skey][slot].copy_(prefill_carry[skey][row])
+        _copy_kv_row(self.carry, slot, prefill_carry, row)
         self.carry["pos"][slot] = int(prompt_len)
         self.chunk_done[slot] = prompt_len
 
@@ -151,12 +155,15 @@ class KVPool:
         """Everything one allocated slot carries: ``carry`` (every leaf
         of :meth:`read_row`, cloned), the ``chunk_done``/``chunk_target``
         mirrors, ``adapter`` (always 0: LoRA is ROADMAP.md A.2.h) and
-        ``draft`` (always None: speculation is A.2.e).
-        :meth:`restore_row` is its bitwise inverse."""
-        return {"carry": self.read_row(slot),
+        ``draft`` (the draft carry's row, cloned leaf by leaf; None
+        without one). :meth:`restore_row` is its bitwise inverse."""
+        carry = self.read_row(slot)
+        draft = None if self.draft_carry is None else {
+            k: v[slot:slot + 1].clone() for k, v in self.draft_carry.items()}
+        return {"carry": carry,
                 "chunk_done": int(self.chunk_done[slot]),
                 "chunk_target": int(self.chunk_target[slot]),
-                "adapter": 0, "draft": None}
+                "adapter": 0, "draft": draft}
 
     def restore_row(self, slot: int, payload: Dict) -> None:
         """Write a :meth:`row_state` payload into an allocated slot,
@@ -167,8 +174,44 @@ class KVPool:
         self._check(slot)
         for key, src in payload["carry"].items():
             self.carry[key][slot:slot + 1].copy_(src)
+        draft = payload.get("draft")
+        if draft is not None and self.draft_carry is not None:
+            for key, src in draft.items():
+                self.draft_carry[key][slot:slot + 1].copy_(src)
         self.chunk_done[slot] = int(payload["chunk_done"])
         self.chunk_target[slot] = int(payload["chunk_target"])
+
+    # -- the draft carry (speculative decoding) ------------------------------
+
+    def attach_draft(self, init_carry) -> None:
+        """Attach the draft model's pooled carry (``init_carry`` of its
+        :func:`~bigdl_tpu_torch.models.transformer.make_batch_decode_step`,
+        no sampling state: the draft proposes greedily and the request's
+        lane lives in the target carry). It resets with its slot."""
+        if self.draft_carry is not None:
+            raise ValueError("a draft carry is already attached")
+        self.draft_carry = init_carry(self.n_slots)
+        self.draft_max_len = int(self.draft_carry["k0"].shape[1])
+
+    def _check_draft(self, slot: int) -> None:
+        if self.draft_carry is None:
+            raise ValueError("no draft carry attached (attach_draft)")
+        self._check(slot)
+
+    def write_draft_prefill(self, slot: int, prefill_carry: Dict,
+                            prompt_len: int, row: int = 0) -> None:
+        """:meth:`write_prefill`'s twin for the draft carry."""
+        self._check_draft(slot)
+        if not 0 < prompt_len <= self.draft_max_len:
+            raise ValueError(
+                f"prompt_len {prompt_len} outside 1..{self.draft_max_len}")
+        _copy_kv_row(self.draft_carry, slot, prefill_carry, row)
+        self.draft_carry["pos"][slot] = int(prompt_len)
+
+    def set_draft_pos(self, slot: int, pos: int) -> None:
+        """Set one slot's draft position (:meth:`set_pos`'s twin)."""
+        self._check_draft(slot)
+        self.draft_carry["pos"][slot] = int(pos)
 
     # -- chunk progress (chunked admission) ----------------------------------
 
@@ -217,3 +260,14 @@ class KVPool:
             np.asarray(key, np.int64)))
         self.carry["tok_counts"][slot].copy_(torch.from_numpy(counts))
         self.carry["prompt_mask"][slot].copy_(torch.from_numpy(mask))
+
+
+def _copy_kv_row(carry: Dict, slot: int, src: Dict, row: int) -> None:
+    """Copy row ``row`` of ``src``'s K/V layers (and int8 scales) into
+    ``carry``'s slot ``slot``, in place."""
+    for key, dst in carry.items():
+        if _KV_KEY.match(key):
+            dst[slot].copy_(src[key][row])
+            skey = f"{key}_scale"
+            if skey in carry:
+                carry[skey][slot].copy_(src[skey][row])

@@ -15,6 +15,12 @@ Counters, under the ``serving/`` prefix:
 * ``decode_gap_s``  — wall gap between consecutive healthy decode
   dispatches while rows stayed in flight: the decode-stall signal chunked
   admission bounds
+* ``draft_s``       — per speculative super-step, the chained draft
+  dispatches through their completion wait (the verify dispatch lands in
+  ``decode_step_s``); ``draft_tokens`` / ``accepted_tokens`` /
+  ``spec_rows`` — drafts proposed, drafts that landed in outputs, and
+  active rows; ``summary()`` derives ``accept_rate`` (accepted/drafted)
+  and ``tokens_per_step`` ((accepted + rows)/rows, 1.0 = plain decode)
 * ``finish_<reason>`` — one counter per disposition (closed vocabulary)
 * ``queue_depth`` / ``slot_occupancy`` / ``batch_active`` per step,
   ``rows_sampled`` / ``rows_greedy``, ``prefill_batch`` (+ ``_padded``),
@@ -55,8 +61,11 @@ class ServingMetrics:
         "cancelled",   # caller cancel()
     })
 
-    #: phases during which the host is blocked on the card
-    DEVICE_PHASES = frozenset({"fence_wait"})
+    #: phases during which the host is blocked on the card: a readback's
+    #: wait, and the draft chain's completion wait. ``decode_step`` (from
+    #: dispatch to readback) overlaps host work under a dispatch-ahead
+    #: window, so it is not one of them
+    DEVICE_PHASES = frozenset({"fence_wait", "draft"})
 
     #: counters ``summary()`` reports as sums
     _SUMS = ("submitted", "finished", "retries", "recovered_rows",
@@ -72,6 +81,12 @@ class ServingMetrics:
         # it every step, so it stays O(window), and a recent window
         # follows drift where a lifetime median lags
         self._step_window: deque = deque(maxlen=512)
+        # the draft-phase twin: a speculative super-step's wall is its
+        # verify dispatch plus its draft chain
+        self._draft_window: deque = deque(maxlen=512)
+        # running sums of the speculative counters for the estimate
+        self._spec_acc = 0.0
+        self._spec_rows = 0.0
         self._device_s = 0.0
         self._n_decode_steps = 0
 
@@ -143,6 +158,18 @@ class ServingMetrics:
         self.metrics.add("serving/rows_sampled", float(n_sampled))
         self.metrics.add("serving/rows_greedy", float(n_greedy))
 
+    def on_spec_step(self, n_drafted: int, n_accepted: int,
+                     n_rows: int) -> None:
+        """One speculative super-step: drafts proposed over the active
+        rows, drafts that LANDED in outputs (confirmed and not cut by a
+        stop mid-chunk), and the active rows; every row also emits one
+        non-draft draw, so emitted tokens = accepted + rows."""
+        self.metrics.add("serving/draft_tokens", float(n_drafted))
+        self.metrics.add("serving/accepted_tokens", float(n_accepted))
+        self.metrics.add("serving/spec_rows", float(n_rows))
+        self._spec_acc += float(n_accepted)
+        self._spec_rows += float(n_rows)
+
     def on_prefill_batch(self, n_rows: int, n_padded: int) -> None:
         self.metrics.add("serving/prefill_batch", float(n_rows))
         self.metrics.add("serving/prefill_batch_padded", float(n_padded))
@@ -188,6 +215,8 @@ class ServingMetrics:
         if name == "decode_step":
             self._step_window.append(float(seconds))
             self._n_decode_steps += 1
+        elif name == "draft":
+            self._draft_window.append(float(seconds))
         if name in self.DEVICE_PHASES:
             self._device_s += float(seconds)
 
@@ -210,10 +239,17 @@ class ServingMetrics:
 
     def service_time_estimate(self) -> Optional[float]:
         """Estimated seconds per emitted token — what feasibility
-        admission multiplies a request's remaining budget by. One token
-        per row per decode step here (the speculative division is
-        ROADMAP.md A.2.e)."""
-        return self.decode_step_estimate()
+        admission multiplies a request's remaining budget by: the
+        decode-step median plus, on a speculative engine, the draft
+        phase's median, over the measured tokens per step (1.0 plain)."""
+        est = self.decode_step_estimate()
+        if est is None:
+            return None
+        if self._draft_window:
+            est += self._window_stats(list(self._draft_window)[-64:])["p50"]
+        if self._spec_rows:
+            est /= (self._spec_acc + self._spec_rows) / self._spec_rows
+        return est
 
     @staticmethod
     def _window_stats(vals) -> Dict[str, float]:
@@ -287,6 +323,13 @@ class ServingMetrics:
         if n_sub:
             n_slo, _ = self.metrics.get("serving/finished_in_slo")
             out["serving/goodput"] = n_slo / n_sub
+        n_draft, _ = self.metrics.get("serving/draft_tokens")
+        n_acc, _ = self.metrics.get("serving/accepted_tokens")
+        n_rows, _ = self.metrics.get("serving/spec_rows")
+        if n_draft:
+            out["serving/accept_rate"] = n_acc / n_draft
+        if n_rows:
+            out["serving/tokens_per_step"] = (n_acc + n_rows) / n_rows
         _, n_gap = self.metrics.get("serving/decode_gap_s")
         if n_gap:
             out["serving/decode_gap_p99_s"] = \

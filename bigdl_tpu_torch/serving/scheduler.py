@@ -55,6 +55,8 @@ class Request:
     log-probs; ``finish_reason`` is set at eviction (``"eos"``,
     ``"stop"``, ``"length"``, ``"shed"``/``"deadline"``/``"infeasible"``
     for load-shed requests, ``"error"`` past the retry budget).
+    ``draft_tokens`` is the speculative budget hint (None = the engine's
+    ``k``, 0 = plain decode for this request).
 
     Resilience fields: ``priority`` (higher admits first under the
     ``"priority"`` policy), ``deadline_s`` (completion SLO in seconds
@@ -75,6 +77,7 @@ class Request:
     next_token: Optional[int] = None   # 0-based token to feed next step
     output: List[int] = field(default_factory=list)   # 1-based ids
     sampling: Optional[SamplingParams] = None
+    draft_tokens: Optional[int] = None  # speculative budget hint
     logprobs: List[float] = field(default_factory=list)
     finish_reason: Optional[str] = None
     submit_time: float = 0.0
@@ -83,7 +86,7 @@ class Request:
     deadline_s: Optional[float] = None
     degrade: Optional[object] = None   # admission.Degrade
     degraded: bool = False
-    _pre_degrade: Optional[int] = None     # the original max_new_tokens
+    _pre_degrade: Optional[tuple] = None   # (max_new_tokens, draft_tokens)
     seq: int = -1                      # arrival order, set by submit()
     preemptions: int = 0
     retries: int = 0

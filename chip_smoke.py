@@ -35,8 +35,13 @@ any failure raises, so the exit code is non-zero and no result prints:
               least time the card could take; at the training shape the
               delta the dq kernel writes for dk/dv against the plain
               delta;
-4. kv_merge — the cost of the int8 grow check the decode step makes (a
-              host read of one flag) against the unconditional requantize;
+4. kernels  — (kv_requant) the int8 cache's grow-only requantize kernel
+              against its plain version, bitwise, at the decode step's
+              shape (16 rows, 512 positions, 12 heads, D 64) with no scale
+              grown, every scale grown, and a mix (zero-scale, inactive,
+              grown and not-grown rows); its time per case beside the
+              plain unconditional requantize, the whole merge step and
+              the earlier host-read step, and the bound;
 5. check    — a small model's int8-KV decode step on the card against the
               same step on the CPU, teacher-forced, f32;
 6. train_check — a small LM's three ``make_train_step`` steps (f32,
@@ -47,8 +52,9 @@ any failure raises, so the exit code is non-zero and no result prints:
               random weights from seed 0) served bf16 with int8 KV by
               ``ServingEngine(n_slots=16)``: 24 requests, prompts of 16-256
               tokens, 32 new tokens each, greedy and seeded-sampled rows;
-              then the device launches per decode step (``torch.profiler``
-              over 8 steps of a full pool);
+              then the device launches, device-to-host copies and host
+              waits per decode step (``torch.profiler`` over 8 steps of a
+              full pool): one copy and one wait, the step's readback;
 8. serve_modes — the admission and scheduling modes of ``ServingEngine`` on
               the same model (bf16, int8 KV, 16 slots), each run held to:
               every request at its length, ids in 1..V, finite log-probs
@@ -64,34 +70,47 @@ any failure raises, so the exit code is non-zero and no result prints:
               preemptions, every stash restored bitwise); ``faults``
               (a seeded ``FaultInjector``, up to 8 faults, 8 retries: all
               finish at length, faults and retries happen);
-9. train    — the training path at full width: the same 137m model at
+9. serve_async — the serve phase's engine and requests at
+              ``dispatch_ahead`` W in 0, 1, 2, 4: every W's token and
+              log-prob streams byte-identical to W = 0's; tok/s, decode
+              step p50, the share of the wall spent waiting on readbacks,
+              host step p50;
+10. serve_spec — speculative serving of the same target (k=3) on
+              ``serving_bench``'s mixed speculative trace (16 requests, 24
+              new tokens; half greedy speculative, a quarter
+              ``draft_tokens=0``, a quarter seeded sampled) with a
+              weight-tied draft (accept rate above 0, tokens per step
+              above 1) and, shorter, an independently seeded 2-layer draft;
+              then fp32 greedy rows held to the plain engine's (a row may
+              differ only from a near-tie, top-two gap below 1e-3, on);
+11. train    — the training path at full width: the same 137m model at
               max_len = T = 2048, ``output="logits"``, trained through
               ``Optimizer(...).optimize()`` with
               ``MaskedSoftmaxCECriterion(0)``, ``Adam(1e-4)``, bf16 compute,
               batch 8, 2 warm + 5 timed steps on one seeded batch: step ms
               p50, tokens/s, MFU, peak memory, first and last loss;
-10. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
+12. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
               kernels against their plain versions: the stage-1 block join
               (M 802,816, C 256, K 64, residual, y and extra dy, bf16), the
               stage-4 bn2 edge (M 12,544, C 512, K 2048, bf16) and an f32
               case with ragged M, C and K; per-row errors and channel-sum
               errors against the stated tolerances, kernel, plain, bare
               cuBLAS product and unfused-torch times, and the bound;
-11. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
+13. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
               K) that ResNet-50's step launches them at (batch 256, bf16):
               each against its plain version, each kernel's median and
               min-max time beside its bound, the cuBLAS product and the
               unfused sequence, and per kernel the step's sum of launches x
               (time - bound);
-12. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
+14. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
               on the kernels) on the card against the CPU: losses,
               parameters and BN running statistics;
-13. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
+15. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
               momentum 0.9 / weight decay 1e-4, ``maybe_fuse`` with
               ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
               timed steps: step ms p50, images/s, peak memory, losses; then
               the unfused ``Graph`` on the same recipe;
-14. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+16. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
@@ -102,8 +121,11 @@ any failure raises, so the exit code is non-zero and no result prints:
               F.conv2d, with TFLOP/s and the bound.
 
 Each path's kernel launch counts are set to 0 just before it runs and read
-just after; each of its kernels must have launched (decode attention once
-per layer per decode step in serve and serve_modes, each flash kernel once per layer per step, each
+just after; each of its kernels must have launched (decode attention and
+kv_requant once per layer per decode step in serve, serve_modes and
+serve_async; in serve_spec decode attention once per draft layer per draft
+step and kv_requant besides once per target layer per verify step; each
+flash kernel once per layer per step, each
 fused-conv kernel exactly 28 times per ResNet-50 step, the conv3x3 kernel
 once per checked case and 33 times per timed shape).
 
@@ -1183,37 +1205,137 @@ def resnet_train_phase(warm: int = 2, timed: int = 5, batch: int = 256):
     return launches
 
 
-def kv_merge_phase():
-    """Per-layer cost, at the pool's shape, of the decode step's int8 grow
-    check (host read of the flag, no growth) vs the unconditional merge."""
+def requant_inputs(case: str, seed: int):
+    """Seeded int8 caches at the decode step's shape (16 rows, 512
+    positions, 12 heads, D 64) with the step's old scales and new-value
+    maxima: ``"none"`` grows no scale, ``"all"`` grows every one, and
+    ``"mixed"`` has a zero-scale row that grows (its stale bytes go to
+    zero), an inactive row (amax 0), a row that does not grow, and the
+    other (row, head) pairs grown or not at random."""
+    import torch
+
+    n, L, h, d = SERVING_DECODE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def cache():
+        return torch.randint(-127, 128, (n, L, h, d), dtype=torch.int8,
+                             device="cuda", generator=g)
+
+    def scales():
+        s_old = torch.rand(n, h, device="cuda", generator=g) * 0.1 + 0.01
+        grow = torch.rand(n, h, device="cuda", generator=g) < 0.5
+        if case == "mixed":
+            s_old[0] = 0.0
+            grow[0], grow[1], grow[2] = True, False, False
+        else:
+            grow[:] = case == "all"
+        amax = torch.where(grow, (s_old + 0.01) * 127 * 2,
+                           s_old * 127 * 0.5)
+        if case == "mixed":
+            amax[1] = 0.0
+        return s_old, amax
+
+    kc, vc = cache(), cache()
+    (ks, ka), (vs, va) = scales(), scales()
+    return kc, vc, ks, vs, ka, va
+
+
+def parent_merge_step(kc, vc, ks_old, vs_old, k_amax, v_amax):
+    """The decode-step merge as the port spelled it before the kv_requant
+    kernel: read the ``grew`` flag back to the host, requantize only on
+    growth (the yardstick of the host read)."""
+    from bigdl_tpu_torch.models import transformer as tm
+
+    grew = bool(((k_amax / 127.0 > ks_old).any()
+                 | (v_amax / 127.0 > vs_old).any()).item())
+    if grew:
+        kc.copy_(tm._kv_quant_merge(kc, ks_old, k_amax)[0])
+        vc.copy_(tm._kv_quant_merge(vc, vs_old, v_amax)[0])
+
+
+def kv_requant_phase():
+    """The kv_requant kernel (the scale rule and the requantize of both
+    caches) against its plain version, bitwise, at the decode step's shape
+    in three cases (no growth, every pair grown, mixed); the kernel's time
+    per case beside the plain unconditional merge, the decode step's merge
+    call and the parent's host-read step (scale rule in PyTorch, the grew
+    flag read back, the requantize on growth), by the host clock with a
+    synchronize, and the bound. Returns the kernel's summary entry (the
+    mixed case)."""
     import torch
 
     from bigdl_tpu_torch.models import transformer as tm
+    from bigdl_tpu_torch.ops import kv_requant as kr
 
-    n, L, h, d = 16, 512, 12, 64
-    g = torch.Generator(device="cuda").manual_seed(5)
-    kc = torch.randint(-127, 128, (n, L, h, d), device="cuda", generator=g,
-                       dtype=torch.int8)
-    vc = kc.clone()
-    s = torch.rand(n, h, device="cuda", generator=g) + 0.5
-    amax = torch.rand(n, h, device="cuda", generator=g)   # no row grows
-    reps = 50
-    tm._kv_quant_merge_step(kc, vc, s, s, amax, amax)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        tm._kv_quant_merge_step(kc, vc, s, s, amax, amax)
-    host_read_ms = (time.perf_counter() - t0) / reps * 1e3
+    n, L, h, d = SERVING_DECODE
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    entry = None
+    for i, case in enumerate(("none", "all", "mixed")):
+        kc, vc, ks, vs, ka, va = requant_inputs(case, seed=40 + i)
+        want = kr.kv_merge_reference(kc, vc, ks, vs, ka, va)
+        got = tm._kv_quant_merge_step(kc.clone(), vc.clone(), ks, vs, ka, va)
+        torch.cuda.synchronize()
+        err = max(int((got[0].int() - want[0].int()).abs().max()),
+                  int((got[1].int() - want[1].int()).abs().max()),
+                  max(float((g - w).abs().max())
+                      for g, w in zip(got[2:], want[2:])))
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        k_ratio = kr.kv_scale_merge(ks, ka)[2]
+        v_ratio = kr.kv_scale_merge(vs, va)[2]
+        grown = int((k_ratio != 1.0).sum() + (v_ratio != 1.0).sum())
+        emit("kernels", kernel="kv_requant", case=case, shape=[n, L, h, d],
+             grown_pairs=grown, pairs=2 * n * h, max_abs_err=err,
+             tol=0, why="the same f32 operations, each rounded to nearest: "
+                        "bitwise (caches and the four scale tensors)",
+             bitwise=bitwise)
+        if not bitwise:
+            raise AssertionError(f"kv_requant {case}: not bitwise equal to "
+                                 f"its plain version (max abs err {err})")
+        kern = time_stats(lambda: kr.kv_requant_cuda(kc, vc, ks, vs, ka, va),
+                          flush=flush)
 
-    def unconditional():
-        tm._kv_quant_merge(kc, s, amax)
-        tm._kv_quant_merge(vc, s, amax)
+        def plain():
+            k2, v2, *_ = kr.kv_merge_reference(kc, vc, ks, vs, ka, va)
+            kc.copy_(k2)
+            vc.copy_(v2)
 
-    merge_ms = time_ms(unconditional)
-    emit("kv_merge", shape=[n, L, h, d], host_read_ms_per_layer=host_read_ms,
-         unconditional_ms_per_layer=merge_ms, layers=12,
-         host_read_ms_per_step=12 * host_read_ms,
-         unconditional_ms_per_step=12 * merge_ms)
+        plain_ms = time_ms(plain, flush=flush)
+
+        def host_ms(fn, reps=50):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        step_ms = host_ms(lambda: tm._kv_quant_merge_step(kc, vc, ks, vs,
+                                                          ka, va))
+        parent_ms = host_ms(lambda: parent_merge_step(kc, vc, ks, vs, ka,
+                                                      va))
+        # in: 4 (n, h) f32 tensors; out: 4; grown pairs read + write L x D
+        n_bytes = 8 * n * h * 4 + grown * L * d * 2
+        bound_ms, bound_by = bound(grown * L * d * 2, n_bytes, F32_FLOPS)
+        emit("kernels", kernel="kv_requant", case=case, ms=kern["mean"],
+             ms_median=kern["median"], ms_min_max=[kern["min"], kern["max"]],
+             host_ms_max=kern["host_ms_max"], plain_ms=plain_ms,
+             plain="scale rule + round(q * ratio) of both caches, copied "
+                   "back (the unconditional merge)",
+             step_host_ms=step_ms, parent_step_host_ms=parent_ms,
+             parent="scale rule in PyTorch, host read of the grew flag, "
+                    "requantize on growth",
+             bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+             library_ms=None)
+        if case == "mixed":
+            entry = {"name": "kv_requant", "route": "cuda",
+                     "source": "bigdl_tpu_torch/csrc/kv_requant.cu",
+                     "replaces": "bigdl_tpu/models/transformer.py:653",
+                     "launches": None, "max_abs_err": float(err),
+                     "ms": kern["mean"], "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+    return entry
 
 
 def check_phase():
@@ -1379,13 +1501,22 @@ def train_phase(warm: int = 2, timed: int = 5):
     return launches
 
 
-def decode_step_launches(engine, vocab, rng, steps: int = 8) -> float:
-    """Device launches (kernels, copies, fills) per decode step, counted by
-    ``torch.profiler`` over ``steps`` steps with all 16 slots decoding
-    (after one admission step), as ``tools/torch_serving_profile.py``
-    counts them."""
+#: the CUDA runtime calls that block the host on the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize")
+
+
+def decode_step_trace(engine, vocab, rng, steps: int = 8):
+    """Per decode step, over ``steps`` steps with all 16 slots decoding
+    (after one admission step), counted by ``torch.profiler`` as
+    ``tools/torch_serving_profile.py`` counts them: device launches
+    (kernels, copies, fills), device→host copies, and host waits on the
+    card (``SYNC_CALLS`` made inside a step's ``record_function`` span:
+    the profiler's own waits and the ``torch.cuda.synchronize()`` that
+    closes the window fall outside). Also returns every wait call of the
+    window by name, in and out of the steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     eng = engine()
     for _ in range(16):
@@ -1397,12 +1528,24 @@ def decode_step_launches(engine, vocab, rng, steps: int = 8) -> float:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
-                eng.step()
+                with record_function("serve_step"):
+                    eng.step()
             torch.cuda.synchronize()
         eng.drain()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n / steps
+    events = list(prof.events())
+    cuda = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dtoh = sum(1 for e in cuda if "DtoH" in e.name)
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "serve_step"]
+    waits = {}
+    for e in events:
+        if e.name in SYNC_CALLS:
+            inside = any(a <= e.time_range.start <= b for a, b in spans)
+            key = f"{e.name} {'in' if inside else 'outside'} a step"
+            waits[key] = waits.get(key, 0) + 1
+    syncs = sum(n for k, n in waits.items() if k.endswith(" in a step"))
+    return len(cuda) / steps, dtoh / steps, syncs / steps, waits
 
 
 def serve_traffic(rng, vocab: int):
@@ -1419,27 +1562,31 @@ def serve_traffic(rng, vocab: int):
     return out
 
 
-def lm_137m():
+def lm_137m(n_layers: int = 12, seed: int = 0):
     """The "137m" TransformerLM (``benchmarks/serving_bench.py:146``) on
-    the card, random weights from seed 0; returns (model, build seconds)."""
+    the card, random weights from ``seed``; ``n_layers`` cuts its depth
+    (a draft). Returns (model, build seconds)."""
     import torch
 
     from bigdl_tpu_torch.models.transformer import TransformerLM
 
     t0 = time.perf_counter()
-    lm = TransformerLM(32768, hidden_size=768, n_heads=12, n_layers=12,
-                       max_len=512, output="logits", seed=0)
+    lm = TransformerLM(32768, hidden_size=768, n_heads=12,
+                       n_layers=n_layers, max_len=512, output="logits",
+                       seed=seed)
     lm.evaluate()
     torch.cuda.synchronize()
     return lm, time.perf_counter() - t0
 
 
 def serve_phase():
-    """The main path at the 137m width; returns decode_attention launches
-    and the run's decode-gap p99 (the chunked run's yardstick)."""
+    """The main path at the 137m width; returns decode_attention and
+    kv_requant launches and the run's decode-gap p99 (the chunked run's
+    yardstick)."""
     import torch
 
     from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
     from bigdl_tpu_torch.serving import ServingEngine
 
     V, layers = 32768, 12
@@ -1463,13 +1610,13 @@ def serve_phase():
     reqs = [(eng.submit(prompt, max_new_tokens=32, sampling=sp), sp)
             for prompt, sp in serve_traffic(rng, V)]
     torch.cuda.synchronize()
-    da.launches = 0
+    da.launches = kr.launches = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         outs = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = da.launches
+    launches, requant = da.launches, kr.launches
     steps = eng.metrics.decode_step_count
     for rid, _ in reqs:
         out, lps = outs[rid], eng.logprobs(rid)
@@ -1479,16 +1626,20 @@ def serve_phase():
             raise AssertionError(f"request {rid}: bad logprobs {lps}")
         if eng.request(rid).finish_reason != "length":
             raise AssertionError(f"request {rid} did not run to length")
-    if launches != steps * layers:
-        raise AssertionError(
-            f"decode_attention launched {launches} times, expected "
-            f"{steps} decode steps x {layers} layers")
+    for name, n in (("decode_attention", launches), ("kv_requant", requant)):
+        if n != steps * layers:
+            raise AssertionError(
+                f"{name} launched {n} times, expected {steps} decode "
+                f"steps x {layers} layers")
     s = eng.summary()
-    per_step = decode_step_launches(engine, V, rng)
+    per_step, dtoh, syncs, waits = decode_step_trace(engine, V, rng)
     emit("serve", model="137m", params=n_params, build_s=build_s,
          requests=len(reqs), new_tokens=32 * len(reqs), wall_s=wall,
          decode_steps=steps, decode_attention_launches=launches,
+         kv_requant_launches=requant,
          decode_step_device_launches=per_step,
+         decode_step_device_to_host_copies=dtoh,
+         decode_step_host_waits=syncs, traced_wait_calls=waits,
          decode_gap_p99_s=s["serving/decode_gap_p99_s"],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(json.dumps({"tokens_per_s": s["serving/tokens_per_sec"]}))
@@ -1496,7 +1647,12 @@ def serve_phase():
                       "ttft_p99_s": s["serving/ttft_p99_s"]}))
     print(json.dumps({"decode_step_p50_s": s["serving/decode_step_p50_s"],
                       "host_step_p50_s": s["serving/host_step_p50_s"]}))
-    return launches, s["serving/decode_gap_p99_s"]
+    if dtoh != 1 or syncs != 1:
+        raise AssertionError(
+            f"a decode step made {dtoh} device-to-host copies and {syncs} "
+            "host waits; the step's one readback (the fence) is all it "
+            "may make")
+    return launches, requant, s["serving/decode_gap_p99_s"]
 
 
 def serve_modes_run(lm, mode, knobs, submit, between=None):
@@ -1508,6 +1664,7 @@ def serve_modes_run(lm, mode, knobs, submit, between=None):
     import torch
 
     from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
     from bigdl_tpu_torch.serving import ServingEngine
 
     V = lm[0].n_index
@@ -1515,7 +1672,7 @@ def serve_modes_run(lm, mode, knobs, submit, between=None):
                         kv_dtype="int8", **knobs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    da.launches = 0
+    da.launches = kr.launches = 0
     rids = submit(eng)
     t0 = time.perf_counter()
     n = 0
@@ -1553,6 +1710,7 @@ def serve_modes_run(lm, mode, knobs, submit, between=None):
         retries=m.get("serving/retries")[0], shed=m.get("serving/shed")[0],
         decode_steps=eng.metrics.decode_step_count,
         decode_attention_launches=da.launches,
+        kv_requant_launches=kr.launches,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     return eng, rids, fields
 
@@ -1561,8 +1719,8 @@ def serve_modes_phase(batched_gap_p99_s):
     """The admission and scheduling modes of ``ServingEngine`` at the 137m
     width, each on its own traffic (see the module docstring);
     ``batched_gap_p99_s`` is the serve phase's decode-gap p99 on the same
-    requests as the chunked run. Returns the decode_attention launches of
-    all runs."""
+    requests as the chunked run. Returns the decode_attention and the
+    kv_requant launches of all runs."""
     import torch
 
     from bigdl_tpu_torch.serving import FaultInjector, WatchdogConfig
@@ -1576,11 +1734,12 @@ def serve_modes_phase(batched_gap_p99_s):
                 for p, sp in traffic]
 
     def check_launches(f):
-        if f["decode_attention_launches"] != f["decode_steps"] * layers:
-            raise AssertionError(
-                f"{f['mode']}: decode_attention launched "
-                f"{f['decode_attention_launches']} times, expected "
-                f"{f['decode_steps']} decode steps x {layers} layers")
+        for name in ("decode_attention", "kv_requant"):
+            if f[f"{name}_launches"] != f["decode_steps"] * layers:
+                raise AssertionError(
+                    f"{f['mode']}: {name} launched "
+                    f"{f[f'{name}_launches']} times, expected "
+                    f"{f['decode_steps']} decode steps x {layers} layers")
 
     launches = 0
     runs = {}
@@ -1677,11 +1836,228 @@ def serve_modes_phase(batched_gap_p99_s):
     f["healthy_decode_steps"] = f["decode_steps"] - inj.counts["garbage"]
     runs["faults"] = f
 
+    requant = 0
     for f in runs.values():
         check_launches(f)
         launches += f["decode_attention_launches"]
+        requant += f["kv_requant_launches"]
         emit("serve_modes", **f)
-    return launches
+    return launches, requant
+
+
+#: the dispatch-ahead windows of the serve_async phase
+#: (``benchmarks/serving_bench.py``'s ``--scenario async``)
+ASYNC_WINDOWS = (0, 1, 2, 4)
+
+
+def lm_layers(lm) -> int:
+    from bigdl_tpu_torch.models.transformer import TransformerBlock
+
+    return sum(isinstance(m, TransformerBlock) for m in lm.layers())
+
+
+def serve_async_phase():
+    """The serve phase's engine (137m, bf16, int8 KV, 16 slots) and 24
+    requests at ``dispatch_ahead`` W in ``ASYNC_WINDOWS``: every W's token
+    and log-prob streams byte-identical to W = 0's, decode_attention and
+    kv_requant launched once per layer per decode step; per W tok/s, the
+    decode step p50, the share of the wall spent waiting on readbacks
+    and the host step p50. Returns both kernels' launches."""
+    import torch
+
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    lm, _ = lm_137m()
+    V, layers = lm[0].n_index, lm_layers(lm)
+    traffic = serve_traffic(np.random.default_rng(0), V)
+    streams, totals = {}, [0, 0]
+    for W in ASYNC_WINDOWS:
+        eng = ServingEngine(lm, n_slots=16, compute_dtype=torch.bfloat16,
+                            kv_dtype="int8", dispatch_ahead=W)
+        rids = [eng.submit(p, max_new_tokens=32, sampling=sp)
+                for p, sp in traffic]
+        torch.cuda.synchronize()
+        da.launches = kr.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = eng.metrics.decode_step_count
+        streams[W] = [(outs[r].tobytes(), eng.logprobs(r).tobytes())
+                      for r in rids]
+        for rid in rids:
+            if len(outs[rid]) != 32 or eng.request(rid).finish_reason \
+                    != "length":
+                raise AssertionError(f"async W={W}: request {rid} did not "
+                                     "run to its length")
+        s = eng.summary()
+        fence_s = eng.metrics.metrics.get("serving/fence_wait_s")[0]
+        f = dict(dispatch_ahead=W, requests=len(rids), wall_s=wall,
+                 tokens_per_s=s["serving/tokens_per_sec"],
+                 decode_steps=steps,
+                 decode_step_p50_s=s["serving/decode_step_p50_s"],
+                 host_step_p50_s=s["serving/host_step_p50_s"],
+                 fence_wait_share=fence_s / wall,
+                 decode_attention_launches=da.launches,
+                 kv_requant_launches=kr.launches,
+                 streams_identical_to_w0=streams[W] == streams[0],
+                 in_flight_after_drain=len(eng._window))
+        emit("serve_async", **f)
+        if not f["streams_identical_to_w0"] or eng._window:
+            raise AssertionError(f"async W={W}: streams differ from W=0's "
+                                 "or dispatches were left in flight")
+        for name in ("decode_attention", "kv_requant"):
+            if f[f"{name}_launches"] != steps * layers:
+                raise AssertionError(
+                    f"async W={W}: {name} launched {f[f'{name}_launches']} "
+                    f"times, expected {steps} decode steps x {layers}")
+        totals[0] += da.launches
+        totals[1] += kr.launches
+    return totals
+
+
+def spec_trace(vocab: int, n_requests: int = 16, gen_tokens: int = 24,
+               seed: int = 23):
+    """``benchmarks/serving_bench.py``'s ``make_spec_trace``: prompts of 5,
+    9 and 17 tokens; half the requests greedy speculative, a quarter
+    ``draft_tokens=0`` (plain rows in the speculative batch), a quarter
+    sampled with their own seeds. ``(prompt, new tokens, sampling,
+    draft_tokens)``."""
+    from bigdl_tpu_torch.serving import SamplingParams
+
+    rng = np.random.RandomState(seed)
+    buckets = [5, 9, 17]
+    trace = []
+    for i in range(n_requests):
+        prompt = rng.randint(1, vocab + 1,
+                             size=(buckets[i % len(buckets)],)).tolist()
+        if i % 4 == 3:
+            sp, dt = SamplingParams(temperature=0.8, top_k=20,
+                                    seed=200 + i), None
+        elif i % 4 == 1:
+            sp, dt = None, 0
+        else:
+            sp, dt = None, None
+        trace.append((prompt, gen_tokens, sp, dt))
+    return trace
+
+
+def spec_run(lm, draft, dtype, kv, trace, k: int = 3):
+    """One drain of ``trace`` through a 16-slot engine (speculative when
+    ``draft`` is given), kernel launch counts set to 0 just before and
+    read just after. Returns (engine, request ids, outputs, fields)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.serving import ServingEngine, SpeculativeConfig
+
+    eng = ServingEngine(lm, n_slots=16, compute_dtype=dtype, kv_dtype=kv,
+                        speculative=None if draft is None
+                        else SpeculativeConfig(draft, k=k))
+    draft_steps = [0]
+    if draft is not None:
+        step = eng._spec._draft_step_fn
+
+        def counted(*a):
+            draft_steps[0] += 1
+            return step(*a)
+
+        eng._spec._draft_step_fn = counted
+    rids = [eng.submit(p, max_new_tokens=n, sampling=sp, draft_tokens=dt)
+            for p, n, sp, dt in trace]
+    torch.cuda.synchronize()
+    da.launches = kr.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    V = lm[0].n_index
+    for rid, (_, n, _, _) in zip(rids, trace):
+        out, lps = outs[rid], eng.logprobs(rid)
+        if not (len(out) == n and out.min() >= 1 and out.max() <= V
+                and np.isfinite(lps).all() and (lps <= 0).all()):
+            raise AssertionError(f"spec: request {rid}: bad output {out}")
+    s = eng.summary()
+    fields = dict(requests=len(rids), wall_s=wall,
+                  tokens_per_s=s["serving/tokens_per_sec"],
+                  accept_rate=s.get("serving/accept_rate"),
+                  tokens_per_step=s.get("serving/tokens_per_step"),
+                  verify_steps=eng.metrics.decode_step_count,
+                  draft_steps=draft_steps[0],
+                  decode_attention_launches=da.launches,
+                  kv_requant_launches=kr.launches)
+    return eng, rids, outs, fields
+
+
+def serve_spec_phase():
+    """Speculative serving of the 137m target (bf16, int8 KV, 16 slots,
+    k=3) on ``spec_trace``: a same-seed weight-tied draft (drafts land:
+    accept rate above 0, tokens per step above 1) and, on a short run, an
+    independently seeded 2-layer draft (drafts rejected). In both, the
+    verify step's int8 commit launches kv_requant once per target layer
+    per verify step, and nothing launches decode_attention: the draft keeps
+    a bf16 cache, as the JAX draft plane does, and the verify step attends
+    in plain PyTorch, as JAX's reaches no kernel. Then the tied draft at fp32 (fp32 KV) on the trace's
+    greedy rows: each must equal the plain fp32 engine's, or differ first
+    where the plain model's top-two log-prob gap is below 1e-3 (a
+    near-tie the chunked verify and the single-token step may break
+    apart). Returns both kernels' launches of the bf16 runs."""
+    import torch
+
+    lm, _ = lm_137m()
+    V, layers = lm[0].n_index, lm_layers(lm)
+    tied, _ = lm_137m()
+    other, _ = lm_137m(n_layers=2, seed=1)
+    trace = spec_trace(V)
+    totals = [0, 0]
+    for name, draft, tr in (("tied", tied, trace),
+                            ("independent", other, trace[:8])):
+        d_layers = lm_layers(draft)
+        _, _, _, f = spec_run(lm, draft, torch.bfloat16, "int8", tr)
+        f.update(draft=name, draft_layers=d_layers)
+        emit("serve_spec", **f)
+        want_da, want_kr = 0, f["verify_steps"] * layers
+        if (f["decode_attention_launches"] != want_da
+                or f["kv_requant_launches"] != want_kr):
+            raise AssertionError(
+                f"spec {name}: launches {f['decode_attention_launches']} / "
+                f"{f['kv_requant_launches']}, expected {want_da} / {want_kr}")
+        if name == "tied" and not (f["accept_rate"] > 0
+                                   and f["tokens_per_step"] > 1):
+            raise AssertionError(f"spec tied: no draft landed: {f}")
+        totals[0] += f["decode_attention_launches"]
+        totals[1] += f["kv_requant_launches"]
+
+    greedy = [t for t in trace if t[2] is None]
+    _, rs, outs_s, f = spec_run(lm, tied, None, "fp32", greedy)
+    _, rb, outs_b, _ = spec_run(lm, None, None, "fp32", greedy)
+    equal, ties = 0, []
+    for a, b, (prompt, _, _, _) in zip(rs, rb, greedy):
+        got, want = outs_s[a].tolist(), outs_b[b].tolist()
+        if got == want:
+            equal += 1
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+        ids = torch.tensor([prompt + want[:i]], dtype=torch.float32,
+                           device=lm[0].weight.device)
+        with torch.no_grad():
+            lp = torch.log_softmax(lm(ids)[0, -1].float(), dim=-1)
+        top2 = lp.topk(2).values
+        ties.append({"request": a, "position": i,
+                     "top2_gap": float(top2[0] - top2[1])})
+    emit("serve_spec", draft="tied", dtype="fp32", kv="fp32",
+         greedy_requests=len(greedy), equal_to_plain=equal,
+         differ_at_near_ties=ties, accept_rate=f["accept_rate"],
+         tokens_per_step=f["tokens_per_step"])
+    if any(t["top2_gap"] >= 1e-3 for t in ties):
+        raise AssertionError(f"spec fp32: greedy rows differ from the plain "
+                             f"engine off a near-tie: {ties}")
+    return totals
 
 
 def main() -> int:
@@ -1717,14 +2093,19 @@ def main() -> int:
     if serialized:
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
     entry = kernels_phase()
+    requant = kv_requant_phase()
     flash = flash_phase()
-    kv_merge_phase()
     check_phase()
     train_check_phase()
-    entry["launches"], batched_gap_p99_s = serve_phase()
-    if not entry["launches"]:
-        raise AssertionError("decode_attention never launched on the main path")
-    entry["launches"] += serve_modes_phase(batched_gap_p99_s)
+    entry["launches"], requant["launches"], batched_gap_p99_s = serve_phase()
+    if not (entry["launches"] and requant["launches"]):
+        raise AssertionError("decode_attention or kv_requant never launched "
+                             "on the main path")
+    for phase in (lambda: serve_modes_phase(batched_gap_p99_s),
+                  serve_async_phase, serve_spec_phase):
+        n_da, n_kr = phase()
+        entry["launches"] += n_da
+        requant["launches"] += n_kr
     for name, n in train_phase().items():
         flash[name]["launches"] = n
     fused = fused_conv_phase()
@@ -1741,7 +2122,7 @@ def main() -> int:
     print(json.dumps({"kernels": [entry]
                       + [flash[n] for n in ("fwd", "dq", "dkv")]
                       + [fused[n] for n in ("fwd", "dgrad", "wgrad")]
-                      + [conv]}))
+                      + [conv, requant]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -671,6 +671,80 @@ def test_conv3x3_kernel_takes_views_and_refuses_rather_than_falls_back(card):
         cv.conv3x3(x, w9.cpu())
 
 
+# -- the int8 KV cache's grow-only requantize ------------------------------
+
+#: (n, L, h, d, byte offset into the buffer): the serving shape and a small
+#: one on 16-byte loads, an odd head dim and a misaligned view on byte loads
+REQUANT_CASES = [(16, 512, 12, 64, 0), (3, 37, 5, 32, 0), (3, 37, 5, 20, 0),
+                 (2, 9, 3, 48, 8)]
+
+
+def _requant_inputs(n, L, h, d, offset, seed):
+    """Seeded int8 caches (possibly a view at a byte offset), old scales
+    and new-value maxima: row 0 zero-scaled and growing (ratio 0), row 1
+    inactive (amax 0, ratio 1), the rest mixing grown and not-grown
+    heads. Returns ``(kc, vc, ks, vs, k_amax, v_amax)``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    numel = n * L * h * d
+
+    def cache():
+        buf = torch.randint(-127, 128, (numel + offset,), dtype=torch.int8,
+                            device="cuda", generator=g)
+        return buf[offset:].view(n, L, h, d)
+
+    def scales():
+        s_old = torch.rand(n, h, device="cuda", generator=g) * 0.1
+        s_old[0] = 0.0
+        grow = torch.rand(n, h, device="cuda", generator=g) < 0.5
+        grow[0], grow[1] = True, False
+        amax = torch.where(grow, (s_old + 0.01) * 127 * 2, s_old * 127 * 0.5)
+        amax[1] = 0.0
+        return s_old, amax
+
+    (ks, ka), (vs, va) = scales(), scales()
+    return cache(), cache(), ks, vs, ka, va
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REQUANT_CASES)
+def test_kv_requant_kernel_matches_plain_version_bitwise(card, case):
+    from bigdl_tpu_torch.ops import kv_requant as kr
+
+    kc, vc, ks, vs, ka, va = _requant_inputs(*case, seed=sum(case))
+    want = kr.kv_merge_reference(kc, vc, ks, vs, ka, va)
+    k0 = kc.clone()
+    kr.launches = 0
+    got = kr.kv_requant(kc, vc, ks, vs, ka, va)
+    torch.cuda.synchronize()
+    assert kr.launches == 1 and got[0] is kc and got[1] is vc
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    k_ratio = kr.kv_scale_merge(ks, ka)[2]
+    kept = (k_ratio == 1.0)[:, None, :, None].expand_as(kc)
+    assert torch.equal(kc[kept], k0[kept])        # ratio 1: untouched
+    assert (kc[0] == 0).all()                     # ratio 0: zeroed
+    k1, v1 = kc.clone(), vc.clone()
+    again = kr.kv_requant(kc, vc, got[2], got[3], torch.zeros_like(ka),
+                          torch.zeros_like(va))   # no growth: no change
+    assert torch.equal(kc, k1) and torch.equal(vc, v1)
+    assert torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])
+
+
+@pytest.mark.cuda
+def test_kv_requant_kernel_refuses_rather_than_falls_back(card):
+    from bigdl_tpu_torch.ops import kv_requant as kr
+
+    kc, vc, ks, vs, ka, va = _requant_inputs(2, 8, 3, 32, 0, seed=1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kr.kv_requant_cuda(kc.cpu(), vc.cpu(), ks.cpu(), vs.cpu(), ka.cpu(),
+                           va.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = kc.transpose(1, 2).contiguous().transpose(1, 2)
+        kr.kv_requant_cuda(strided, vc, ks, vs, ka, va)
+    with pytest.raises(ValueError, match="f32"):
+        kr.kv_requant(kc, vc, ks, vs, ka.double(), va)
+
+
 # -- the serving engine's admission and scheduling modes on the card -------
 
 def _serving_lm():
@@ -774,3 +848,56 @@ def test_serving_seeded_faults_finish_every_request(card):
     assert all(eng.request(r).finish_reason == "length" for r in rids)
     assert all(len(eng.result(r)) == 8 for r in rids)
     assert eng.summary()["serving/retries"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2])
+def test_serving_window_streams_equal_the_unwindowed_run(card, W):
+    from bigdl_tpu_torch.ops import kv_requant as kr
+
+    def run(W):
+        eng = _serving_engine(dispatch_ahead=W)
+        with torch.no_grad():
+            rids = [eng.submit(p, max_new_tokens=n) for p, n in
+                    _serving_reqs()]
+            kr.launches = 0
+            eng.drain()
+        assert kr.launches == eng.metrics.decode_step_count * 2
+        assert not eng._window
+        return [(eng.result(r).tobytes(), eng.logprobs(r).tobytes())
+                for r in rids]
+
+    assert run(W) == run(0)
+
+
+@pytest.mark.cuda
+def test_serving_speculative_greedy_rows_equal_the_plain_engine(card):
+    """f32 compute and KV, a weight-tied draft: the speculative engine's
+    greedy streams are the plain engine's. On int8 KV every request runs
+    to its length (there the chunked verify reads its own K/V unrounded
+    and the plain step the int8 round trip, so a near-tie may break
+    apart), the verify step's commit launches kv_requant once per target
+    layer, and the draft's float cache launches no decode attention."""
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.serving import ServingEngine, SpeculativeConfig
+
+    reqs = _serving_reqs(seed=5)
+    outs = []
+    for spec in (None, SpeculativeConfig(_serving_lm(), k=3)):
+        eng = ServingEngine(_serving_lm(), n_slots=3, kv_dtype="fp32",
+                            speculative=spec)
+        with torch.no_grad():
+            rids = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+            eng.drain()
+        outs.append([eng.result(r).tolist() for r in rids])
+    assert outs[0] == outs[1]
+    assert eng.summary()["serving/tokens_per_step"] > 1.0
+    eng = _serving_engine(speculative=SpeculativeConfig(_serving_lm(), k=3))
+    with torch.no_grad():
+        rids = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+        da.launches = kr.launches = 0
+        eng.drain()
+    assert da.launches == 0
+    assert kr.launches == eng.metrics.decode_step_count * 2
+    assert all(len(eng.result(r)) == 8 for r in rids)

@@ -199,22 +199,18 @@ def test_entry_points_need_a_card_or_cpu_by_name(pair):
 
 @pytest.mark.parametrize("where,knob", [
     ("engine", {"mesh": object()}), ("engine", {"parallelism": {"data": 2}}),
-    ("engine", {"speculative": object()}), ("engine", {"adapters": object()}),
+    ("engine", {"adapters": object()}),
     ("engine", {"tier": True}), ("engine", {"autopilot": object()}),
-    ("engine", {"dispatch_ahead": 2}), ("submit", {"draft_tokens": 0}),
-    ("submit", {"adapter_id": 1}), ("submit", {"constraint": object()}),
-    ("degrade", {"draft_tokens": 0})])
+    ("submit", {"adapter_id": 1}), ("submit", {"constraint": object()})])
 def test_knobs_outside_the_slice_raise(pair, where, knob):
-    from bigdl_tpu_torch.serving import Degrade, ServingEngine
+    from bigdl_tpu_torch.serving import ServingEngine
 
     _, tlm = pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if where == "engine":
             ServingEngine(tlm, device="cpu", **knob)
-        elif where == "submit":
-            ServingEngine(tlm, device="cpu").submit([3, 7], **knob)
         else:
-            Degrade(max_new_tokens=3, **knob)
+            ServingEngine(tlm, device="cpu").submit([3, 7], **knob)
 
 
 def test_kv_dtype_validation(pair):
@@ -270,7 +266,7 @@ def test_fence_reads_back_exact_values_in_one_copy():
     np.testing.assert_array_equal(b, lp.numpy())
     assert fence("decode", tok).tolist() == tok.tolist()
     with pytest.raises(ValueError, match="FENCE_SITES"):
-        fence("verify", tok)
+        fence("nowhere", tok)
 
 
 def test_fifo_policy_runs_batches_to_completion(pair):

@@ -234,7 +234,7 @@ def test_fault_injector_counts_match_jax():
     with pytest.raises(ValueError, match="rewind"):
         step.advance(-1.0)
     with pytest.raises(ValueError, match="site"):
-        FaultInjector().call("verify", lambda: out)
+        FaultInjector().call("transfer", lambda: out)
     assert issubclass(FaultError, RuntimeError)
 
 

@@ -31,6 +31,11 @@ runs:
   a per-row chunk of candidate tokens scored in one call, each row
   advanced by the draws the target confirms.
 
+Built with ``adapter=`` (an ``AdapterSpec``), each of the three steps takes
+a trailing ``(adapter_ids, bank)`` pair and adds every row's pooled-LoRA
+delta to the six projections of every block (:func:`_adapter_proj_fns`);
+without it, each runs exactly the ops it ran before adapters existed.
+
 Numerics follow the JAX serving conventions: projections in the serving
 dtype, scores/softmax/log-softmax in f32, GELU in its tanh form (JAX's
 default).
@@ -236,12 +241,119 @@ def _serving_proj(p, x):
     return F.linear(x, p["weight"], p.get("bias"))
 
 
-def _block_mlp(blk: TransformerBlock, bp: Dict, x):
-    """``x + fc2(gelu(fc1(ln2(x))))`` on serving params."""
+def _plain_proj(p, x, site):
+    return _serving_proj(p, x)
+
+
+def _block_mlp(blk: TransformerBlock, bp: Dict, x, proj, layer: int):
+    """``x + fc2(gelu(fc1(ln2(x))))`` on serving params; ``proj(p, h,
+    site)`` is the step's projection (with the rows' LoRA delta on an
+    adapted step)."""
     h2 = layer_norm(x, bp[blk._child_key(2)]["weight"],
                     bp[blk._child_key(2)]["bias"], blk.ln2.eps)
-    return x + _serving_proj(bp[blk._child_key(4)], gelu(
-        _serving_proj(bp[blk._child_key(3)], h2)))
+    return x + proj(bp[blk._child_key(4)], gelu(
+        proj(bp[blk._child_key(3)], h2, f"fc1{layer}")), f"fc2{layer}")
+
+
+# -- multi-tenant LoRA ------------------------------------------------------
+
+#: The six adapted projections of one transformer block, in block order:
+#: the layout contract with :class:`~bigdl_tpu_torch.serving.lora.
+#: AdapterBank` (bank keys ``f"{site}{layer}_a"`` / ``f"{site}{layer}_b"``)
+ADAPTER_SITES = ("wq", "wk", "wv", "wo", "fc1", "fc2")
+
+
+def adapter_site_shapes(model: Sequential):
+    """Per-layer ``{site: (out_dim, in_dim)}`` weight shapes of the six
+    adapted projections (``:484``): what an AdapterBank sizes its factors
+    against."""
+    _, _, blocks, _, _ = _resolve_decode_views(
+        model, _decode_head_offset(model), _params_tree(model))
+    shapes = []
+    for blk, bp in blocks:
+        ap = bp[blk._child_key(1)]
+        layer = {name: tuple(ap[name]["weight"].shape)
+                 for name in ("wq", "wk", "wv", "wo")}
+        layer["fc1"] = tuple(bp[blk._child_key(3)]["weight"].shape)
+        layer["fc2"] = tuple(bp[blk._child_key(4)]["weight"].shape)
+        shapes.append(layer)
+    return shapes
+
+
+def _lora_product(a, b, h32):
+    """The per-row pooled-LoRA delta of one adapted projection (JAX's
+    ``_adapter_delta``, ``:535``): ``(h @ A_r^T) @ B_r^T`` in f32 with
+    ``a`` (N, r, in) and ``b`` (N, out, r) the rows' gathered factors and
+    ``h32`` (N, in) or (N, S, in) the input promoted to f32, as JAX
+    promotes it against the f32 bank. Bank slot 0 is the all-zero NULL
+    adapter, so base-model rows get an exact 0.0. Returns the raw f32
+    delta; the caller rounds once."""
+    h3 = h32[:, None] if h32.dim() == 2 else h32
+    d = torch.bmm(torch.bmm(h3, a.transpose(1, 2)), b.transpose(1, 2))
+    return d[:, 0] if h32.dim() == 2 else d
+
+
+def _gather_factors(bank, ids, site: str):
+    """The rows' ``(A (N, r, in), B (N, out, r))`` factors of one site."""
+    return (bank[site + "_a"].index_select(0, ids),
+            bank[site + "_b"].index_select(0, ids))
+
+
+class _RowFactors:
+    """The rows' gathered ``(A, B)`` pairs per site, kept across calls of
+    one decode or verify step while it is given the SAME ``adapter_ids``
+    tensor (not modified in place) and the SAME ``bank`` dict: a gather is
+    a copy, so reusing it is exact. The engine passes new objects when a
+    row's adapter or the bank changes, so the steady decode loop gathers
+    nothing (N rows × one slot's factors of memory). A prefill call takes
+    a fresh one: its rows are new every call."""
+
+    def __init__(self) -> None:
+        self._key = None
+        self._rows: Dict[str, tuple] = {}
+
+    def get(self, bank, ids, site: str):
+        key = self._key
+        if (key is None or key[0] is not ids or key[1] != ids._version
+                or key[2] is not bank):
+            self._key = (ids, ids._version, bank)
+            self._rows = {}
+        got = self._rows.get(site)
+        if got is None:
+            got = self._rows[site] = _gather_factors(bank, ids, site)
+        return got
+
+
+def _adapter_proj_fns(adapter, adapter_ids, bank, device, factors):
+    """``proj(p, h, site)`` for one step call (``:560``): the serving
+    projection, plus the rows' LoRA delta when the step was built with an
+    adapter. The delta is computed in f32, cast once to the projection's
+    dtype and added in it (``y + delta``, never folded into the base
+    product, whose rounding would change); wq, wk and wv share one f32
+    cast of their input. ``factors`` (a :class:`_RowFactors`) gathers the
+    rows' factors. The ids and the bank must live on the step's device: a
+    bank elsewhere raises, it is not moved."""
+    if adapter is None:
+        return _plain_proj
+    if adapter_ids is None or bank is None:
+        raise ValueError(
+            "this step was built with an adapter spec — call it with the "
+            "trailing (adapter_ids, bank) pair")
+    for what, t in (("adapter_ids", adapter_ids),
+                    ("bank", next(iter(bank.values())))):
+        if t.device != device:
+            raise ValueError(
+                f"{what} lives on {t.device} but the step runs on {device}")
+    last = [None, None]                  # (h, its f32 cast)
+
+    def proj(p, h, site):
+        y = _serving_proj(p, h)
+        if last[0] is not h:
+            last[0], last[1] = h, h.float()
+        a, b = factors.get(bank, adapter_ids, site)
+        return y + _lora_product(a, b, last[1]).to(y.dtype)
+
+    return proj
 
 
 def _model_geometry(model: Sequential):
@@ -338,7 +450,7 @@ def _serving_init_carry(n_layers: int, max_len: int, heads: int, hd: int,
 
 
 def make_batch_prefill_step(model: Sequential, compute_dtype=None,
-                            kv_quant: bool = False):
+                            kv_quant: bool = False, adapter=None):
     """Masked multi-row prompt ingestion (``:847``). Returns
     ``prefill(params, tokens, lengths, carry) -> (logprobs_last, carry)``:
 
@@ -356,11 +468,18 @@ def make_batch_prefill_step(model: Sequential, compute_dtype=None,
     and the start offsets (one small device→host read of ``pos``, the
     same read the JAX wrapper's guard makes). Queries attend over the
     row's full cache window under an absolute causal mask; the int8
-    path attends over the dequantized cache, the values decode reads."""
-    rows = _prefill_rows(model, compute_dtype, kv_quant)
+    path attends over the dequantized cache, the values decode reads.
+
+    ``adapter`` (a :class:`~bigdl_tpu_torch.serving.lora.AdapterSpec`)
+    makes the signature ``prefill(params, tokens, lengths, carry,
+    adapter_ids, bank)``: ``adapter_ids`` (B,) int64 per-ROW bank slots on
+    the device (0 = the null adapter) and ``bank`` the AdapterBank's
+    ``device_arrays``; the six projections of every block add the rows'
+    LoRA delta."""
+    rows = _prefill_rows(model, compute_dtype, kv_quant, adapter)
     max_len = rows.max_len
 
-    def prefill(params, tokens, lengths, carry):
+    def prefill(params, tokens, lengths, carry, *adapter_args):
         if tokens.dim() != 2:
             raise ValueError(f"tokens must be (B, L), got {tuple(tokens.shape)}")
         B, L = tokens.shape
@@ -377,7 +496,11 @@ def make_batch_prefill_step(model: Sequential, compute_dtype=None,
             raise ValueError(
                 f"rows would write past max_len {max_len}: "
                 f"pos={start_h.tolist()} + lengths={ln.tolist()}")
-        return rows(params, tokens, ln, start_h, carry)
+        if len(adapter_args) != (0 if adapter is None else 2):
+            raise ValueError(
+                "a prefill step built with an adapter spec takes the "
+                "trailing (adapter_ids, bank) pair, one without takes none")
+        return rows(params, tokens, ln, start_h, carry, *adapter_args)
 
     return prefill
 
@@ -423,21 +546,25 @@ def make_prefill_step(model: Sequential, compute_dtype=None,
     return prefill
 
 
-def _prefill_rows(model: Sequential, compute_dtype, kv_quant: bool):
+def _prefill_rows(model: Sequential, compute_dtype, kv_quant: bool,
+                  adapter=None):
     """The layer loop both prefill steps share: ``rows(params, tokens,
-    ln, start_h, carry)`` with the per-row lengths and start offsets
-    already checked, as host int64 arrays."""
+    ln, start_h, carry[, adapter_ids, bank])`` with the per-row lengths
+    and start offsets already checked, as host int64 arrays."""
     g = _model_geometry(model)
     max_len, off, lnf = g["max_len"], g["off"], g["lnf"]
     heads, hd = g["heads"], g["hd"]
     scale = hd ** -0.5
     cache_dtype = compute_dtype or torch.float32
 
-    def rows(params, tokens, ln, start_h, carry):
+    def rows(params, tokens, ln, start_h, carry, adapter_ids=None,
+             bank=None):
         lookup_w, pos_w, blocks, lnf_p, lin_p = \
             _resolve_decode_views(model, off, params)
         B, L = tokens.shape
         dev = tokens.device
+        proj = _adapter_proj_fns(adapter, adapter_ids, bank, dev,
+                                 _RowFactors())
         r_h = np.repeat(np.arange(B), ln)
         c_h = np.concatenate([np.arange(n) for n in ln]) if B else r_h
         r_idx = torch.as_tensor(r_h, device=dev)
@@ -457,9 +584,9 @@ def _prefill_rows(model: Sequential, compute_dtype, kv_quant: bool):
             lp = bp[blk._child_key(0)]
             h = layer_norm(x, lp["weight"], lp["bias"], blk.ln1.eps)
             ap = bp[blk._child_key(1)]
-            q = _serving_proj(ap["wq"], h).reshape(B, L, heads, hd)
-            k = _serving_proj(ap["wk"], h).reshape(B, L, heads, hd)
-            v = _serving_proj(ap["wv"], h).reshape(B, L, heads, hd)
+            q = proj(ap["wq"], h, f"wq{i}").reshape(B, L, heads, hd)
+            k = proj(ap["wk"], h, f"wk{i}").reshape(B, L, heads, hd)
+            v = proj(ap["wv"], h, f"wv{i}").reshape(B, L, heads, hd)
             if kv_quant:
                 # amax over the VALID columns only, grow-only merge with
                 # the cached prefix's scale, then the valid-pair scatter
@@ -494,8 +621,8 @@ def _prefill_rows(model: Sequential, compute_dtype, kv_quant: bool):
             p = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
             ctx = torch.einsum("bhlm,bmhd->blhd", p.to(p_dt).float(),
                                vatt.float()).to(x.dtype)
-            x = x + _serving_proj(ap["wo"], ctx.reshape(B, L, heads * hd))
-            x = _block_mlp(blk, bp, x)
+            x = x + proj(ap["wo"], ctx.reshape(B, L, heads * hd), f"wo{i}")
+            x = _block_mlp(blk, bp, x, proj, i)
         # each row's next-token logits come from its LAST VALID position
         last = (lengths_t - 1).clamp(0, L - 1)
         xf = layer_norm(x[torch.arange(B, device=dev), last],
@@ -512,7 +639,8 @@ def _prefill_rows(model: Sequential, compute_dtype, kv_quant: bool):
 
 
 def make_batch_decode_step(model: Sequential, compute_dtype=None,
-                           sampling: bool = False, kv_quant: bool = False):
+                           sampling: bool = False, kv_quant: bool = False,
+                           adapter=None):
     """Per-row-position decode step for continuous batching (``:1333``).
     Returns ``(step_fn, init_carry)``:
 
@@ -532,7 +660,16 @@ def make_batch_decode_step(model: Sequential, compute_dtype=None,
     (slot, head) and reads them through the pooled decode-attention op
     (the CUDA kernel on the card); a scale that grows requantizes its
     row through the kv_requant op. The step makes no device→host read:
-    its outputs can feed the next step on the device."""
+    its outputs can feed the next step on the device.
+
+    ``adapter`` (a :class:`~bigdl_tpu_torch.serving.lora.AdapterSpec`)
+    adds a trailing ``(adapter_ids, bank)`` pair to ``step_fn``:
+    ``adapter_ids`` (N,) int64 per-slot bank slots on the device, ``bank``
+    the AdapterBank's ``device_arrays``. Every block's six projections add
+    the rows' LoRA delta (bank slot 0 is all zeros, so null-adapter rows
+    add an exact 0.0). The rows' gathered factors are reused across calls
+    given the same ``adapter_ids`` tensor and ``bank`` dict
+    (:class:`_RowFactors`)."""
     from bigdl_tpu_torch.ops.decode_attention import decode_attention
 
     g = _model_geometry(model)
@@ -544,11 +681,14 @@ def make_batch_decode_step(model: Sequential, compute_dtype=None,
                                      cache_dtype, kv_quant, sampling, vocab,
                                      g["device"])
 
-    def forward(params, tokens, active, carry):
+    factors = _RowFactors()
+
+    def forward(params, tokens, active, carry, adapter_ids=None, bank=None):
         lookup_w, pos_w, blocks, lnf_p, lin_p = \
             _resolve_decode_views(model, off, params)
         n = tokens.shape[0]
         dev = tokens.device
+        proj = _adapter_proj_fns(adapter, adapter_ids, bank, dev, factors)
         rows = torch.arange(n, device=dev)
         wpos = carry["pos"].long().clamp(0, max_len - 1)   # write index
         x = lookup_w[tokens.long().clamp(0, lookup_w.shape[0] - 1)]
@@ -558,9 +698,9 @@ def make_batch_decode_step(model: Sequential, compute_dtype=None,
             lp = bp[blk._child_key(0)]
             h = layer_norm(x, lp["weight"], lp["bias"], blk.ln1.eps)
             ap = bp[blk._child_key(1)]
-            q = _serving_proj(ap["wq"], h).reshape(n, heads, hd)
-            k_new = _serving_proj(ap["wk"], h).reshape(n, heads, hd)
-            v_new = _serving_proj(ap["wv"], h).reshape(n, heads, hd)
+            q = proj(ap["wq"], h, f"wq{i}").reshape(n, heads, hd)
+            k_new = proj(ap["wk"], h, f"wk{i}").reshape(n, heads, hd)
+            v_new = proj(ap["wv"], h, f"wv{i}").reshape(n, heads, hd)
             kc, vc = carry[f"k{i}"], carry[f"v{i}"]
             if kv_quant:
                 # inactive rows have amax 0: scale, stored values and the
@@ -596,17 +736,19 @@ def make_batch_decode_step(model: Sequential, compute_dtype=None,
                 ctx = torch.einsum("nhl,nlhd->nhd",
                                    p.to(cache_dtype).float(),
                                    vc.float()).to(x.dtype)
-            x = x + _serving_proj(ap["wo"], ctx.reshape(n, heads * hd))
-            x = _block_mlp(blk, bp, x)
+            x = x + proj(ap["wo"], ctx.reshape(n, heads * hd), f"wo{i}")
+            x = _block_mlp(blk, bp, x, proj, i)
         xf = layer_norm(x, lnf_p["weight"], lnf_p["bias"], lnf.eps)
         logits = _serving_proj(lin_p, xf)
         carry["pos"] += active.to(carry["pos"].dtype)
         return torch.log_softmax(logits.float(), dim=-1), carry
 
-    def sample_step(params, tokens, active, carry, knobs):
+    def sample_step(params, tokens, active, carry, knobs, adapter_ids=None,
+                    bank=None):
         from bigdl_tpu_torch.serving.sampling import sample_rows
 
-        logp, carry = forward(params, tokens, active, carry)
+        logp, carry = forward(params, tokens, active, carry, adapter_ids,
+                              bank)
         tok, chosen, new_keys, new_counts = sample_rows(
             logp, carry["rng"], knobs, carry["tok_counts"],
             carry["prompt_mask"])
@@ -635,7 +777,8 @@ def _write_cols(dst, rows, cols, mask, vals):
 
 
 def make_batch_verify_step(model: Sequential, compute_dtype=None,
-                           width: int = 4, kv_quant: bool = False):
+                           width: int = 4, kv_quant: bool = False,
+                           adapter=None):
     """The speculative engine's target step (``:1648``): one call scores a
     per-row CHUNK of candidate tokens and advances each row by the draws
     the target confirms. Returns ``(verify_fn, init_carry)``;
@@ -677,6 +820,11 @@ def make_batch_verify_step(model: Sequential, compute_dtype=None,
     through :func:`bigdl_tpu_torch.ops.kv_requant.kv_requant`), so a
     rejected draft touches neither a row's scales nor its stored bytes.
 
+    ``adapter`` follows :func:`make_batch_decode_step`: a trailing
+    ``(adapter_ids, bank)`` pair, and every chunk position of a row runs
+    under that row's adapter (the engine pins adapted rows to chunks of
+    one: drafts come from a model with no adapter).
+
     Caller contract (the engine keeps it): ``pos[r] + lengths[r] <=
     max_len``."""
     from bigdl_tpu_torch.serving.sampling import sample_rows
@@ -693,11 +841,15 @@ def make_batch_verify_step(model: Sequential, compute_dtype=None,
                                      cache_dtype, kv_quant, True, vocab,
                                      g["device"])
 
-    def verify(params, tokens, lengths, carry, knobs):
+    factors = _RowFactors()
+
+    def verify(params, tokens, lengths, carry, knobs, adapter_ids=None,
+               bank=None):
         lookup_w, pos_w, blocks, lnf_p, lin_p = \
             _resolve_decode_views(model, off, params)
         N = tokens.shape[0]
         dev = tokens.device
+        proj = _adapter_proj_fns(adapter, adapter_ids, bank, dev, factors)
         rows = torch.arange(N, device=dev)
         cols = torch.arange(S, device=dev)
         lengths = lengths.long()
@@ -713,9 +865,9 @@ def make_batch_verify_step(model: Sequential, compute_dtype=None,
             lp = bp[blk._child_key(0)]
             h = layer_norm(x, lp["weight"], lp["bias"], blk.ln1.eps)
             ap = bp[blk._child_key(1)]
-            q = _serving_proj(ap["wq"], h).reshape(N, S, heads, hd)
-            k = _serving_proj(ap["wk"], h).reshape(N, S, heads, hd)
-            v = _serving_proj(ap["wv"], h).reshape(N, S, heads, hd)
+            q = proj(ap["wq"], h, f"wq{i}").reshape(N, S, heads, hd)
+            k = proj(ap["wk"], h, f"wk{i}").reshape(N, S, heads, hd)
+            v = proj(ap["wv"], h, f"wv{i}").reshape(N, S, heads, hd)
             if kv_quant:
                 k32, v32 = k.float(), v.float()
                 katt = (carry[f"k{i}"].float()
@@ -737,8 +889,8 @@ def make_batch_verify_step(model: Sequential, compute_dtype=None,
             p = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
             ctx = torch.einsum("bhlm,bmhd->blhd", p.to(p_dt).float(),
                                vatt.float()).to(x.dtype)
-            x = x + _serving_proj(ap["wo"], ctx.reshape(N, S, heads * hd))
-            x = _block_mlp(blk, bp, x)
+            x = x + proj(ap["wo"], ctx.reshape(N, S, heads * hd), f"wo{i}")
+            x = _block_mlp(blk, bp, x, proj, i)
         # EVERY position's next-token distribution
         xf = layer_norm(x, lnf_p["weight"], lnf_p["bias"], lnf.eps)
         logp = torch.log_softmax(_serving_proj(lin_p, xf).float(), dim=-1)

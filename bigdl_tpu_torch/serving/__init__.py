@@ -11,15 +11,22 @@ sheds and degrades under overload, recovers from failed steps (with a
 seeded fault injector and virtual clocks in ``faults.py``), and reads
 back only token ids and their log-probs, once per step (``fences.py``),
 optionally up to ``dispatch_ahead`` steps behind their dispatch.
-``speculative.py`` adds draft-and-verify decoding.
+``speculative.py`` adds draft-and-verify decoding, ``lora.py`` a pooled
+bank of per-tenant LoRA adapters selected per row, and ``constrain.py``
+per-row token automata that mask the sampler (structured output).
 """
 
 from bigdl_tpu_torch.serving.admission import Degrade, bucket_len
+from bigdl_tpu_torch.serving.constrain import (
+    ConstraintCursor, ConstraintError, TokenDFA, fixed_sequence,
+    from_token_sets,
+)
 from bigdl_tpu_torch.serving.engine import ServingEngine
 from bigdl_tpu_torch.serving.faults import (
     FaultError, FaultInjector, SteppingClock, VirtualClock, WatchdogConfig,
 )
 from bigdl_tpu_torch.serving.kv_pool import KVPool
+from bigdl_tpu_torch.serving.lora import AdapterBank, AdapterSpec
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
 from bigdl_tpu_torch.serving.sampling import SamplingParams
@@ -30,4 +37,6 @@ __all__ = ["ServingEngine", "KVPool", "Scheduler", "Request",
            "SamplingParams", "ServingMetrics", "FaultError",
            "FaultInjector", "VirtualClock", "SteppingClock",
            "WatchdogConfig", "PrefixCache", "Degrade", "bucket_len",
-           "SpeculativeConfig"]
+           "SpeculativeConfig", "AdapterBank", "AdapterSpec", "TokenDFA",
+           "ConstraintCursor", "ConstraintError", "fixed_sequence",
+           "from_token_sets"]

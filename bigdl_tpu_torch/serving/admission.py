@@ -13,7 +13,10 @@ prompt first takes the longest cached prefix: a FULL hit copies the
 cached carry into the pool (no prefill), a PARTIAL hit continues it and
 prefills only the suffix, and every finished prefill is inserted back —
 as a fresh copy of its row, never a view of the multi-row output, which
-would pin the whole block.
+would pin the whole block. On an engine with an adapter bank every
+prefill call carries the rows' adapter ids (pad rows: the null adapter),
+and the prefix cache is looked up and filled in the namespace of the
+request's adapter allocation (``ServingEngine._cache_namespace``).
 
 One zero input carry is built once and shared by every admission: the
 prefill step never writes its input carry (it returns new K/V tensors),
@@ -178,7 +181,8 @@ class AdmissionController:
         suffix from the cached carry (its ``pos`` is the start offset)
         and insert the result. False on a miss."""
         eng = self.engine
-        carry, matched, lease = self.prefix_cache.acquire(pf)
+        carry, matched, lease = self.prefix_cache.acquire(
+            pf, namespace=eng._cache_namespace(req))
         eng.metrics.on_prefix_lookup(matched, len(pf))
         if matched == 0:
             return False
@@ -194,10 +198,12 @@ class AdmissionController:
             _, out = eng._dispatch(
                 "prefill", eng._batch_prefill_fn, eng.params,
                 torch.from_numpy(toks).to(eng.device),
-                np.asarray([S], np.int64), carry)
+                np.asarray([S], np.int64), carry,
+                *eng._prefill_adapter_args([req.adapter_id]))
             eng.metrics.on_prefill_batch(1, 1)
             eng.pool.write_prefill(slot, out, len(pf))
-            self.prefix_cache.insert(pf, out)
+            self.prefix_cache.insert(pf, out,
+                                     namespace=eng._cache_namespace(req))
             return True
         finally:
             self.prefix_cache.release(lease)
@@ -209,19 +215,23 @@ class AdmissionController:
         B = self.prefill_rows
         toks = np.zeros((B, L), np.int64)
         lengths = np.zeros((B,), np.int64)     # pad rows stay ballast (0)
-        for j, (_, _, pf) in enumerate(rows):
+        aids = np.zeros((B,), np.int64)        # pad rows: null adapter
+        for j, (req, _, pf) in enumerate(rows):
             toks[j, :len(pf)] = pf
             lengths[j] = len(pf)
+            aids[j] = req.adapter_id
         self._note_shape(B, L)
         _, out = eng._dispatch(
             "prefill", eng._batch_prefill_fn, eng.params,
             torch.from_numpy(toks).to(eng.device), lengths,
-            self._zero_carry())
+            self._zero_carry(), *eng._prefill_adapter_args(aids))
         eng.metrics.on_prefill_batch(len(rows), B)
-        for j, (_, slot, pf) in enumerate(rows):
+        for j, (req, slot, pf) in enumerate(rows):
             eng.pool.write_prefill(slot, out, len(pf), row=j)
             if self.prefix_cache is not None:
-                self.prefix_cache.insert(pf, self._carry_row(out, j))
+                self.prefix_cache.insert(
+                    pf, self._carry_row(out, j),
+                    namespace=eng._cache_namespace(req))
 
 
 class PerRequestAdmissionController(AdmissionController):
@@ -229,7 +239,8 @@ class PerRequestAdmissionController(AdmissionController):
     :func:`~bigdl_tpu_torch.models.transformer.make_prefill_step` call per
     admitted prompt into one shared fresh carry — the JAX engine's
     per-request branch of ``_admit``. No prefix cache: the per-request
-    prefill cannot continue from a cached carry."""
+    prefill cannot continue from a cached carry; no adapter bank: it has
+    no adapter arguments (the engine refuses both)."""
 
     def _zero_carry(self) -> dict:
         if self._zero_carry_cache is None:

@@ -83,10 +83,12 @@ class ChunkedAdmissionController(AdmissionController):
             self._order.append(slot)
 
     def _prefix_head(self, slot: int, req, pf: List[int]) -> int:
-        """The longest cached prefix lands in the slot in one copy and
-        its tokens skip the chunk plan; returns the matched length."""
+        """The longest cached prefix (in the request's adapter namespace)
+        lands in the slot in one copy and its tokens skip the chunk plan;
+        returns the matched length."""
         eng = self.engine
-        carry, matched, lease = self.prefix_cache.acquire(pf)
+        carry, matched, lease = self.prefix_cache.acquire(
+            pf, namespace=eng._cache_namespace(req))
         eng.metrics.on_prefix_lookup(matched, len(pf))
         if matched == 0:
             return 0
@@ -150,11 +152,13 @@ class ChunkedAdmissionController(AdmissionController):
         _, out = eng._dispatch("prefill", eng._batch_prefill_fn,
                                eng.params,
                                torch.from_numpy(toks).to(eng.device),
-                               np.asarray([n], np.int64), row)
+                               np.asarray([n], np.int64), row,
+                               *eng._prefill_adapter_args([req.adapter_id]))
         eng.metrics.on_prefill_batch(1, 1)
         eng.pool.write_prefill(slot, out, done + n)
         if done + n == len(pf) and self.prefix_cache is not None:
-            self.prefix_cache.insert(pf, out)
+            self.prefix_cache.insert(pf, out,
+                                     namespace=eng._cache_namespace(req))
         eng.metrics.on_chunk(n)
 
     def drop(self, slot: int) -> None:

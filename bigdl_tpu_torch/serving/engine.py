@@ -25,6 +25,12 @@ one per-row-position decode step with the per-row sampler fused in
 * ``speculative=SpeculativeConfig(draft, k)`` replaces the decode step
   by a draft-and-verify super-step that emits 1 to ``k + 1`` tokens per
   row (``speculative.py``);
+* ``adapters=AdapterBank(...)`` serves many LoRA tenants over one set of
+  base weights: each request's ``adapter_id`` selects its bank slot, a
+  per-row runtime input of the same steps (0 = the null adapter, exactly
+  the base model); ``submit(constraint=TokenDFA)`` masks a row's sampler
+  to the tokens its automaton allows, one host-side cursor step per
+  emitted token (``lora.py``, ``constrain.py``);
 * rows leave at eos, a stop token or sequence, or ``max_new_tokens``,
   and their slot returns to the free list for the next admission.
 
@@ -99,7 +105,6 @@ from bigdl_tpu_torch.utils.device import resolve_device
 _NOT_PORTED = {
     "mesh": "A.2.g sharded serving (serving/sharded.py)",
     "parallelism": "A.2.g sharded serving (serving/sharded.py)",
-    "adapters": "A.2.h multi-tenant LoRA (serving/lora.py)",
     "tier": "A.2.i host KV tier (serving/kv_tier.py)",
     "autopilot": "A.2.i SLO autopilot (serving/autopilot.py)",
 }
@@ -147,7 +152,9 @@ class ServingEngine:
     and ``deadline_feasibility`` the overload controls;
     ``dispatch_ahead`` the decode dispatches kept in flight beyond the
     one being consumed; ``speculative`` a :class:`SpeculativeConfig` (or
-    a bare draft model); ``keep_finished``
+    a bare draft model); ``adapters`` an :class:`~bigdl_tpu_torch.serving.
+    lora.AdapterBank` over this model (batched or chunked admission
+    only); ``keep_finished``
     bounds the finished ledger; ``metrics`` a :class:`ServingMetrics` to
     record into; ``device`` defaults to ``cuda``."""
 
@@ -169,6 +176,7 @@ class ServingEngine:
                  faults=None,
                  dispatch_ahead: int = 0,
                  speculative=None,
+                 adapters=None,
                  device=None,
                  **not_ported) -> None:
         for knob, value in not_ported.items():
@@ -210,6 +218,19 @@ class ServingEngine:
             raise ValueError(
                 "preemption=True requires policy='priority' — victim "
                 "selection is a priority-order decision")
+        if adapters is not None and admission == "per_request":
+            raise ValueError(
+                "adapters require admission='batched' or 'chunked' — "
+                "the per-request prefill has no adapter arguments")
+        # multi-tenant LoRA: the steps take the rows' adapter ids and the
+        # bank as runtime inputs; the bank's device copy is cached against
+        # its version, the ids' against the pool's host row
+        self.adapters = adapters
+        self._adapter_spec = None if adapters is None else adapters.spec
+        self._bank_device = None
+        self._bank_version = None
+        self._ids_host: Optional[np.ndarray] = None
+        self._ids_device = None
         self.device = resolve_device(device)
         model_dev = model[0].weight.device
         if model_dev.type != self.device.type or (
@@ -255,7 +276,8 @@ class ServingEngine:
         if speculative is None:
             self._spec = None
             self._step_fn, self._pool_init = make_batch_decode_step(
-                model, compute_dtype, sampling=True, kv_quant=kv_quant)
+                model, compute_dtype, sampling=True, kv_quant=kv_quant,
+                adapter=self._adapter_spec)
         else:
             from bigdl_tpu_torch.serving.speculative import Speculator
 
@@ -276,7 +298,8 @@ class ServingEngine:
             self.admitter = PerRequestAdmissionController(self)
         else:
             self._batch_prefill_fn = make_batch_prefill_step(
-                model, compute_dtype, kv_quant=kv_quant)
+                model, compute_dtype, kv_quant=kv_quant,
+                adapter=self._adapter_spec)
             # True -> a default cache, None/False -> off, else the instance
             self.prefix_cache = (PrefixCache() if prefix_cache is True
                                  else (prefix_cache or None))
@@ -288,8 +311,13 @@ class ServingEngine:
                 self.admitter = AdmissionController(
                     self, prefix_cache=self.prefix_cache)
         self.seed = int(seed)
-        self._knobs = make_knob_rows(n_slots)
+        # the allow mask always rides (all-True = unconstrained): one knob
+        # layout for every engine
+        self._knobs = make_knob_rows(n_slots, vocab=self._vocab)
         self._knobs_device = None       # re-uploaded only after a change
+        # live constraint cursors by slot, rebuilt from (constraint,
+        # output) at every (re)admission, never checkpointed
+        self._constraints: Dict[int, object] = {}
         self._ban_base = np.zeros((n_slots,), bool)
         self._configured: set = set()
         # slots whose occupant arrived as a whole row_state payload: its
@@ -326,21 +354,41 @@ class ServingEngine:
         ``degrade`` a :class:`Degrade` applied under pressure;
         ``draft_tokens`` the speculative budget hint (None = the engine's
         ``k``, 0 = plain decode for this request, n = at most n drafts
-        per super-step; ignored by a plain engine). Raises if
-        the request could overflow the cache. Past ``max_queue`` the
+        per super-step; ignored by a plain engine); ``adapter_id`` the
+        request's slot in the engine's AdapterBank (0 = the base model;
+        a live id is retained until the request leaves; on a speculative
+        engine it needs ``draft_tokens=0``, since drafts come from a model
+        with no adapter); ``constraint`` a ``TokenDFA`` whose cursor
+        masks the row's sampler (a constrained row drafts nothing: the
+        mask is per position). Raises if the request could overflow the
+        cache. Past ``max_queue`` the
         request is shed: it lands in the finished ledger with
         ``finish_reason="shed"`` and empty output."""
         if draft_tokens is not None and int(draft_tokens) < 0:
             raise ValueError(
                 f"draft_tokens must be >= 0 or None, got {draft_tokens}")
-        if int(adapter_id) != 0:
-            raise NotImplementedError(
-                "adapter_id= is not ported yet: ROADMAP.md A.2.h "
-                "multi-tenant LoRA (serving/lora.py)")
-        if constraint is not None:
-            raise NotImplementedError(
-                "constraint= is not ported yet: ROADMAP.md A.2.h "
-                "constrained decoding (serving/constrain.py)")
+        adapter_id = int(adapter_id)
+        if adapter_id:
+            if self.adapters is None:
+                raise ValueError(
+                    f"adapter_id={adapter_id} but this engine has no "
+                    "AdapterBank (pass adapters= at construction)")
+            if not self.adapters.is_live(adapter_id):
+                raise ValueError(
+                    f"adapter id {adapter_id} is not allocated in the "
+                    "bank (alloc() it first, or use 0 = base model)")
+            if self._spec is not None and (draft_tokens is None
+                                           or int(draft_tokens) > 0):
+                raise ValueError(
+                    "adapted requests on a speculative engine must "
+                    "submit draft_tokens=0 — drafts are pinned to the "
+                    "null adapter, and a base-model draft chain under "
+                    "an adapted target would corrupt accept-rate "
+                    "accounting")
+        if constraint is not None and not hasattr(constraint, "cursor"):
+            raise ValueError(
+                "constraint must be a TokenDFA-like object with a "
+                ".cursor(prefix) method (serving/constrain.py)")
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
             raise ValueError("need a non-empty prompt")
@@ -368,7 +416,12 @@ class ServingEngine:
                       else int(draft_tokens),
                       deadline_s=None if deadline_s is None
                       else float(deadline_s),
-                      degrade=degrade, submit_time=self._clock())
+                      degrade=degrade, adapter_id=adapter_id,
+                      constraint=constraint, submit_time=self._clock())
+        # the adapter slot is held until the request leaves (released on
+        # every terminal path: finish, error, shed, deadline, cancel)
+        if adapter_id:
+            self.adapters.retain(adapter_id)
         self.metrics.on_submit()
         # the bound is on the BACKLOG beyond what the free slots absorb
         # at the next admission: an idle engine never sheds
@@ -410,8 +463,10 @@ class ServingEngine:
             self.pool.free(slot)
             self._configured.discard(slot)
             self._restored.discard(slot)
+            self._constraints.pop(slot, None)
             self.admitter.drop(slot)
         req.resume_carry = None          # a stash must not outlive it
+        self._release_adapter(req)
         self.metrics.on_cancel()
         self.metrics.on_finish_reason("cancelled")
         self._finished[req_id] = req
@@ -513,6 +568,7 @@ class ServingEngine:
         """Ledger a request that never ran (``"shed"`` at submit,
         ``"deadline"``, ``"infeasible"``), dropping any stash it carries
         so the ledger pins no device tensors."""
+        self._release_adapter(req)
         req.state = SHED
         req.finish_reason = reason
         req.resume_carry = None
@@ -590,12 +646,17 @@ class ServingEngine:
             if self.prefix_cache is not None:
                 fed0 = [t - 1 for t in victim.prompt] + \
                        [t - 1 for t in victim.output]
-                self.prefix_cache.insert(fed0[:-1], payload["carry"])
+                # in the victim's adapter namespace: its K/V was computed
+                # under those factors
+                self.prefix_cache.insert(
+                    fed0[:-1], payload["carry"],
+                    namespace=self._cache_namespace(victim))
         victim.preemptions += 1
         self.scheduler.requeue(victim)
         self.pool.free(slot)
         self._configured.discard(slot)
         self._restored.discard(slot)
+        self._constraints.pop(slot, None)
         self.metrics.on_preempt()
 
     def _recover_rows(self, rows, now: Optional[float] = None) -> None:
@@ -608,6 +669,7 @@ class ServingEngine:
         for slot, req in rows:
             self._configured.discard(slot)
             self._restored.discard(slot)
+            self._constraints.pop(slot, None)
             self.admitter.drop(slot)
             req.retries += 1
             req.resume_carry = None
@@ -655,10 +717,11 @@ class ServingEngine:
 
     def _configure_slot(self, slot: int, req: Request) -> None:
         """Write one admitted request's knobs into its slot's host rows
-        and, unless the slot was restored from a stash, seed its lane and
-        penalty state on the device (and, on a speculative engine,
-        prefill its draft cache); a readmitted request resumes its lane
-        ``len(output)`` draws on."""
+        (its adapter id, and its allow mask from a cursor rebuilt from
+        ``(constraint, output)``) and, unless the slot was restored from a
+        stash, seed its lane and penalty state on the device (and, on a
+        speculative engine, prefill its draft cache); a readmitted request
+        resumes its lane ``len(output)`` draws on."""
         sp = req.sampling
         scal, ban_row = knob_row_values(sp, req.eos_id)
         for k, v in scal.items():
@@ -667,6 +730,16 @@ class ServingEngine:
         self._ban_base[slot] = self._knobs["ban"][slot]
         if self._ban_base[slot] and req.output:
             self._knobs["ban"][slot] = len(req.output) < sp.min_tokens
+        self.pool.adapter_ids[slot] = req.adapter_id
+        # THE replay rule: the cursor is a function of (constraint,
+        # emitted prefix); a recycled slot's mask is always overwritten
+        self._constraints.pop(slot, None)
+        if req.constraint is not None:
+            cur = req.constraint.cursor(req.output)
+            self._constraints[slot] = cur
+            cur.mask_row(self._vocab, out=self._knobs["allow"][slot])
+        else:
+            self._knobs["allow"][slot] = True
         self._knobs_device = None
         if slot in self._restored:
             self._restored.discard(slot)
@@ -702,6 +775,8 @@ class ServingEngine:
         self.pool.free(freed)
         self._configured.discard(freed)
         self._restored.discard(freed)
+        self._constraints.pop(freed, None)
+        self._release_adapter(req)
         req.finish_reason = reason
         req.resume_carry = None
         self._finished[req.req_id] = req
@@ -726,6 +801,71 @@ class ServingEngine:
             if ban != self._knobs["ban"][slot]:
                 self._knobs["ban"][slot] = ban
                 self._knobs_device = None
+
+    def _advance_constraint(self, slot: int, req: Request) -> None:
+        """Advance a constrained row's cursor over the token just emitted
+        and, when its state moved, rewrite its allow-mask row (the mask is
+        a function of the state); no-op for unconstrained rows."""
+        cur = self._constraints.get(slot)
+        if cur is None:
+            return
+        state = cur.state
+        cur.advance(req.output[-1])
+        if cur.state != state:
+            cur.mask_row(self._vocab, out=self._knobs["allow"][slot])
+            self._knobs_device = None
+
+    # -- the adapter plane -------------------------------------------------
+
+    def _release_adapter(self, req: Request) -> None:
+        """Drop the adapter reference :meth:`submit` took, once, from
+        whichever terminal path the request leaves by."""
+        if req.adapter_id and not req._adapter_released:
+            req._adapter_released = True
+            self.adapters.free(req.adapter_id)
+
+    def _cache_namespace(self, req: Request) -> int:
+        """The prefix-cache namespace of ``req``'s adapter: 0 for the null
+        adapter, else its bank slot's current allocation (the request
+        holds a reference, so the slot cannot change tenant under it)."""
+        return self.adapters.namespace(req.adapter_id) if req.adapter_id \
+            else 0
+
+    def _bank_device_arrays(self):
+        """The bank on the engine's device, re-uploaded (pinned, without a
+        host wait) only when its version moved: a tenant alloc'd or freed.
+        Then the prefix cache drops the trees of freed tenants, which no
+        request can reach again."""
+        if (self._bank_device is None
+                or self._bank_version != self.adapters.version):
+            self._bank_device = self.adapters.device_arrays(self.device)
+            self._bank_version = self.adapters.version
+            if self.prefix_cache is not None:
+                self.prefix_cache.drop_namespaces(self.adapters.namespaces())
+        return self._bank_device
+
+    def _adapter_args(self):
+        """The decode/verify dispatch's trailing adapter arguments: ``()``
+        without a bank, else ``(per-slot adapter ids, bank)``. The ids
+        tensor is re-uploaded only when the pool's host row changed, so
+        the step can keep the rows' gathered factors between changes."""
+        if self.adapters is None:
+            return ()
+        ids = self.pool.adapter_ids
+        if self._ids_device is None or not np.array_equal(ids,
+                                                          self._ids_host):
+            self._ids_host = ids.copy()
+            self._ids_device = self._upload(ids.astype(np.int64))
+        return (self._ids_device, self._bank_device_arrays())
+
+    def _prefill_adapter_args(self, row_adapter_ids):
+        """The batched prefill's trailing adapter arguments for one call:
+        ``()`` without a bank, else ``(per-ROW ids, bank)`` (prefill rows
+        are bucket rows, not pool slots)."""
+        if self.adapters is None:
+            return ()
+        return (self._upload(np.asarray(row_adapter_ids, np.int64)),
+                self._bank_device_arrays())
 
     def _note_decode_gap(self, had_running: bool) -> None:
         """The engine-clock gap since the last healthy decode dispatch,
@@ -791,8 +931,8 @@ class ServingEngine:
         one without consuming anything first? Only while nothing the
         in-flight dispatches assumed changed: the same requests in the
         same slots, every slot configured, the device knobs still the
-        cached ones, and no row whose min-tokens ban may lift at a
-        consume."""
+        cached ones, no row whose min-tokens ban may lift at a consume,
+        and no constrained row (its mask may change at every consume)."""
         if not self._window or self.dispatch_ahead < 1:
             return False
         if self._knobs_device is None:
@@ -802,6 +942,8 @@ class ServingEngine:
             return False
         for slot, req in prev.rows.items():
             if running.get(slot) is not req or slot not in self._configured:
+                return False
+            if slot in self._constraints:
                 return False
             if self._ban_base[slot] and self._knobs["ban"][slot]:
                 return False
@@ -850,6 +992,7 @@ class ServingEngine:
             else:
                 req.next_token = tok0
                 self._maybe_flip_ban(slot, req)
+                self._advance_constraint(slot, req)
         return True
 
     def _drain_window(self, emitted: Dict[int, int]) -> bool:
@@ -931,7 +1074,8 @@ class ServingEngine:
         try:
             tok, chosen, carry = self._dispatch(
                 "decode", self._step_fn, self.params, tokens_dev,
-                active_dev, self.pool.carry, self._knobs_device)
+                active_dev, self.pool.carry, self._knobs_device,
+                *self._adapter_args())
         except FaultError:
             # raised before the step ran: what is in flight is healthy,
             # consume it, then evict and replay the rows that remain

@@ -17,8 +17,13 @@ occupant's range. The chunk-progress mirrors (``chunk_done``,
 and reset with the slot the same way.
 
 :meth:`row_state` / :meth:`restore_row` serialize one slot whole — every
-carry leaf (fresh copies), the chunk mirrors, the draft carry's row — and
-write it back bitwise: the preemption stash of the engine.
+carry leaf (fresh copies), the chunk mirrors, the row's adapter id, the
+draft carry's row — and write it back bitwise: the preemption stash of
+the engine.
+
+``adapter_ids`` is the host row of per-slot LoRA bank slots (0 = the null
+adapter) the engine hands the steps as runtime data; it resets to 0 with
+its slot.
 
 A speculative engine attaches its DRAFT model's pooled carry
 (:meth:`attach_draft`): slot ``s`` of it always belongs to the request in
@@ -69,6 +74,9 @@ class KVPool:
         # pump plans without reading the device back
         self.chunk_done = np.zeros((self.n_slots,), np.int64)
         self.chunk_target = np.zeros((self.n_slots,), np.int64)
+        # each slot's LoRA bank slot (serving/lora.py), runtime data of
+        # the adapted steps; 0 = the null adapter (base model)
+        self.adapter_ids = np.zeros((self.n_slots,), np.int32)
         # the draft model's slot-aligned carry (attach_draft)
         self.draft_carry: Optional[Dict] = None
         self.draft_max_len = 0
@@ -100,6 +108,7 @@ class KVPool:
                     t[slot] = 0
         self.chunk_done[slot] = 0
         self.chunk_target[slot] = 0
+        self.adapter_ids[slot] = 0
 
     @property
     def free_slots(self) -> int:
@@ -154,8 +163,7 @@ class KVPool:
     def row_state(self, slot: int) -> Dict:
         """Everything one allocated slot carries: ``carry`` (every leaf
         of :meth:`read_row`, cloned), the ``chunk_done``/``chunk_target``
-        mirrors, ``adapter`` (always 0: LoRA is ROADMAP.md A.2.h) and
-        ``draft`` (the draft carry's row, cloned leaf by leaf; None
+        mirrors, ``adapter`` (the slot's adapter id) and ``draft`` (the draft carry's row, cloned leaf by leaf; None
         without one). :meth:`restore_row` is its bitwise inverse."""
         carry = self.read_row(slot)
         draft = None if self.draft_carry is None else {
@@ -163,13 +171,13 @@ class KVPool:
         return {"carry": carry,
                 "chunk_done": int(self.chunk_done[slot]),
                 "chunk_target": int(self.chunk_target[slot]),
-                "adapter": 0, "draft": draft}
+                "adapter": int(self.adapter_ids[slot]), "draft": draft}
 
     def restore_row(self, slot: int, payload: Dict) -> None:
         """Write a :meth:`row_state` payload into an allocated slot,
         bitwise: every carry leaf copied in place into the pool's tensors
         (``pos`` too, device to device, so nothing is read back), the
-        chunk mirrors from the payload's own values. The payload is only
+        chunk mirrors and the adapter id from the payload's own values. The payload is only
         read."""
         self._check(slot)
         for key, src in payload["carry"].items():
@@ -180,6 +188,8 @@ class KVPool:
                 self.draft_carry[key][slot:slot + 1].copy_(src)
         self.chunk_done[slot] = int(payload["chunk_done"])
         self.chunk_target[slot] = int(payload["chunk_target"])
+        # a payload without the key restores as the null adapter
+        self.adapter_ids[slot] = int(payload.get("adapter", 0))
 
     # -- the draft carry (speculative decoding) ------------------------------
 

@@ -27,9 +27,12 @@ Stored carries are shared and read-only: every consumer copies from them
 writes its input carry), and inserters hand in fresh tensors, never
 views of a pool or of a multi-row prefill output.
 
-Tree namespaces are per adapter id, as in JAX; only id 0 is reachable
-until LoRA serving (ROADMAP.md A.2.h). The host-tier spill of evicted
-entries is A.2.i.
+Trees are per namespace: the engine passes the request's
+``AdapterBank.namespace`` (0 for the null adapter, else one number per
+allocation of a bank slot), so K/V computed under one tenant's LoRA
+factors never serves another tenant's prefix, not even the next tenant of
+a freed slot, and :meth:`PrefixCache.drop_namespaces` lets a freed
+tenant's trees go. The host-tier spill of evicted entries is A.2.i.
 """
 
 from __future__ import annotations
@@ -133,14 +136,14 @@ class PrefixCache:
 
     # -- lease surface -----------------------------------------------------
 
-    def acquire(self, tokens: Sequence[int], adapter_id: int = 0):
+    def acquire(self, tokens: Sequence[int], namespace: int = 0):
         """Longest-cached-prefix lookup with a lease: ``(carry,
         matched_len, lease)``, or ``(None, 0, None)`` on a miss. A
         truncated hit's carry is a new dict with a new ``pos`` tensor
         over the entry's own (read-only) K/V tensors."""
         self.lookups += 1
         tokens = tuple(int(t) for t in tokens)
-        root = self._roots.get(int(adapter_id))
+        root = self._roots.get(int(namespace))
         if root is None:
             return None, 0, None
         best, matched = self._walk(tokens, root)
@@ -167,16 +170,16 @@ class PrefixCache:
     # -- insertion / eviction ----------------------------------------------
 
     def insert(self, tokens: Sequence[int], carry,
-               adapter_id: int = 0) -> None:
+               namespace: int = 0) -> None:
         """Store ``carry`` as the prefill state for exactly ``tokens``
-        (0-based ids, non-empty) under the ``adapter_id`` namespace."""
+        (0-based ids, non-empty) in the ``namespace`` tree."""
         tokens = tuple(int(t) for t in tokens)
         if not tokens:
             raise ValueError("cannot cache an empty prefix")
-        adapter_id = int(adapter_id)
-        root = self._roots.get(adapter_id)
+        namespace = int(namespace)
+        root = self._roots.get(namespace)
         if root is None:
-            root = self._roots[adapter_id] = _Node((), None, 0)
+            root = self._roots[namespace] = _Node((), None, 0)
         node, i = root, 0
         while i < len(tokens):
             child = node.children.get(tokens[i])
@@ -201,6 +204,17 @@ class PrefixCache:
         node.carry = carry
         self._touch(node)
         self._evict_over_capacity(protect=node)
+
+    def drop_namespaces(self, keep) -> None:
+        """Drop every tree whose namespace is not in ``keep`` with all its
+        entries (namespace 0 always stays). A lease on a dropped entry
+        stays valid: its carry lives on with its holder."""
+        for ns in [n for n in self._roots if n and n not in keep]:
+            stack = [self._roots.pop(ns)]
+            while stack:
+                node = stack.pop()
+                self._carry_nodes.discard(node)
+                stack.extend(node.children.values())
 
     def _touch(self, node: _Node) -> None:
         self._clock += 1

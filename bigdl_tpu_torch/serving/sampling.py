@@ -171,10 +171,13 @@ def lane_uniforms(lanes, vocab: int):
 # -- knob rows -------------------------------------------------------------
 
 
-def make_knob_rows(n_slots: int):
-    """Host-side per-slot knob arrays in their no-op (greedy) state (the
-    constrained-decoding ``allow`` mask comes with ROADMAP A.2.h)."""
-    return {
+def make_knob_rows(n_slots: int, vocab: Optional[int] = None):
+    """Host-side per-slot knob arrays in their no-op (greedy) state.
+    ``vocab`` adds the constrained-decoding ``allow`` mask, ``(n_slots,
+    vocab)`` bool, all-True (= unconstrained); the engine always carries
+    it and rewrites a constrained row from its cursor after every emitted
+    token (``serving/constrain.py``)."""
+    knobs = {
         "temperature": np.zeros((n_slots,), np.float32),
         "top_k": np.zeros((n_slots,), np.int32),
         "top_p": np.ones((n_slots,), np.float32),
@@ -184,6 +187,9 @@ def make_knob_rows(n_slots: int):
         "ban": np.zeros((n_slots,), bool),
         "ban_ids": np.full((n_slots, MAX_BAN_IDS), -1, np.int32),
     }
+    if vocab is not None:
+        knobs["allow"] = np.ones((n_slots, vocab), bool)
+    return knobs
 
 
 def knob_row_values(params: SamplingParams, eos_id: int):
@@ -212,7 +218,8 @@ def sample_rows(logp, lanes, knobs, counts, prompt_mask):
     """The per-row sampler, fused into the decode step.
 
     ``logp`` (N, V) f32 log-probs; ``lanes`` (N, 2) int64; ``knobs`` the
-    :func:`make_knob_rows` dict as tensors; ``counts`` (N, V) int32
+    :func:`make_knob_rows` dict as tensors (with the (N, V) bool
+    ``allow`` mask when it carries one); ``counts`` (N, V) int32
     generated-token counts; ``prompt_mask`` (N, V) bool. Returns
     ``(tokens (N,) int64, chosen_logp (N,) f32, new_lanes, new_counts)``;
     the caller masks inactive rows."""
@@ -228,6 +235,11 @@ def sample_rows(logp, lanes, knobs, counts, prompt_mask):
     ban_hit = (torch.arange(V, device=logp.device)[None, None, :]
                == knobs["ban_ids"][:, :, None]).any(dim=1)
     lg = torch.where(knobs["ban"][:, None] & ban_hit, -1e30, lg)
+    # the constraint mask (serving/constrain.py): an all-True row is the
+    # identity
+    allow = knobs.get("allow")
+    if allow is not None:
+        lg = torch.where(allow, lg, -1e30)
     greedy_tok = torch.argmax(lg, dim=-1)
     # 5: temperature, then top-k / top-p in one descending sort
     temp = knobs["temperature"]

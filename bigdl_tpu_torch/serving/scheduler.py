@@ -56,7 +56,11 @@ class Request:
     ``"stop"``, ``"length"``, ``"shed"``/``"deadline"``/``"infeasible"``
     for load-shed requests, ``"error"`` past the retry budget).
     ``draft_tokens`` is the speculative budget hint (None = the engine's
-    ``k``, 0 = plain decode for this request).
+    ``k``, 0 = plain decode for this request). ``adapter_id`` is the
+    request's LoRA bank slot (0 = the null adapter, the base model) and
+    ``constraint`` an optional ``TokenDFA``: the engine rebuilds its
+    cursor from (this, ``output``) at every (re)admission and never
+    checkpoints it.
 
     Resilience fields: ``priority`` (higher admits first under the
     ``"priority"`` policy), ``deadline_s`` (completion SLO in seconds
@@ -78,6 +82,8 @@ class Request:
     output: List[int] = field(default_factory=list)   # 1-based ids
     sampling: Optional[SamplingParams] = None
     draft_tokens: Optional[int] = None  # speculative budget hint
+    adapter_id: int = 0
+    constraint: Optional[object] = None  # constrain.TokenDFA
     logprobs: List[float] = field(default_factory=list)
     finish_reason: Optional[str] = None
     submit_time: float = 0.0
@@ -91,6 +97,7 @@ class Request:
     preemptions: int = 0
     retries: int = 0
     resume_carry: Optional[dict] = None
+    _adapter_released: bool = False    # the adapter reference was dropped
 
     @property
     def deadline_time(self) -> Optional[float]:

@@ -28,6 +28,12 @@ as the JAX draft plane does: on an int8 engine only the target's cache is
 quantized, and a rejected draft leaves no scale growth behind in the
 draft's cache, so the accept rate is the JAX engine's.
 
+With an adapter bank the verify step scores each row under its own
+adapter, while drafts stay pinned to the null adapter: ``submit`` refuses
+an adapted request unless it passes ``draft_tokens=0``. A constrained row
+drafts nothing (its mask is per position, so a chunk would verify later
+positions against a stale mask).
+
     eng = ServingEngine(lm, n_slots=8,
                         speculative=SpeculativeConfig(draft_lm, k=4))
     eng.submit([3, 7, 2], max_new_tokens=64)
@@ -102,9 +108,11 @@ class Speculator:
                 f"target on {engine.model[0].weight.device}")
         dtype = engine.compute_dtype
         # the target's one step: the fixed-width verify step (a length-1
-        # row IS plain decode), over the decode step's carry layout
+        # row IS plain decode), over the decode step's carry layout, each
+        # row under its adapter; the draft plane below has none
         self.verify_fn, self.pool_init = make_batch_verify_step(
-            engine.model, dtype, width=self.width, kv_quant=kv_quant)
+            engine.model, dtype, width=self.width, kv_quant=kv_quant,
+            adapter=engine._adapter_spec)
         # the draft plane: plain cache in the compute dtype, greedy
         # proposals (the JAX plane's, whatever the target's KV format)
         self._draft_step_fn, self._draft_init = make_batch_decode_step(
@@ -149,11 +157,11 @@ class Speculator:
         capped by the request's ``draft_tokens`` hint and the remaining
         token budget (a chunk must not overshoot ``max_new_tokens``, or the
         lane would run ahead of the plain stream); 0 while the row's
-        min-tokens ban is up (the ban is per-step host state a chunk must
-        not cross)."""
+        min-tokens ban is up or the row is constrained (the ban and the
+        allow mask are per-step host state a chunk must not cross)."""
         k = self.k if req.draft_tokens is None \
             else min(int(req.draft_tokens), self.k)
-        if self.engine._knobs["ban"][slot]:
+        if self.engine._knobs["ban"][slot] or slot in self.engine._constraints:
             k = 0
         rem = req.max_new_tokens - len(req.output)
         return max(0, min(k, rem - 1))
@@ -245,7 +253,8 @@ class Speculator:
         try:
             vt, vlp, n_emit, _ = eng._dispatch(
                 "verify", self.verify_fn, eng.params, vtoks,
-                eng._upload(lengths), eng.pool.carry, knobs)
+                eng._upload(lengths), eng.pool.carry, knobs,
+                *eng._adapter_args())
         except FaultError:
             eng._recover_step(running)
             return {}
@@ -297,6 +306,7 @@ class Speculator:
             else:
                 req.next_token = int(nxt[slot, m - 1])
                 eng._maybe_flip_ban(slot, req)
+                eng._advance_constraint(slot, req)
         # counted after the cut: accepted = landed minus one non-draft
         # draw per row
         n_rows = int(active.sum())

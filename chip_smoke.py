@@ -83,34 +83,48 @@ any failure raises, so the exit code is non-zero and no result prints:
               above 1) and, shorter, an independently seeded 2-layer draft;
               then fp32 greedy rows held to the plain engine's (a row may
               differ only from a near-tie, top-two gap below 1e-3, on);
-11. train    — the training path at full width: the same 137m model at
+11. serve_lora — multi-tenant LoRA and constrained decoding on the same
+              model (bf16, int8 KV, 16 slots) with ``AdapterBank(rank=16,
+              n_slots=4)`` and three tenants (``random_factors`` seeds
+              50-52, amp 0.05) on ``serving_bench``'s multitenant trace (24
+              requests, 32 new tokens; adapter ids round-robin over 0-3,
+              every fourth request forced through a 3-token
+              ``fixed_sequence``, odd ones seeded-sampled): a bank-less
+              oracle, then base-only (ids and constraints stripped) and
+              mixed passes; null-adapter rows bitwise the oracle's, forced
+              rows verbatim, adapted rows leave the oracle's stream, one
+              decode input layout, references released; tok/s, step p50,
+              TTFT p50/p99 and the multitenant overhead; launches, copies
+              and waits per decode step for the bank-less, base-only and
+              mixed engines;
+12. train    — the training path at full width: the same 137m model at
               max_len = T = 2048, ``output="logits"``, trained through
               ``Optimizer(...).optimize()`` with
               ``MaskedSoftmaxCECriterion(0)``, ``Adam(1e-4)``, bf16 compute,
               batch 8, 2 warm + 5 timed steps on one seeded batch: step ms
               p50, tokens/s, MFU, peak memory, first and last loss;
-12. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
+13. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
               kernels against their plain versions: the stage-1 block join
               (M 802,816, C 256, K 64, residual, y and extra dy, bf16), the
               stage-4 bn2 edge (M 12,544, C 512, K 2048, bf16) and an f32
               case with ragged M, C and K; per-row errors and channel-sum
               errors against the stated tolerances, kernel, plain, bare
               cuBLAS product and unfused-torch times, and the bound;
-13. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
+14. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
               K) that ResNet-50's step launches them at (batch 256, bf16):
               each against its plain version, each kernel's median and
               min-max time beside its bound, the cuBLAS product and the
               unfused sequence, and per kernel the step's sum of launches x
               (time - bound);
-14. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
+15. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
               on the kernels) on the card against the CPU: losses,
               parameters and BN running statistics;
-15. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
+16. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
               momentum 0.9 / weight decay 1e-4, ``maybe_fuse`` with
               ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
               timed steps: step ms p50, images/s, peak memory, losses; then
               the unfused ``Graph`` on the same recipe;
-16. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+17. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
@@ -122,8 +136,8 @@ any failure raises, so the exit code is non-zero and no result prints:
 
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; each of its kernels must have launched (decode attention and
-kv_requant once per layer per decode step in serve, serve_modes and
-serve_async; in serve_spec decode attention once per draft layer per draft
+kv_requant once per layer per decode step in serve, serve_modes,
+serve_async and serve_lora; in serve_spec decode attention once per draft layer per draft
 step and kv_requant besides once per target layer per verify step; each
 flash kernel once per layer per step, each
 fused-conv kernel exactly 28 times per ResNet-50 step, the conv3x3 kernel
@@ -1506,45 +1520,60 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
               "cudaDeviceSynchronize")
 
 
-def decode_step_trace(engine, vocab, rng, steps: int = 8):
+def decode_step_trace(engine, vocab, rng, steps: int = 8, submit_kw=None,
+                      between=None):
     """Per decode step, over ``steps`` steps with all 16 slots decoding
-    (after one admission step), counted by ``torch.profiler`` as
-    ``tools/torch_serving_profile.py`` counts them: device launches
-    (kernels, copies, fills), device→host copies, and host waits on the
-    card (``SYNC_CALLS`` made inside a step's ``record_function`` span:
-    the profiler's own waits and the ``torch.cuda.synchronize()`` that
-    closes the window fall outside). Also returns every wait call of the
-    window by name, in and out of the steps."""
+    (after one admission step; ``submit_kw(i)`` adds keyword arguments to
+    request i's ``submit``; ``between(i)`` runs before traced step i),
+    counted by ``torch.profiler`` as ``tools/torch_serving_profile.py``
+    counts them: device launches (kernels, copies, fills), device→host
+    copies, and host waits on the card. The waits are the ``SYNC_CALLS``
+    of the window less those of a window with no step in it (the
+    profiler's own and the ``torch.cuda.synchronize()`` that closes it),
+    so no step's count hangs on the profiler placing a call's time
+    against a span's. Also returns the window's wait calls by name, in
+    and out of the steps' host spans, and the empty window's count."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     eng = engine()
-    for _ in range(16):
+    for i in range(16):
         p = rng.integers(1, vocab + 1, size=int(rng.integers(16, 257)))
-        eng.submit(p.tolist(), max_new_tokens=16)
+        eng.submit(p.tolist(), max_new_tokens=16,
+                   **({} if submit_kw is None else submit_kw(i)))
     with torch.no_grad():
         eng.step()                         # admission: the prefills
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
+        with profile(activities=activities) as empty:
+            torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            for i in range(steps):
+                if between is not None:
+                    between(i)
                 with record_function("serve_step"):
                     eng.step()
             torch.cuda.synchronize()
         eng.drain()
     events = list(prof.events())
+    # a record_function span also shows on the card's timeline as a user
+    # annotation; that is no launch, and no host span
+    cpu_type = torch.autograd.DeviceType.CPU
     cuda = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name != "serve_step"]
     dtoh = sum(1 for e in cuda if "DtoH" in e.name)
     spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.name == "serve_step"]
+             if e.name == "serve_step" and e.device_type == cpu_type]
     waits = {}
     for e in events:
         if e.name in SYNC_CALLS:
             inside = any(a <= e.time_range.start <= b for a, b in spans)
             key = f"{e.name} {'in' if inside else 'outside'} a step"
             waits[key] = waits.get(key, 0) + 1
-    syncs = sum(n for k, n in waits.items() if k.endswith(" in a step"))
+    own = sum(1 for e in empty.events() if e.name in SYNC_CALLS)
+    waits["in the empty window"] = own
+    syncs = sum(1 for e in events if e.name in SYNC_CALLS) - own
     return len(cuda) / steps, dtoh / steps, syncs / steps, waits
 
 
@@ -2060,6 +2089,249 @@ def serve_spec_phase():
     return totals
 
 
+#: serve_lora: tenants in the bank (``serving_bench.run_multitenant``'s 3,
+#: factor seeds 50-52) and their rank
+LORA_TENANTS = 3
+LORA_RANK = 16
+
+
+def multitenant_trace(vocab: int, n_requests: int = 24, gen_tokens: int = 32,
+                      n_tenants: int = LORA_TENANTS, seed: int = 29):
+    """``benchmarks/serving_bench.py``'s ``make_multitenant_trace``: prompts
+    of 5, 9 and 17 tokens, adapter ids round-robin over 0 (base) and the
+    tenants, every fourth request forced through a 3-token
+    ``fixed_sequence``, odd requests seeded-sampled. ``(prompt, new
+    tokens, sampling, adapter id, constraint, forced ids)``."""
+    from bigdl_tpu_torch.serving import SamplingParams, fixed_sequence
+
+    rng = np.random.RandomState(seed)
+    buckets = [5, 9, 17]
+    trace = []
+    for i in range(n_requests):
+        plen = buckets[i % len(buckets)]
+        prompt = rng.randint(1, vocab + 1, size=(plen,)).tolist()
+        sp = SamplingParams(temperature=0.8, top_k=20, seed=300 + i) \
+            if i % 2 else None
+        aid = i % (n_tenants + 1)
+        forced = rng.randint(1, vocab + 1, size=(3,)).tolist() \
+            if i % 4 == 3 else None
+        cons = None if forced is None else fixed_sequence(forced)
+        trace.append((prompt, gen_tokens, sp, aid, cons, forced))
+    return trace
+
+
+def lora_run(lm, trace, bank, tenants_on: bool):
+    """One drain of ``trace`` through a 16-slot bf16 / int8-KV engine with
+    ``adapters=bank`` (``bank=None``: the bank-less oracle);
+    ``tenants_on=False`` strips adapter ids and constraints (the base-only
+    pass). Kernel launch counts are set to 0 just before the drain and read
+    just after; the shapes of every decode dispatch's inputs are recorded.
+    Returns (engine, request ids, fields, input layouts)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(lm, n_slots=16, compute_dtype=torch.bfloat16,
+                        kv_dtype="int8", adapters=bank, seed=5)
+    layouts = set()
+    step = eng._step_fn
+
+    def recording(*args):
+        flat = [args[1], args[2], *args[4].values(), *args[5:6],
+                *(args[6].values() if len(args) > 6 else ())]
+        layouts.add(tuple((tuple(t.shape), str(t.dtype)) for t in flat))
+        return step(*args)
+
+    eng._step_fn = recording
+    rids = [eng.submit(p, max_new_tokens=n, sampling=sp,
+                       adapter_id=aid if tenants_on else 0,
+                       constraint=cons if tenants_on else None)
+            for p, n, sp, aid, cons, _ in trace]
+    torch.cuda.synchronize()
+    da.launches = kr.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    V = lm[0].n_index
+    for rid, (_, n, _, _, _, _) in zip(rids, trace):
+        out, lps = outs[rid], eng.logprobs(rid)
+        if not (len(out) == n and out.min() >= 1 and out.max() <= V
+                and np.isfinite(lps).all() and (lps <= 0).all()):
+            raise AssertionError(f"lora: request {rid}: bad output {out}")
+    s = eng.summary()
+    fields = dict(requests=len(rids), wall_s=wall,
+                  tokens_per_s=s["serving/tokens_per_sec"],
+                  decode_step_p50_s=s["serving/decode_step_p50_s"],
+                  ttft_p50_s=s["serving/ttft_p50_s"],
+                  ttft_p99_s=s["serving/ttft_p99_s"],
+                  decode_steps=eng.metrics.decode_step_count,
+                  decode_attention_launches=da.launches,
+                  kv_requant_launches=kr.launches)
+    return eng, rids, fields, layouts
+
+
+def serve_lora_phase():
+    """Multi-tenant LoRA and constrained decoding on the 137m model (bf16,
+    int8 KV, 16 slots) as ``serving_bench.run_multitenant`` drives it: an
+    ``AdapterBank(rank=16, n_slots=4)`` with three tenants
+    (``random_factors`` seeds 50-52, amp 0.05), ``multitenant_trace`` (24
+    requests, 32 new tokens), a bank-less oracle pass, a short warm pass,
+    then a base-only pass (ids and constraints stripped) and a mixed pass
+    on engines with the bank. Held to: every unconstrained null-adapter
+    row of the mixed pass bitwise the oracle's (tokens and log-probs);
+    every constrained row emits its forced ids; at least one adapted row
+    leaves the oracle's stream; one decode input layout, the same in both
+    passes; decode_attention and kv_requant launched once per layer per
+    decode step in each; every request's adapter reference released (then
+    ``bank.free`` empties the bank). Then launches, device-to-host copies
+    and host waits per decode step (``decode_step_trace``, one readback
+    each) for the bank-less, base-only and mixed engines, and for mixed
+    traffic while a spare tenant is alloc'd and freed between steps (the
+    bank re-uploaded every step, still without a host wait). Last, the
+    oracle, base-only and mixed passes in alternating order over four
+    rounds: the bank's decode-step cost and mixed against base-only,
+    within each round. Returns both kernels' launches of the base-only and
+    mixed passes."""
+    import torch
+
+    from bigdl_tpu_torch.serving import (
+        AdapterBank, ServingEngine, fixed_sequence,
+    )
+
+    lm, _ = lm_137m()
+    V, layers = lm[0].n_index, lm_layers(lm)
+    bank = AdapterBank(lm, rank=LORA_RANK, n_slots=LORA_TENANTS + 1)
+    for t in range(LORA_TENANTS):
+        bank.alloc(bank.random_factors(seed=50 + t))
+    trace = multitenant_trace(V)
+    eng_p, rids_p, f_plain, _ = lora_run(lm, trace, None, False)
+    lora_run(lm, [(p, 2, sp, a, c, f) for p, _, sp, a, c, f in trace],
+             bank, True)                                 # warm
+    _, _, f_base, lay_b = lora_run(lm, trace, bank, False)
+    eng_m, rids_m, f_mixed, lay_m = lora_run(lm, trace, bank, True)
+    null_rows = equal_null = diverged = 0
+    for (_, _, _, aid, cons, forced), rp, rm in zip(trace, rids_p, rids_m):
+        want, got = eng_p.result(rp), eng_m.result(rm)
+        if aid == 0 and cons is None:
+            null_rows += 1
+            equal_null += bool(np.array_equal(want, got) and (
+                eng_p.logprobs(rp).tobytes() == eng_m.logprobs(rm).tobytes()))
+        if cons is not None and list(got)[:3] != forced:
+            raise AssertionError(f"lora: request {rm} did not emit its "
+                                 f"forced ids {forced}: {got}")
+        if aid != 0 and cons is None:
+            diverged += not np.array_equal(want, got)
+    live_after = bank.live
+    for t in range(1, LORA_TENANTS + 1):
+        bank.free(t)
+    checks = dict(
+        null_rows=null_rows, null_rows_bitwise_equal=equal_null,
+        adapted_rows_diverged=diverged,
+        constrained_rows_forced=sum(c is not None for *_, c, _ in trace),
+        layouts_base_only=len(lay_b), layouts_mixed=len(lay_m),
+        same_layout=lay_b == lay_m,
+        live_after_passes={str(k): v for k, v in live_after.items()},
+        live_after_free=len(bank.live))
+    for name, f in (("oracle", f_plain), ("base_only", f_base),
+                    ("mixed", f_mixed)):
+        emit("serve_lora", run=name, model="137m", rank=LORA_RANK,
+             tenants=LORA_TENANTS, **f)
+        for k in ("decode_attention", "kv_requant"):
+            if f[f"{k}_launches"] != f["decode_steps"] * layers:
+                raise AssertionError(
+                    f"lora {name}: {k} launched {f[f'{k}_launches']} "
+                    f"times, expected {f['decode_steps']} x {layers}")
+    emit("serve_lora", run="checks", multitenant_overhead_pct=100.0 * (
+        f_base["tokens_per_s"] / f_mixed["tokens_per_s"] - 1.0), **checks)
+    if not (equal_null == null_rows > 0 and diverged > 0
+            and len(lay_b) == 1 and lay_b == lay_m
+            and live_after == {t: 1 for t in range(1, LORA_TENANTS + 1)}
+            and not bank.live):
+        raise AssertionError(f"lora: a check failed: {checks}")
+
+    # launches, copies and waits per decode step of a full pool; "churn"
+    # serves mixed traffic from a bank with one slot more, whose spare
+    # tenant is alloc'd before one traced step and freed before the next,
+    # so every step re-uploads the bank
+    for t in range(LORA_TENANTS):
+        bank.alloc(bank.random_factors(seed=50 + t))
+    churn = AdapterBank(lm, rank=LORA_RANK, n_slots=LORA_TENANTS + 2)
+    for t in range(LORA_TENANTS):
+        churn.alloc(churn.random_factors(seed=50 + t))
+    spare_factors, spare = churn.random_factors(seed=50 + LORA_TENANTS), []
+
+    def churn_step(i):
+        if spare:
+            churn.free(spare.pop())
+        else:
+            spare.append(churn.alloc(spare_factors))
+
+    forced = np.random.default_rng(7).integers(1, V + 1, size=(16, 3))
+
+    def mixed_kw(i):
+        return {"adapter_id": i % (LORA_TENANTS + 1),
+                "constraint": fixed_sequence(forced[i].tolist())
+                if i % 4 == 3 else None}
+
+    per_step = {}
+    for name, adapters, kw, between in (
+            ("no_bank", None, None, None), ("base_only", bank, None, None),
+            ("mixed", bank, mixed_kw, None),
+            ("churn", churn, mixed_kw, churn_step)):
+        def engine(adapters=adapters):
+            return ServingEngine(lm, n_slots=16, compute_dtype=torch.bfloat16,
+                                 kv_dtype="int8", adapters=adapters)
+
+        n, dtoh, syncs, waits = decode_step_trace(
+            engine, V, np.random.default_rng(1), submit_kw=kw,
+            between=between)
+        per_step[name] = dict(device_launches=n, device_to_host_copies=dtoh,
+                              host_waits=syncs, traced_wait_calls=waits)
+    per_step["churn"]["bank_versions"] = churn.version
+    emit("serve_lora", run="per_decode_step", **per_step)
+    for name, f in per_step.items():
+        if f["device_to_host_copies"] != 1 or f["host_waits"] != 1:
+            raise AssertionError(f"lora {name}: a decode step made more than "
+                                 f"its one readback: {f}")
+
+    # the bank's cost per decode step: the three engines in alternating
+    # order (ABC, CBA, ABC, CBA), so the drift between passes of one
+    # process falls on each alike; differences are taken within a round
+    order = ("oracle", "base_only", "mixed")
+    rounds = {name: [] for name in order}
+    for r in range(4):
+        for name in order if r % 2 == 0 else order[::-1]:
+            _, _, f, _ = lora_run(lm, trace, None if name == "oracle"
+                                  else bank, name == "mixed")
+            rounds[name].append(f)
+    added = (per_step["base_only"]["device_launches"]
+             - per_step["no_bank"]["device_launches"])
+    step = {n: [f["decode_step_p50_s"] for f in fs]
+            for n, fs in rounds.items()}
+    bank_ms = [1e3 * (b - o) for b, o in zip(step["base_only"],
+                                            step["oracle"])]
+    emit("serve_lora", run="alternating", rounds=4, order="ABC CBA ABC CBA",
+         decode_step_p50_s=step,
+         tokens_per_s={n: [f["tokens_per_s"] for f in fs]
+                       for n, fs in rounds.items()},
+         bank_step_ms=bank_ms,
+         host_us_per_added_launch=[1e3 * d / added for d in bank_ms],
+         added_launches_per_step=added,
+         mixed_minus_base_step_ms=[
+             1e3 * (m - b) for m, b in zip(step["mixed"],
+                                           step["base_only"])],
+         multitenant_overhead_pct=[
+             100.0 * (b["tokens_per_s"] / m["tokens_per_s"] - 1.0)
+             for b, m in zip(rounds["base_only"], rounds["mixed"])])
+    return (f_base["decode_attention_launches"]
+            + f_mixed["decode_attention_launches"],
+            f_base["kv_requant_launches"] + f_mixed["kv_requant_launches"])
+
+
 def main() -> int:
     import torch
 
@@ -2102,7 +2374,7 @@ def main() -> int:
         raise AssertionError("decode_attention or kv_requant never launched "
                              "on the main path")
     for phase in (lambda: serve_modes_phase(batched_gap_p99_s),
-                  serve_async_phase, serve_spec_phase):
+                  serve_async_phase, serve_spec_phase, serve_lora_phase):
         n_da, n_kr = phase()
         entry["launches"] += n_da
         requant["launches"] += n_kr

@@ -901,3 +901,106 @@ def test_serving_speculative_greedy_rows_equal_the_plain_engine(card):
     assert da.launches == 0
     assert kr.launches == eng.metrics.decode_step_count * 2
     assert all(len(eng.result(r)) == 8 for r in rids)
+
+
+# -- multi-tenant LoRA and constrained decoding on the card ----------------
+
+def _lora_bank(lm, amp=0.5):
+    from bigdl_tpu_torch.serving import AdapterBank
+
+    bank = AdapterBank(lm, rank=2, n_slots=4)
+    for seed in (1, 2):
+        bank.alloc(bank.random_factors(seed=seed, amp=amp))
+    return bank
+
+
+def _adapted_top2_gap(lm, bank, prompt, prefix, aid):
+    """Top-1 minus top-2 log-prob of ``lm`` under adapter ``aid`` after
+    ``prompt + prefix`` (1-based), through the adapted batch prefill."""
+    from bigdl_tpu_torch.models import transformer as tm
+
+    dev = lm[0].weight.device
+    prefill = tm.make_batch_prefill_step(lm, adapter=bank.spec)
+    _, init = tm.make_batch_decode_step(lm)
+    seq = [t - 1 for t in prompt + prefix]
+    with torch.no_grad():
+        lp, _ = prefill(tm.serving_params(lm),
+                        torch.tensor([seq], device=dev),
+                        [len(seq)], init(1),
+                        torch.tensor([aid], device=dev),
+                        bank.device_arrays(dev))
+    top2 = lp[0].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["fp32", "int8"])
+def test_serving_lora_null_rows_are_the_bankless_engine(card, kv):
+    """Mixed traffic on a bank-ed engine on the card (base rows, two
+    tenants, a forced template): every unconstrained null-adapter row's
+    tokens and log-probs are bitwise the bank-less engine's, constrained
+    rows emit their template, and on int8 KV decode attention and
+    kv_requant launch once per layer per decode step."""
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.serving import ServingEngine, fixed_sequence
+
+    lm = _serving_lm()
+    bank = _lora_bank(lm)
+    reqs = _serving_reqs(n=9, seed=3)
+    runs = []
+    for adapters in (None, bank):
+        eng = ServingEngine(lm, n_slots=3, kv_dtype=kv, adapters=adapters)
+        with torch.no_grad():
+            rids = []
+            for i, (p, n) in enumerate(reqs):
+                mixed = adapters is not None
+                rids.append(eng.submit(
+                    p, max_new_tokens=n, adapter_id=i % 3 if mixed else 0,
+                    constraint=fixed_sequence([4, 9, 2])
+                    if mixed and i % 4 == 3 else None))
+            da.launches = kr.launches = 0
+            eng.drain()
+        runs.append([(eng.result(r).tobytes(), eng.logprobs(r).tobytes())
+                     for r in rids])
+        if kv == "int8":
+            want = eng.metrics.decode_step_count * 2
+            assert da.launches == want and kr.launches == want
+    for i, (plain, mixed) in enumerate(zip(*runs)):
+        if i % 3 == 0 and i % 4 != 3:
+            assert plain == mixed, i
+        if i % 4 == 3:
+            assert list(torch.frombuffer(bytearray(mixed[0]),
+                                         dtype=torch.int32))[:3] == [4, 9, 2]
+    assert bank.live == {1: 1, 2: 1}
+
+
+@pytest.mark.cuda
+def test_serving_lora_on_the_card_matches_the_cpu(card):
+    """f32 compute, KV and bank with TF32 off: a bank-ed engine on the
+    card emits the same engine's CPU tokens row for row (base and both
+    tenants); a row may leave the CPU stream only where the CPU model's
+    top-2 gap under its adapter is below 1e-3 (a near-tie f32 rounding
+    may break apart)."""
+    import copy
+
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    lm = _serving_lm()
+    lm_cpu = copy.deepcopy(lm).to("cpu")
+    bank = _lora_bank(lm)
+    reqs = _serving_reqs(n=7, seed=5)
+    outs = []
+    for model, dev in ((lm, "cuda"), (lm_cpu, "cpu")):
+        eng = ServingEngine(model, n_slots=3, kv_dtype="fp32",
+                            adapters=bank, device=dev)
+        with torch.no_grad():
+            rids = [eng.submit(p, max_new_tokens=n, adapter_id=i % 3)
+                    for i, (p, n) in enumerate(reqs)]
+            eng.drain()
+        outs.append([eng.result(r).tolist() for r in rids])
+    for i, ((p, _), got, want) in enumerate(zip(reqs, *outs)):
+        if got != want:
+            j = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            assert _adapted_top2_gap(lm_cpu, bank, p, want[:j], i % 3) \
+                < 1e-3, (i, got, want)

@@ -68,7 +68,9 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.ops.fused_conv",
               "bigdl_tpu_torch.ops.conv3x3",
               "bigdl_tpu_torch.ops.kv_requant",
-              "bigdl_tpu_torch.serving.speculative"):
+              "bigdl_tpu_torch.serving.speculative",
+              "bigdl_tpu_torch.serving.lora",
+              "bigdl_tpu_torch.serving.constrain"):
         assert m in mods
     for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu",
                 "conv3x3.cu", "kv_requant.cu"):

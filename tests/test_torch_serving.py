@@ -199,18 +199,13 @@ def test_entry_points_need_a_card_or_cpu_by_name(pair):
 
 @pytest.mark.parametrize("where,knob", [
     ("engine", {"mesh": object()}), ("engine", {"parallelism": {"data": 2}}),
-    ("engine", {"adapters": object()}),
-    ("engine", {"tier": True}), ("engine", {"autopilot": object()}),
-    ("submit", {"adapter_id": 1}), ("submit", {"constraint": object()})])
+    ("engine", {"tier": True}), ("engine", {"autopilot": object()})])
 def test_knobs_outside_the_slice_raise(pair, where, knob):
     from bigdl_tpu_torch.serving import ServingEngine
 
     _, tlm = pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if where == "engine":
-            ServingEngine(tlm, device="cpu", **knob)
-        else:
-            ServingEngine(tlm, device="cpu").submit([3, 7], **knob)
+        ServingEngine(tlm, device="cpu", **knob)
 
 
 def test_kv_dtype_validation(pair):

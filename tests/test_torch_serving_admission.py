@@ -165,9 +165,11 @@ def test_per_request_knob_refusals(pair):
                       chunk_budget=0)
     with pytest.raises(ValueError, match="admission mode"):
         ServingEngine(tlm, device="cpu", admission="streamed")
-    with pytest.raises(NotImplementedError, match="A.2.h"):
+    from bigdl_tpu_torch.serving import AdapterBank
+
+    with pytest.raises(ValueError, match="adapters require"):
         ServingEngine(tlm, device="cpu", admission="per_request",
-                      adapters=object())
+                      adapters=AdapterBank(tlm, rank=2, n_slots=2))
 
 
 # -- PrefixCache --------------------------------------------------------------

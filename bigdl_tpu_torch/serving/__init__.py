@@ -14,18 +14,35 @@ optionally up to ``dispatch_ahead`` steps behind their dispatch.
 ``speculative.py`` adds draft-and-verify decoding, ``lora.py`` a pooled
 bank of per-tenant LoRA adapters selected per row, and ``constrain.py``
 per-row token automata that mask the sampler (structured output).
+``kv_tier.py`` parks rows and evicted prefixes in host memory under a
+byte budget, and ``disagg.py`` splits serving into a prefill pool and
+decode pools that hand KV rows across a wire, with pool health,
+failover, graceful drain and an occupancy autoscaler (``health.py``,
+over ``autopilot.Controller``).
 """
 
 from bigdl_tpu_torch.serving.admission import Degrade, bucket_len
+from bigdl_tpu_torch.serving.autopilot import Controller
 from bigdl_tpu_torch.serving.constrain import (
     ConstraintCursor, ConstraintError, TokenDFA, fixed_sequence,
     from_token_sets,
+)
+from bigdl_tpu_torch.serving.disagg import (
+    ROW_PAYLOAD_KEYS, BlockStoreTransfer, DecodeWorker, DisaggregatedEngine,
+    InProcessTransfer, KVTransfer, PrefillWorker, pack_payload,
+    payload_header, unpack_payload,
 )
 from bigdl_tpu_torch.serving.engine import ServingEngine
 from bigdl_tpu_torch.serving.faults import (
     FaultError, FaultInjector, SteppingClock, VirtualClock, WatchdogConfig,
 )
+from bigdl_tpu_torch.serving.fences import FENCE_SITES, fence, fence_wait
+from bigdl_tpu_torch.serving.health import (
+    AutoscalerConfig, HealthConfig, OccupancyAutoscaler, PoolHealth,
+    TransferRetryConfig,
+)
 from bigdl_tpu_torch.serving.kv_pool import KVPool
+from bigdl_tpu_torch.serving.kv_tier import TieredKVStore
 from bigdl_tpu_torch.serving.lora import AdapterBank, AdapterSpec
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
@@ -39,4 +56,10 @@ __all__ = ["ServingEngine", "KVPool", "Scheduler", "Request",
            "WatchdogConfig", "PrefixCache", "Degrade", "bucket_len",
            "SpeculativeConfig", "AdapterBank", "AdapterSpec", "TokenDFA",
            "ConstraintCursor", "ConstraintError", "fixed_sequence",
-           "from_token_sets"]
+           "from_token_sets", "FENCE_SITES", "fence", "fence_wait",
+           "DisaggregatedEngine", "PrefillWorker", "DecodeWorker",
+           "KVTransfer", "InProcessTransfer", "BlockStoreTransfer",
+           "ROW_PAYLOAD_KEYS", "pack_payload", "payload_header",
+           "unpack_payload", "HealthConfig", "PoolHealth",
+           "TransferRetryConfig", "AutoscalerConfig",
+           "OccupancyAutoscaler", "TieredKVStore", "Controller"]

@@ -92,6 +92,31 @@ class TokenDFA:
             cur.advance(tok)
         return cur
 
+    # -- the disaggregated wire --------------------------------------------
+
+    def to_meta(self) -> dict:
+        """JSON-safe description (ints, lists, dicts) — what rides a row
+        handoff's header (``disagg.request_meta``); the cursor never
+        travels, the receiving pool rebuilds it from the emitted prefix."""
+        return {
+            "start": self.start,
+            "states": [
+                [None if allow is None else sorted(allow),
+                 {str(t): s for t, s in sorted(edges.items())},
+                 default]
+                for allow, edges, default in self.states],
+        }
+
+    @classmethod
+    def from_meta(cls, meta: dict) -> "TokenDFA":
+        """Inverse of :meth:`to_meta`."""
+        states = [
+            (None if allow is None else frozenset(allow),
+             {int(t): int(s) for t, s in edges.items()},
+             default)
+            for allow, edges, default in meta["states"]]
+        return cls(states, start=meta["start"])
+
 
 class ConstraintCursor:
     """One row's live position in its :class:`TokenDFA` (host-side,

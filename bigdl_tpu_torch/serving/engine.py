@@ -55,6 +55,13 @@ Resilience, all host-side:
   out of range, that raised, or that overran the watchdog's timeout, and
   replays its rows from ``prompt + output``; past ``max_retries`` a
   request finishes with ``"error"``, so the engine never wedges;
+* ``tier=`` (True, or a :class:`~bigdl_tpu_torch.serving.kv_tier.
+  TieredKVStore`) parks preempted rows in host memory as packed wire
+  bytes under a byte budget instead of on the request, fetches them back
+  currency-checked at readmission (prefetched before admission touches
+  the card), demotes the prefix cache's evicted entries there, and turns
+  victim selection cold-first; every terminal disposition drops the
+  request's entry;
 * every device dispatch goes through :meth:`_dispatch` (sites
   ``"decode"`` and ``"prefill"``), where a seeded
   :class:`~bigdl_tpu_torch.serving.faults.FaultInjector` may fail,
@@ -105,7 +112,6 @@ from bigdl_tpu_torch.utils.device import resolve_device
 _NOT_PORTED = {
     "mesh": "A.2.g sharded serving (serving/sharded.py)",
     "parallelism": "A.2.g sharded serving (serving/sharded.py)",
-    "tier": "A.2.i host KV tier (serving/kv_tier.py)",
     "autopilot": "A.2.i SLO autopilot (serving/autopilot.py)",
 }
 
@@ -154,7 +160,8 @@ class ServingEngine:
     one being consumed; ``speculative`` a :class:`SpeculativeConfig` (or
     a bare draft model); ``adapters`` an :class:`~bigdl_tpu_torch.serving.
     lora.AdapterBank` over this model (batched or chunked admission
-    only); ``keep_finished``
+    only); ``tier`` True or a :class:`~bigdl_tpu_torch.serving.kv_tier.
+    TieredKVStore` (the host spill tier); ``keep_finished``
     bounds the finished ledger; ``metrics`` a :class:`ServingMetrics` to
     record into; ``device`` defaults to ``cuda``."""
 
@@ -177,6 +184,7 @@ class ServingEngine:
                  dispatch_ahead: int = 0,
                  speculative=None,
                  adapters=None,
+                 tier=None,
                  device=None,
                  **not_ported) -> None:
         for knob, value in not_ported.items():
@@ -287,8 +295,17 @@ class ServingEngine:
         self.pool = KVPool(self._pool_init, n_slots, kv_dtype=kv_dtype)
         if self._spec is not None:
             self._spec.attach_pool(self.pool)
-        self.scheduler = Scheduler(policy)
+        # the host spill tier: True builds a default one, an instance is
+        # shared as is (a disaggregated plane passes ONE to every pool)
+        if tier is True:
+            from bigdl_tpu_torch.serving.kv_tier import TieredKVStore
+
+            tier = TieredKVStore()
+        self.tier = tier or None
+        self.scheduler = Scheduler(policy, tier=self.tier)
         self.metrics = metrics if metrics is not None else ServingMetrics()
+        if self.tier is not None:
+            self.tier.attach_metrics(self.metrics, clock=self._clock)
         self.metrics.set_kv_format(kv_dtype, self.pool.kv_bytes_per_slot)
         self.admission = admission
         if admission == "per_request":
@@ -303,6 +320,12 @@ class ServingEngine:
             # True -> a default cache, None/False -> off, else the instance
             self.prefix_cache = (PrefixCache() if prefix_cache is True
                                  else (prefix_cache or None))
+            if self.prefix_cache is not None:
+                # evicted entries demote to the engine's tier (a cache
+                # built with its own keeps it); promotions land here
+                if self.tier is not None and self.prefix_cache.tier is None:
+                    self.prefix_cache.tier = self.tier
+                self.prefix_cache.device = self.device
             if admission == "chunked":
                 self.admitter = ChunkedAdmissionController(
                     self, chunk_budget=chunk_budget or 32,
@@ -466,6 +489,7 @@ class ServingEngine:
             self._constraints.pop(slot, None)
             self.admitter.drop(slot)
         req.resume_carry = None          # a stash must not outlive it
+        self._drop_tier_row(req)
         self._release_adapter(req)
         self.metrics.on_cancel()
         self.metrics.on_finish_reason("cancelled")
@@ -541,6 +565,10 @@ class ServingEngine:
                 self._preempt_row(victim)
         n = self.scheduler.admissible(self.pool.free_slots)
         if n:
+            if self.tier is not None:
+                # decode the wave's tier blobs before admission touches
+                # the card
+                self.tier.prefetch(self.scheduler.peek_waiting(n))
             self.admitter.admit(n)
 
     def _admitted_prefill_tokens(self, req: Request) -> List[int]:
@@ -554,10 +582,24 @@ class ServingEngine:
         req.next_token = fed0[-1]
         return fed0[:-1]
 
+    def _spill_or_carry(self, req: Request, payload: Optional[dict]) -> None:
+        """Park a row's ``row_state`` payload for readmission: into the
+        host tier when one backs this engine, else on
+        ``req.resume_carry``."""
+        if payload is None:
+            return
+        if self.tier is not None:
+            self.tier.put_row(req, payload)
+        else:
+            req.resume_carry = payload
+
     def _resume_payload(self, req: Request) -> Optional[dict]:
-        """A readmitted request's stash, or None (then it replays
-        ``prompt + output`` through prefill)."""
+        """A readmitted request's stash (its ``resume_carry``, else a
+        current copy in the tier), or None (then it replays ``prompt +
+        output`` through prefill)."""
         payload = req.resume_carry
+        if payload is None and self.tier is not None:
+            payload = self.tier.fetch_row(req)
         if payload is not None and req.output:
             self.metrics.on_resume_without_prefill()
         return payload
@@ -572,6 +614,7 @@ class ServingEngine:
         req.state = SHED
         req.finish_reason = reason
         req.resume_carry = None
+        self._drop_tier_row(req)
         self._finished[req.req_id] = req
         self._evict_finished()
         self.metrics.on_finish_reason(reason)
@@ -627,6 +670,12 @@ class ServingEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _drop_tier_row(self, req: Request) -> None:
+        """The tier's twin of ``req.resume_carry = None``: every terminal
+        or carry-distrusting disposition drops the request's entry."""
+        if self.tier is not None:
+            self.tier.drop_row(req.req_id)
+
     def _dispatch(self, site: str, fn, *args):
         """Every device dispatch of the serving path goes through here,
         so a fault injector can fail, corrupt or stall it."""
@@ -636,13 +685,14 @@ class ServingEngine:
 
     def _preempt_row(self, victim: Request) -> None:
         """Loss-free preemption of one RUNNING row: stash its whole
-        ``row_state`` on the request (fresh copies, restored bitwise at
-        readmission), share its carry into the prefix cache, free the
-        slot and requeue the request at its original key."""
+        ``row_state`` (fresh copies, restored bitwise at readmission) in
+        the tier or on the request, share its carry into the prefix
+        cache, free the slot and requeue the request at its original
+        key."""
         slot = victim.slot
         if len(victim.prompt) + len(victim.output) > 1:
             payload = self.pool.row_state(slot)
-            victim.resume_carry = payload
+            self._spill_or_carry(victim, payload)
             if self.prefix_cache is not None:
                 fed0 = [t - 1 for t in victim.prompt] + \
                        [t - 1 for t in victim.output]
@@ -673,6 +723,7 @@ class ServingEngine:
             self.admitter.drop(slot)
             req.retries += 1
             req.resume_carry = None
+            self._drop_tier_row(req)     # a suspect step may postdate it
             mr = self.watchdog.max_retries
             if mr is not None and req.retries > mr:
                 self._finish_row(req, "error", now)
@@ -769,16 +820,24 @@ class ServingEngine:
         return None
 
     def _finish_row(self, req: Request, reason: str, now: float) -> None:
-        """Free a finishing row's slot and ledger it: reason counter,
-        latency and log-prob, the SLO verdict and the recovery counter."""
+        """Free a finishing row's slot, then :meth:`_ledger_finish`."""
         freed = self.scheduler.finish(req)
         self.pool.free(freed)
         self._configured.discard(freed)
         self._restored.discard(freed)
         self._constraints.pop(freed, None)
+        self._ledger_finish(req, reason, now)
+
+    def _ledger_finish(self, req: Request, reason: str, now: float) -> None:
+        """Ledger a finished request: reason counter, latency and
+        log-prob, the SLO verdict and the recovery counter. Shared by
+        slot-holding rows and slotless ones (a disaggregated handoff
+        that errors out past its retry budget)."""
         self._release_adapter(req)
         req.finish_reason = reason
         req.resume_carry = None
+        self._drop_tier_row(req)
+        req.state = FINISHED
         self._finished[req.req_id] = req
         self._evict_finished()
         self.metrics.on_finish_reason(reason)
@@ -979,6 +1038,8 @@ class ServingEngine:
             return False
         self._warm = True
         self._note_decode_gap(entry.had_running)
+        # recency stamps for the tier's cold-first victim selection
+        self.scheduler.note_decoded(list(rows))
         self.metrics.on_step(self.scheduler.queue_depth,
                              self.pool.occupancy(), len(entry.rows))
         self.metrics.on_sample_rows(entry.n_sampled,
@@ -1031,9 +1092,11 @@ class ServingEngine:
         if self._spec is not None:
             # the speculative super-step consumes its own readback at once
             # (its draft budgets are decided from it): no window
+            slots = list(running)
             out = self._spec.step(running)
             if out:
                 self._note_decode_gap(had_running)
+                self.scheduler.note_decoded(slots)
             else:
                 self._last_decode_end = None
             return out

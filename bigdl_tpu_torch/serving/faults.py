@@ -19,8 +19,9 @@ the same faults in both packages. Stalls advance a shared
         faults=FaultInjector(seed=1, p_fail=0.2, p_stall=0.1,
                              stall_s=30.0, clock=clk))
 
-The JAX injector's ``"transfer"`` site belongs to disaggregated serving
-(ROADMAP.md A.2.i) and is not carried.
+The ``"transfer"`` site is the disaggregated plane's handoff send
+(``disagg.py``): ``p_transfer_stall`` hangs the fabric there — the shared
+clock advances by ``stall_s`` and the send raises without delivering.
 """
 
 from __future__ import annotations
@@ -99,8 +100,9 @@ class WatchdogConfig:
 #: Dispatch sites the engine routes through the injector: "decode" is the
 #: pooled decode step, "verify"/"draft" the speculative plane's two
 #: dispatches, "prefill" every admission-side prefill (per-request,
-#: bucketed, prefix suffix, chunk and draft alike).
-SITES = ("decode", "verify", "draft", "prefill")
+#: bucketed, prefix suffix, chunk and draft alike), "transfer" the
+#: disaggregated plane's handoff sends (disagg.py).
+SITES = ("decode", "verify", "draft", "prefill", "transfer")
 
 
 class FaultInjector:
@@ -110,35 +112,42 @@ class FaultInjector:
     ("decode", "verify", "draft"):
     raise before dispatching, corrupt the returned outputs (float leaves
     → NaN, int leaves → -1), or advance the shared clock by ``stall_s``
-    after the dispatch. ``p_admit_fail`` applies to "prefill". At most one
-    fault fires per dispatch; ``max_faults`` caps the total injected.
-    ``counts`` tallies injections by kind."""
+    after the dispatch. ``p_admit_fail`` applies to "prefill";
+    ``p_transfer_stall`` to "transfer": the shared clock advances by
+    ``stall_s`` and the send raises without delivering (a caller that
+    abandoned a hung send at its timeout). At most one fault fires per
+    dispatch; ``max_faults`` caps the total injected. ``counts`` tallies
+    injections by kind."""
 
     def __init__(self, seed: int = 0, p_fail: float = 0.0,
                  p_garbage: float = 0.0, p_stall: float = 0.0,
-                 p_admit_fail: float = 0.0, stall_s: float = 10.0,
+                 p_admit_fail: float = 0.0,
+                 p_transfer_stall: float = 0.0, stall_s: float = 10.0,
                  clock: Optional[VirtualClock] = None,
                  max_faults: Optional[int] = None) -> None:
         for name, p in (("p_fail", p_fail), ("p_garbage", p_garbage),
                         ("p_stall", p_stall),
-                        ("p_admit_fail", p_admit_fail)):
+                        ("p_admit_fail", p_admit_fail),
+                        ("p_transfer_stall", p_transfer_stall)):
             if not 0.0 <= p <= 1.0:
                 raise ValueError(f"{name} must lie in [0, 1], got {p}")
         if p_fail + p_garbage + p_stall > 1.0:
             raise ValueError("p_fail + p_garbage + p_stall must be <= 1")
-        if p_stall > 0.0 and clock is None:
+        if (p_stall > 0.0 or p_transfer_stall > 0.0) and clock is None:
             raise ValueError(
-                "p_stall needs a shared VirtualClock — stalls are "
-                "simulated by advancing it, never by sleeping")
+                "p_stall/p_transfer_stall need a shared VirtualClock — "
+                "stalls are simulated by advancing it, never by sleeping")
         self.p_fail = float(p_fail)
         self.p_garbage = float(p_garbage)
         self.p_stall = float(p_stall)
         self.p_admit_fail = float(p_admit_fail)
+        self.p_transfer_stall = float(p_transfer_stall)
         self.stall_s = float(stall_s)
         self.clock = clock
         self.max_faults = max_faults
         self.counts: Dict[str, int] = {
-            "fail": 0, "garbage": 0, "stall": 0, "admit_fail": 0}
+            "fail": 0, "garbage": 0, "stall": 0, "admit_fail": 0,
+            "transfer_stall": 0}
         self._rng = np.random.default_rng(int(seed))
 
     @property
@@ -159,6 +168,12 @@ class FaultInjector:
             if self._armed() and u < self.p_admit_fail:
                 self.counts["admit_fail"] += 1
                 raise FaultError(site, "admit_fail")
+            return fn(*args)
+        if site == "transfer":
+            if self._armed() and u < self.p_transfer_stall:
+                self.counts["transfer_stall"] += 1
+                self.clock.advance(self.stall_s)
+                raise FaultError(site, "transfer_stall")
             return fn(*args)
         if self._armed() and u < self.p_fail:
             self.counts["fail"] += 1

@@ -22,6 +22,8 @@ syncs only through the idioms here, over a closed site vocabulary
   with it so the elapsed time measures the work, not the launch.
 
 On CPU tensors the copy is plain and there is nothing to wait for.
+Values come back as numpy arrays, except those of a dtype numpy lacks
+(bfloat16), which come back as CPU tensors holding the same bits.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ FENCE_SITES = frozenset({
                 # engine's delayed consumer (the dispatch-ahead window)
     "verify",   # the speculative super-step's verify readback
     "draft",    # completion of the chained draft dispatches (timing)
+    "transfer",  # KV-row handoff serialization (disagg.pack_payload): one
+                 # batched readback of every payload leaf
 })
 
 
@@ -72,14 +76,20 @@ class Readback:
 
     def wait(self):
         """Wait for this readback's copy alone and return the values as
-        host numpy arrays (a single value bare, several as a tuple)."""
+        host numpy arrays, bf16 ones as CPU tensors (a single value bare,
+        several as a tuple)."""
         if self._event is not None:
             self._event.synchronize()
         host = self._host.numpy()
         out, at = [], 0
         for dtype, shape, n in self._meta:
-            dt = torch.empty((), dtype=dtype).numpy().dtype
-            out.append(np.array(host[at:at + n].view(dt).reshape(shape)))
+            words = host[at:at + n]
+            if dtype == torch.bfloat16:
+                out.append(torch.from_numpy(np.array(
+                    words.view(np.int16))).view(dtype).reshape(shape))
+            else:
+                dt = torch.empty((), dtype=dtype).numpy().dtype
+                out.append(np.array(words.view(dt).reshape(shape)))
             at += n
         return out[0] if len(out) == 1 else tuple(out)
 
@@ -92,8 +102,9 @@ def start_readback(site: str, *values) -> Readback:
 
 
 def fence(site: str, *values):
-    """Read ``values`` back to host numpy arrays in ONE device→host copy,
-    waited on now. A single value comes back bare, several as a tuple."""
+    """Read ``values`` back to the host in ONE device→host copy, waited on
+    now (numpy arrays; bf16 values as CPU tensors). A single value comes
+    back bare, several as a tuple."""
     return start_readback(site, *values).wait()
 
 

@@ -19,7 +19,7 @@ and reset with the slot the same way.
 :meth:`row_state` / :meth:`restore_row` serialize one slot whole — every
 carry leaf (fresh copies), the chunk mirrors, the row's adapter id, the
 draft carry's row — and write it back bitwise: the preemption stash of
-the engine.
+the engine and the payload of a disaggregated handoff (``disagg.py``).
 
 ``adapter_ids`` is the host row of per-slot LoRA bank slots (0 = the null
 adapter) the engine hands the steps as runtime data; it resets to 0 with
@@ -177,14 +177,17 @@ class KVPool:
         """Write a :meth:`row_state` payload into an allocated slot,
         bitwise: every carry leaf copied in place into the pool's tensors
         (``pos`` too, device to device, so nothing is read back), the
-        chunk mirrors and the adapter id from the payload's own values. The payload is only
-        read."""
+        chunk mirrors and the adapter id from the payload's own values.
+        Host leaves (a payload off the wire or the host tier) go up
+        through :func:`upload_leaves`: one staging buffer, one copy, no
+        host wait. The payload is only read."""
         self._check(slot)
-        for key, src in payload["carry"].items():
+        device = self.carry["pos"].device
+        for key, src in upload_leaves(payload["carry"], device).items():
             self.carry[key][slot:slot + 1].copy_(src)
         draft = payload.get("draft")
         if draft is not None and self.draft_carry is not None:
-            for key, src in draft.items():
+            for key, src in upload_leaves(draft, device).items():
                 self.draft_carry[key][slot:slot + 1].copy_(src)
         self.chunk_done[slot] = int(payload["chunk_done"])
         self.chunk_target[slot] = int(payload["chunk_target"])
@@ -270,6 +273,42 @@ class KVPool:
             np.asarray(key, np.int64)))
         self.carry["tok_counts"][slot].copy_(torch.from_numpy(counts))
         self.carry["prompt_mask"][slot].copy_(torch.from_numpy(mask))
+
+
+def upload_leaves(leaves: Dict, device) -> Dict:
+    """``leaves`` (a dict of tensors) on ``device``. Leaves already there
+    pass through. On the card the host leaves are packed into ONE pinned
+    staging buffer and uploaded in ONE non-blocking copy, then split into
+    views on the card, so restoring a host payload never waits for the
+    work already queued (a pageable ``.to()`` would). A leaf on another
+    card, or a device leaf bound for the CPU, raises: a payload is never
+    read back implicitly."""
+    device = torch.device(device)
+    out, host = {}, {}
+    for key, t in leaves.items():
+        if t.device.type == device.type and (
+                device.index is None or t.device.index == device.index):
+            out[key] = t
+        elif t.device.type == "cpu" and device.type == "cuda":
+            host[key] = t
+        else:
+            raise ValueError(
+                f"payload leaf {key!r} lives on {t.device}, not on the "
+                f"host or {device}")
+    if not host:
+        return out
+    flat, at = [], 0
+    for key, t in host.items():
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        flat.append((key, t.dtype, tuple(t.shape), at, b))
+        at += -(-b.numel() // 16) * 16      # 16-byte aligned views
+    stage = torch.empty((max(at, 1),), dtype=torch.uint8, pin_memory=True)
+    for _, _, _, off, b in flat:
+        stage[off:off + b.numel()].copy_(b)
+    dev = stage.to(device, non_blocking=True)
+    for key, dtype, shape, off, b in flat:
+        out[key] = dev[off:off + b.numel()].view(dtype).reshape(shape)
+    return {key: out[key] for key in leaves}
 
 
 def _copy_kv_row(carry: Dict, slot: int, src: Dict, row: int) -> None:

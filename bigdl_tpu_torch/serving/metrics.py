@@ -30,7 +30,19 @@ Counters, under the ``serving/`` prefix:
   ``preempted``, ``shed``, ``infeasible``, ``degraded`` /
   ``degrade_restored``, ``cancelled``, ``retries`` / ``recovered_rows``,
   ``resumed_without_prefill``, and the KV format (``kv_bits``,
-  ``kv_bytes_per_slot``, ``kv_slots_per_gib``).
+  ``kv_bytes_per_slot``, ``kv_slots_per_gib``)
+* the disaggregated plane (``disagg.py``, ``health.py``): ``handoffs`` /
+  ``transfer_bytes`` / ``transfer_s`` per handoff,
+  ``prefill_occupancy`` / ``decode_occupancy`` per front-end step,
+  ``pool_deaths``, ``failovers`` / ``failover_s``, ``migrated_rows`` /
+  ``replayed_rows``, ``transfer_timeouts``, ``autoscale_up`` /
+  ``autoscale_down``; ``summary()`` derives
+  ``transfer_bytes_per_handoff``, ``transfer_p99_s`` and
+  ``failover_p50_s`` / ``failover_p99_s``
+* the host KV tier (``kv_tier.py``): ``spills`` / ``spill_bytes``,
+  ``fetches`` / ``fetch_bytes`` / ``fetch_s``, ``tier_evictions`` and the
+  ``tier_bytes`` gauge; ``summary()`` derives ``spill_bytes_per_row`` and
+  ``fetch_p99_s``.
 
 Count-like counters surface in ``summary()`` as sums, the rest as means.
 """
@@ -71,7 +83,11 @@ class ServingMetrics:
     _SUMS = ("submitted", "finished", "retries", "recovered_rows",
              "preempted", "shed", "deadline_missed", "degraded",
              "degrade_restored", "finished_in_slo", "infeasible", "chunks",
-             "chunk_tokens", "resumed_without_prefill")
+             "chunk_tokens", "resumed_without_prefill", "handoffs",
+             "transfer_bytes", "pool_deaths", "failovers", "migrated_rows",
+             "replayed_rows", "transfer_timeouts", "autoscale_up",
+             "autoscale_down", "spills", "fetches", "spill_bytes",
+             "fetch_bytes", "tier_evictions")
 
     def __init__(self, backing: Optional[Metrics] = None) -> None:
         self.metrics = backing if backing is not None else Metrics()
@@ -203,6 +219,77 @@ class ServingMetrics:
         """A mid-stream row re-seated from its stashed ``row_state``."""
         self.metrics.add("serving/resumed_without_prefill", 1.0)
 
+    # -- the disaggregated plane (disagg.py, health.py) ----------------------
+
+    def on_handoff(self, n_bytes: int, seconds: float) -> None:
+        """One prefill→decode row handoff: the packed payload's size and
+        the pack + send wall on the sending clock."""
+        self.metrics.add("serving/handoffs", 1.0)
+        self.metrics.add("serving/transfer_bytes", float(n_bytes))
+        self.metrics.add("serving/transfer_s", float(seconds))
+
+    def on_pool_occupancy(self, prefill_occ: float, decode_occs) -> None:
+        """Per front-end step: the prefill pool's peak slot occupancy and
+        each active decode pool's (one sample per pool)."""
+        self.metrics.add("serving/prefill_occupancy", float(prefill_occ))
+        for occ in decode_occs:
+            self.metrics.add("serving/decode_occupancy", float(occ))
+
+    def on_pool_death(self) -> None:
+        """A decode pool classified DEAD (silence, send failures, kill)."""
+        self.metrics.add("serving/pool_deaths", 1.0)
+
+    def on_failover(self, n_migrated: int, n_replayed: int,
+                    seconds: float) -> None:
+        """One pool failover: rows moved with a current payload against
+        rows replayed through prefill, and the failover's wall."""
+        self.metrics.add("serving/failovers", 1.0)
+        if n_migrated:
+            self.metrics.add("serving/migrated_rows", float(n_migrated))
+        if n_replayed:
+            self.metrics.add("serving/replayed_rows", float(n_replayed))
+        self.metrics.add("serving/failover_s", float(seconds))
+
+    def on_migrated(self, n_rows: int) -> None:
+        """Rows moved pool to pool loss-free by a graceful drain."""
+        if n_rows:
+            self.metrics.add("serving/migrated_rows", float(n_rows))
+
+    def on_transfer_timeout(self) -> None:
+        """A handoff send past ``send_timeout_s``: delivery unconfirmed,
+        the request resends (the receiver deduplicates)."""
+        self.metrics.add("serving/transfer_timeouts", 1.0)
+
+    def on_autoscale(self, direction: str) -> None:
+        """One autoscaler action, ``"up"`` or ``"down"``."""
+        if direction not in ("up", "down"):
+            raise ValueError(
+                f"autoscale direction must be 'up' or 'down', "
+                f"got {direction!r}")
+        self.metrics.add(f"serving/autoscale_{direction}", 1.0)
+
+    # -- the host KV tier (kv_tier.py) ---------------------------------------
+
+    def on_spill(self, n_bytes: int) -> None:
+        """One row or prefix entry written into the host tier."""
+        self.metrics.add("serving/spills", 1.0)
+        self.metrics.add("serving/spill_bytes", float(n_bytes))
+
+    def on_fetch(self, n_bytes: int, seconds: float) -> None:
+        """One tier entry read back (readmission or prefix promotion):
+        its size and the host unpack wall."""
+        self.metrics.add("serving/fetches", 1.0)
+        self.metrics.add("serving/fetch_bytes", float(n_bytes))
+        self.metrics.add("serving/fetch_s", float(seconds))
+
+    def on_tier_bytes(self, n_bytes: int) -> None:
+        """The tier's resident bytes (a gauge)."""
+        self.metrics.set("serving/tier_bytes", float(n_bytes))
+
+    def on_tier_evict(self) -> None:
+        """A tier entry evicted by the byte budget (LRU)."""
+        self.metrics.add("serving/tier_evictions", 1.0)
+
     def set_kv_format(self, kv_dtype: str, bytes_per_slot: int) -> None:
         bits = {"fp32": 32.0, "bf16": 16.0, "int8": 8.0}.get(kv_dtype, 0.0)
         self.metrics.set("serving/kv_bits", bits)
@@ -300,6 +387,18 @@ class ServingMetrics:
     def decode_gap_percentiles(self, qs=(50, 90, 99)) -> Dict[str, float]:
         return self._pctl("decode_gap_s", qs)
 
+    def transfer_percentiles(self, qs=(50, 90, 99)) -> Dict[str, float]:
+        """Percentiles of the per-handoff pack + send wall (seconds)."""
+        return self._pctl("transfer_s", qs)
+
+    def failover_percentiles(self, qs=(50, 90, 99)) -> Dict[str, float]:
+        """Percentiles of the per-failover wall (seconds)."""
+        return self._pctl("failover_s", qs)
+
+    def fetch_percentiles(self, qs=(50, 90, 99)) -> Dict[str, float]:
+        """Percentiles of the per-fetch host wall (seconds)."""
+        return self._pctl("fetch_s", qs)
+
     def summary(self) -> Dict[str, float]:
         """Means of every counter plus throughput, percentiles and the
         count-like counters as SUMS — one flat dict."""
@@ -334,6 +433,24 @@ class ServingMetrics:
         if n_gap:
             out["serving/decode_gap_p99_s"] = \
                 self.decode_gap_percentiles()["p99"]
+        n_hand, _ = self.metrics.get("serving/handoffs")
+        if n_hand:
+            nb, _ = self.metrics.get("serving/transfer_bytes")
+            out["serving/transfer_bytes_per_handoff"] = nb / n_hand
+            out["serving/transfer_p99_s"] = \
+                self.transfer_percentiles()["p99"]
+        n_sp, _ = self.metrics.get("serving/spills")
+        if n_sp:
+            sb, _ = self.metrics.get("serving/spill_bytes")
+            out["serving/spill_bytes_per_row"] = sb / n_sp
+        _, n_fe = self.metrics.get("serving/fetch_s")
+        if n_fe:
+            out["serving/fetch_p99_s"] = self.fetch_percentiles()["p99"]
+        _, n_fo = self.metrics.get("serving/failover_s")
+        if n_fo:
+            fp = self.failover_percentiles()
+            out["serving/failover_p50_s"] = fp["p50"]
+            out["serving/failover_p99_s"] = fp["p99"]
         for metric, fn in (("ttft", self.ttft_percentiles),
                            ("decode_step", self.decode_step_percentiles),
                            ("host_step", self.host_step_percentiles)):

@@ -32,7 +32,16 @@ Trees are per namespace: the engine passes the request's
 allocation of a bank slot), so K/V computed under one tenant's LoRA
 factors never serves another tenant's prefix, not even the next tenant of
 a freed slot, and :meth:`PrefixCache.drop_namespaces` lets a freed
-tenant's trees go. The host-tier spill of evicted entries is A.2.i.
+tenant's trees go.
+
+With a host tier (``tier=``, a :class:`~bigdl_tpu_torch.serving.kv_tier.
+TieredKVStore`; the engine wires its own in), capacity eviction DEMOTES an
+unleased carry to host memory instead of deleting it, keyed by namespace
+and token path, and ``acquire`` PROMOTES the best stored prefix that
+serves more of the prompt than the tree does back in as an ordinary
+entry, uploaded to ``device`` (set by the engine), before it walks:
+warm-prefix capacity is then bounded by the tier's byte budget, not by
+``max_entries``.
 """
 
 from __future__ import annotations
@@ -68,11 +77,11 @@ class PrefixCache:
         if max_entries <= 0:
             raise ValueError(
                 f"max_entries must be positive, got {max_entries}")
-        if tier is not None:
-            raise NotImplementedError(
-                "tier= is not ported yet: ROADMAP.md A.2.i host KV tier "
-                "(serving/kv_tier.py)")
         self.max_entries = int(max_entries)
+        # the optional host tier, and the device promoted carries are
+        # uploaded to (None: left on the host); the engine sets both
+        self.tier = tier
+        self.device = None
         self.root = _Node((), None, 0)
         self._roots: Dict[int, _Node] = {0: self.root}
         self._carry_nodes: set = set()
@@ -145,8 +154,21 @@ class PrefixCache:
         tokens = tuple(int(t) for t in tokens)
         root = self._roots.get(int(namespace))
         if root is None:
-            return None, 0, None
-        best, matched = self._walk(tokens, root)
+            best, matched = None, 0
+        else:
+            best, matched = self._walk(tokens, root)
+        if self.tier is not None:
+            # a demoted prefix serving MORE of the prompt comes back as an
+            # entry (immune for its insert's pass), then the re-walk
+            # serves it as an ordinary, possibly truncated, hit
+            promo = self.tier.promote_prefix(tokens, matched,
+                                             adapter_id=int(namespace),
+                                             device=self.device)
+            if promo is not None:
+                ptoks, carry = promo
+                self.insert(ptoks, carry, namespace=int(namespace))
+                best, matched = self._walk(tokens,
+                                           self._roots[int(namespace)])
         if best is None:
             return None, 0, None
         best.refs += 1
@@ -215,6 +237,8 @@ class PrefixCache:
                 node = stack.pop()
                 self._carry_nodes.discard(node)
                 stack.extend(node.children.values())
+        if self.tier is not None:
+            self.tier.drop_prefix_namespaces(keep)
 
     def _touch(self, node: _Node) -> None:
         self._clock += 1
@@ -232,7 +256,28 @@ class PrefixCache:
             self._drop(victim)
             self.evictions += 1
 
+    def _path_of(self, node: _Node):
+        """``node``'s full token path from its namespace's root and that
+        namespace ((tokens, None) for a detached node): the key a
+        demotion is stored under."""
+        parts = []
+        n = node
+        while n.parent is not None:
+            parts.append(n.edge)
+            n = n.parent
+        tokens = tuple(t for e in reversed(parts) for t in e)
+        for ns, root in self._roots.items():
+            if root is n:
+                return tokens, ns
+        return tokens, None
+
     def _drop(self, node: _Node) -> None:
+        # only capacity eviction reaches here, and only for refs == 0
+        # entries, so a demoted carry never has a live lease
+        if self.tier is not None and node.carry is not None:
+            tokens, ns = self._path_of(node)
+            if tokens and ns is not None:
+                self.tier.demote_prefix(tokens, node.carry, adapter_id=ns)
         node.carry = None
         self._carry_nodes.discard(node)
         # prune carry-less leaves up the path

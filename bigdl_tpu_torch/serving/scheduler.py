@@ -24,9 +24,11 @@ Policies:
 ``requeue()`` is the loss-free re-entry point shared by preemption and
 fault recovery: the request keeps its original key, hence its place
 among same-priority peers, its emitted ``output`` and its counters; only
-its slot is given up. The JAX scheduler's host-tier victim order, the
+its slot is given up. With a host KV tier attached (``kv_tier.py``),
+victim selection within a priority class goes cold-first: the row whose
+last decode is oldest (``note_decoded`` stamps each healthy step). The
 autopilot's least-laxity key (its ``service_estimate``) and the
-``finish_time`` they read belong to ROADMAP.md A.2.i.
+``finish_time`` it reads belong to ROADMAP.md A.2.i.
 """
 
 from __future__ import annotations
@@ -123,7 +125,8 @@ class Scheduler:
     request (requeue reuses them), so a preempted request re-enters at
     its original position."""
 
-    def __init__(self, policy: str = "prefill_priority") -> None:
+    def __init__(self, policy: str = "prefill_priority",
+                 tier=None) -> None:
         if policy not in _POLICIES:
             raise ValueError(
                 f"unknown admission policy {policy!r} (one of {_POLICIES})")
@@ -132,6 +135,12 @@ class Scheduler:
         self.running: Dict[int, Request] = {}     # slot -> request
         self.partial: Dict[int, Request] = {}     # slot -> mid-prefill
         self._seq = 0
+        # the host tier turns victim selection cold-first; recency is the
+        # step number of each slot's last decode (admission stamps the
+        # current step: a row seated this step is never its cold victim)
+        self.tier = tier
+        self._step_no = 0
+        self._last_decoded: Dict[int, int] = {}
 
     def _key(self, req: Request):
         if self.policy != "priority":
@@ -176,6 +185,7 @@ class Scheduler:
         ``partial=True`` binds it mid-prefill (chunked admission)."""
         _, req = heapq.heappop(self._waiting)
         req.slot = slot
+        self._last_decoded[slot] = self._step_no
         if partial:
             req.state = PARTIAL
             self.partial[slot] = req
@@ -190,7 +200,15 @@ class Scheduler:
         req = self.partial.pop(slot)
         req.state = RUNNING
         self.running[slot] = req
+        self._last_decoded[slot] = self._step_no
         return req
+
+    def note_decoded(self, slots) -> None:
+        """Stamp one healthy decode/verify step for ``slots``: the
+        recency behind cold-first victim selection."""
+        self._step_no += 1
+        for slot in slots:
+            self._last_decoded[slot] = self._step_no
 
     # -- the priority surface of the engine's preemption loop ----------------
 
@@ -204,10 +222,16 @@ class Scheduler:
 
     def lowest_running(self) -> Optional[Request]:
         """The preemption victim candidate: the lowest-priority running
-        row, the most recent arrival within a class (least time in a
+        row; within a class the coldest (oldest last decode) with a host
+        tier attached, else the most recent arrival (least time in a
         slot). PARTIAL rows are never candidates."""
         if not self.running:
             return None
+        if self.tier is not None:
+            return min(self.running.values(),
+                       key=lambda r: (r.priority,
+                                      self._last_decoded.get(r.slot, -1),
+                                      -r.seq))
         return min(self.running.values(), key=lambda r: (r.priority, -r.seq))
 
     def peek_waiting(self, n: int) -> List[Request]:

@@ -2332,6 +2332,385 @@ def serve_lora_phase():
             f_base["kv_requant_launches"] + f_mixed["kv_requant_launches"])
 
 
+def window_counts(fn, label: str, n: int):
+    """Run ``fn()`` once under ``torch.profiler`` and count, per unit of
+    ``n`` (handoffs, restores or decode steps): device launches
+    (kernels, copies, fills), device→host and host→device copies as the
+    card's records show them, the host's copy calls
+    (``cudaMemcpyAsync``), and host waits on the card (the window's
+    ``SYNC_CALLS`` less those of an empty window, as ``decode_step_trace``
+    counts them). The card's records of a window of large copies can come
+    back short (observed: 12 of 16 handoff copies); the host's calls are
+    what the host did."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as empty:
+        torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=activities) as prof:
+        with record_function(label):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    cuda = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name != label]
+    own = sum(1 for e in empty.events() if e.name in SYNC_CALLS)
+    syncs = sum(1 for e in events if e.name in SYNC_CALLS) - own
+    host_copies = sum(1 for e in events if e.name == "cudaMemcpyAsync")
+    return {"device_launches": len(cuda) / n,
+            "device_to_host_copies": sum("DtoH" in e.name for e in cuda) / n,
+            "host_to_device_copies": sum("HtoD" in e.name for e in cuda) / n,
+            "host_copy_calls": host_copies / n, "host_waits": syncs / n}
+
+
+def tiered_trace(vocab: int, n_requests: int = 24, gen_tokens: int = 32,
+                 seed: int = 31):
+    """``serving_bench.make_tiered_trace`` (``:1527-1547``): prompts of 5,
+    9 and 17 tokens in turn, every odd request seeded-sampled;
+    ``(prompt, new tokens, sampling)``."""
+    from bigdl_tpu_torch.serving import SamplingParams
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n_requests):
+        prompt = rng.randint(1, vocab + 1, size=([5, 9, 17][i % 3],))
+        sp = (SamplingParams(temperature=0.8, top_k=20, seed=400 + i)
+              if i % 2 else None)
+        out.append((prompt.tolist(), gen_tokens, sp))
+    return out
+
+
+def streams_of(eng, rids):
+    """Each request's (token bytes, log-prob bytes)."""
+    return [(np.asarray(eng.result(r), np.int32).tobytes(),
+             np.asarray(eng.logprobs(r), np.float32).tobytes())
+            for r in rids]
+
+
+def check_served(name, eng, rids, lengths, vocab):
+    """Every request at its length, ids in 1..V, finite log-probs <= 0."""
+    for rid, n in zip(rids, lengths):
+        out, lps = eng.result(rid), eng.logprobs(rid)
+        if not (out is not None and len(out) == n and out.min() >= 1
+                and out.max() <= vocab and np.isfinite(lps).all()
+                and (lps <= 0).all()):
+            raise AssertionError(f"{name}: request {rid}: bad output {out}")
+
+
+def serve_disagg_phase():
+    """The disaggregated plane, the host KV tier and pool health on the
+    137m model (bf16, int8 KV, seed 0) with the serve phase's 24 requests:
+    (1) handoff — ``DisaggregatedEngine(prefill_slots=16, decode_slots=16,
+    decode_pools=2)`` against ``ServingEngine(n_slots=16)``: every stream
+    bitwise the oracle's, 24 handoffs, the tier empty after the drain, both
+    kernels once per layer per decode step summed over the pools;
+    (2) failover — the plane at ``decode_slots=8``, ``kill_pool(0)`` after
+    3 steps: every request at its length, one pool death, the migrated
+    rows bitwise an undisturbed pass of the same plane, the replayed rows'
+    identity counted, the survivor's launches = its decode steps x 12;
+    (3) tier — ``serving_bench``'s two-wave trace (seed 31: 16 priority-0
+    rows, 3 steps, 8 priority-5 rows) through a priority engine with a
+    ``TieredKVStore`` against its ``tier=None`` twin: bitwise, >= 8 spills,
+    fetches and resumes without prefill, no bytes left; then a tier whose
+    budget holds one row: evictions, every row but the evicted (replayed)
+    ones bitwise, the replayed rows' identity counted; (4) codec — a bf16 and an int8 row of
+    a card pool packed, unpacked and restored into another slot bitwise.
+    Then launches, copies and waits per decode step of a full decode pool,
+    per handoff and per restore. Returns both kernels' launches."""
+    import torch
+
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.serving import (
+        DisaggregatedEngine, ServingEngine, TieredKVStore, pack_payload,
+        payload_header, unpack_payload,
+    )
+    from bigdl_tpu_torch.serving.disagg import request_meta
+
+    lm, _ = lm_137m()
+    torch.cuda.reset_peak_memory_stats()     # the phase's own peak
+    V, layers = lm[0].n_index, lm_layers(lm)
+    bf16 = torch.bfloat16
+    traffic = serve_traffic(np.random.default_rng(0), V)
+    totals = [0, 0]
+
+    def plane(**kw):
+        kw.setdefault("prefill_slots", 16)
+        return DisaggregatedEngine(lm, compute_dtype=bf16, kv_dtype="int8",
+                                   **kw)
+
+    def counted(name, fn, steps_of):
+        """Run ``fn`` with the launch counts at 0; both kernels must have
+        launched once per layer per decode step (``steps_of()``)."""
+        torch.cuda.synchronize()
+        da.launches = kr.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = steps_of()
+        for k, n in (("decode_attention", da.launches),
+                     ("kv_requant", kr.launches)):
+            if n != steps * layers:
+                raise AssertionError(f"disagg {name}: {k} launched {n} "
+                                     f"times, expected {steps} x {layers}")
+        totals[0] += da.launches
+        totals[1] += kr.launches
+        return out, wall, steps
+
+    # (1) handoff against the monolithic oracle
+    oracle = ServingEngine(lm, n_slots=16, compute_dtype=bf16,
+                           kv_dtype="int8")
+    o_rids = [oracle.submit(p, max_new_tokens=32, sampling=sp)
+              for p, sp in traffic]
+    _, o_wall, o_steps = counted("oracle", oracle.drain,
+                                 lambda: oracle.metrics.decode_step_count)
+    d = plane(decode_slots=16, decode_pools=2)
+    d_rids = [d.submit(p, max_new_tokens=32, sampling=sp)
+              for p, sp in traffic]
+    _, d_wall, d_steps = counted(
+        "handoff", d.drain,
+        lambda: sum(w.engine.metrics.decode_step_count for w in d.decoders))
+    check_served("disagg handoff", d, d_rids, [32] * 24, V)
+    want, got = streams_of(oracle, o_rids), streams_of(d, d_rids)
+    differ = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    s, so = d.summary(), oracle.summary()
+    tp = d.metrics.transfer_percentiles((50, 99))
+    handoff = dict(
+        run="handoff", model="137m", requests=24,
+        oracle_tokens_per_s=24 * 32 / o_wall, plane_tokens_per_s=24 * 32 / d_wall,
+        oracle_metric_tokens_per_s=so["serving/tokens_per_sec"],
+        oracle_decode_gap_p99_s=so["serving/decode_gap_p99_s"],
+        plane_decode_gap_p99_s=s["serving/decode_gap_p99_s"],
+        oracle_decode_steps=o_steps, plane_decode_steps=d_steps,
+        pool_decode_steps=[w.engine.metrics.decode_step_count
+                           for w in d.decoders],
+        handoffs=s["serving/handoffs"],
+        transfer_bytes_per_handoff=s["serving/transfer_bytes_per_handoff"],
+        transfer_p50_ms=1e3 * tp["p50"], transfer_p99_ms=1e3 * tp["p99"],
+        prefill_occupancy=s["serving/prefill_occupancy"],
+        decode_occupancy=s["serving/decode_occupancy"],
+        tier_entries=d.tier.entries, tier_bytes=d.tier.resident_bytes,
+        streams_bitwise_equal=24 - len(differ), differing_rows=differ)
+    emit("serve_disagg", **handoff)
+    if differ or s["serving/handoffs"] != 24 or d.tier.entries \
+            or d.tier.resident_bytes:
+        raise AssertionError(f"disagg handoff: a check failed: {handoff}")
+    del d, oracle
+
+    # (2) failover: decode pools of 8 slots, pool 0 killed after 3 steps
+    def failover_pass(kill: bool):
+        f = plane(decode_slots=8, decode_pools=2)
+        rids = [f.submit(p, max_new_tokens=32, sampling=sp)
+                for p, sp in traffic]
+        info = {}
+        with torch.no_grad():
+            for _ in range(3):
+                f.step()
+            if kill:
+                w0 = f.decoders[0]
+                wire = {payload_header(b)["request"]["req_id"]
+                        for b in w0.transfer._q}
+                sched = w0.engine.scheduler
+                owned = [e[1] for e in sched._waiting] \
+                    + list(sched.running.values()) \
+                    + list(sched.partial.values())
+                current = set()
+                for req in owned:
+                    h = f.tier.header(req.req_id)
+                    if h is not None and h["carry_keys"] is not None and \
+                            h["request"]["output"] == list(req.output):
+                        current.add(req.req_id)
+                info["migrated"] = sorted(wire | current)
+                info["replayed"] = sorted({r.req_id for r in owned}
+                                          - current)
+                f.kill_pool(0)
+                survivor = f.decoders[1].engine.metrics
+                before = survivor.decode_step_count
+                _, wall, steps = counted(
+                    "failover survivor", f.drain,
+                    lambda: survivor.decode_step_count - before)
+                info.update(wall_s=wall, survivor_decode_steps=steps)
+            else:
+                f.drain()
+        check_served(f"disagg failover kill={kill}", f, rids, [32] * 24, V)
+        return f, rids, info
+
+    ref, ref_rids, _ = failover_pass(False)
+    f, f_rids, info = failover_pass(True)
+    want, got = streams_of(ref, ref_rids), streams_of(f, f_rids)
+    mig_bad = [r for r in info["migrated"] if want[r] != got[r]]
+    rep_same = sum(want[r] == got[r] for r in info["replayed"])
+    rep_tokens = sum(want[r][0] == got[r][0] for r in info["replayed"])
+    s = f.summary()
+    fp = f.metrics.failover_percentiles((50, 99))
+    failover = dict(
+        run="failover", decode_slots=8, pool_deaths=s["serving/pool_deaths"],
+        migrated_rows=s.get("serving/migrated_rows", 0.0),
+        replayed_rows=s.get("serving/replayed_rows", 0.0),
+        migrated=info["migrated"], replayed=info["replayed"],
+        migrated_bitwise_equal=len(info["migrated"]) - len(mig_bad),
+        replayed_bitwise_equal=rep_same, replayed_tokens_equal=rep_tokens,
+        failover_p50_ms=1e3 * fp["p50"], failover_p99_ms=1e3 * fp["p99"],
+        survivor_decode_steps=info["survivor_decode_steps"],
+        tier_entries=f.tier.entries)
+    emit("serve_disagg", **failover)
+    if s["serving/pool_deaths"] != 1.0 or mig_bad or not info["migrated"] \
+            or f.tier.entries:
+        raise AssertionError(f"disagg failover: a check failed: {failover}")
+    del ref, f
+
+    # (3) the host tier under two-wave priority traffic
+    trace = tiered_trace(V)
+
+    def tier_pass(tier):
+        eng = ServingEngine(lm, n_slots=16, compute_dtype=bf16,
+                            kv_dtype="int8", policy="priority",
+                            preemption=True, seed=5, tier=tier)
+
+        def run():
+            rids = [eng.submit(p, max_new_tokens=n, sampling=sp, priority=0)
+                    for p, n, sp in trace[:16]]
+            for _ in range(3):
+                eng.step()
+            rids += [eng.submit(p, max_new_tokens=n, sampling=sp,
+                                priority=5) for p, n, sp in trace[16:]]
+            eng.drain()
+            return rids
+
+        rids, wall, steps = counted(
+            "tier", run, lambda: eng.metrics.decode_step_count)
+        check_served("disagg tier", eng, rids, [n for _, n, _ in trace], V)
+        return eng, rids, wall
+
+    twin, t_rids, twin_wall = tier_pass(None)
+    eng, e_rids, eng_wall = tier_pass(TieredKVStore())
+    want, got = streams_of(twin, t_rids), streams_of(eng, e_rids)
+    s = eng.summary()
+    fetch = eng.metrics.fetch_percentiles((50, 99))
+    tier = dict(
+        run="tier", requests=len(trace), twin_tokens_per_s=
+        sum(n for _, n, _ in trace) / twin_wall,
+        tiered_tokens_per_s=sum(n for _, n, _ in trace) / eng_wall,
+        preempted=s["serving/preempted"], spills=s["serving/spills"],
+        fetches=s["serving/fetches"],
+        resumed_without_prefill=s["serving/resumed_without_prefill"],
+        spill_bytes_per_row=s["serving/spill_bytes_per_row"],
+        fetch_p50_ms=1e3 * fetch["p50"], fetch_p99_ms=1e3 * fetch["p99"],
+        tier_bytes_after=s["serving/tier_bytes"],
+        streams_bitwise_equal=sum(a == b for a, b in zip(want, got)))
+    emit("serve_disagg", **tier)
+    if want != got or min(s["serving/spills"], s["serving/fetches"],
+                          s["serving/resumed_without_prefill"]) < 8 \
+            or s["serving/tier_bytes"] != 0.0:
+        raise AssertionError(f"disagg tier: a check failed: {tier}")
+    row_bytes = int(s["serving/spill_bytes_per_row"])
+    del eng
+    # a starved tier: a budget of one row's bytes evicts all but the
+    # newest spill, and the evicted rows replay through prefill
+    starved = TieredKVStore(host_budget_bytes=row_bytes)
+    fetch_row, from_tier = starved.fetch_row, set()
+
+    def fetch_noting(req):
+        payload = fetch_row(req)
+        if payload is not None:
+            from_tier.add(req.req_id)
+        return payload
+
+    starved.fetch_row = fetch_noting
+    eng, e_rids, _ = tier_pass(starved)
+    got = streams_of(eng, e_rids)
+    s = eng.summary()
+    replayed = [i for i, r in enumerate(e_rids)
+                if eng.request(r).preemptions and r not in from_tier]
+    differ = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    starve = dict(run="tier_starved", host_budget_bytes=row_bytes,
+                  tier_evictions=s.get("serving/tier_evictions", 0.0),
+                  resumed_from_tier=len(from_tier), replayed=replayed,
+                  replayed_bitwise_equal=sum(i not in differ
+                                             for i in replayed),
+                  replayed_tokens_equal=sum(want[i][0] == got[i][0]
+                                            for i in replayed),
+                  streams_bitwise_equal=len(trace) - len(differ),
+                  differing_rows=differ)
+    emit("serve_disagg", **starve)
+    if not s.get("serving/tier_evictions") or not replayed \
+            or any(i not in replayed for i in differ):
+        raise AssertionError(f"disagg starved tier: {starve}")
+    del eng, twin
+
+    # (4) the codec on the card: bf16 and int8 rows through the wire
+    codec = {}
+    for kv in ("bf16", "int8"):
+        e = ServingEngine(lm, n_slots=2, compute_dtype=bf16, kv_dtype=kv)
+        with torch.no_grad():
+            e.submit(traffic[0][0], max_new_tokens=8)
+            for _ in range(3):
+                e.step()
+            slot, req = next(iter(e.scheduler.running.items()))
+            payload = e.pool.row_state(slot)
+            _, back = unpack_payload(pack_payload(request_meta(req), payload))
+            other = e.pool.alloc()
+            e.pool.restore_row(other, back)
+            again = e.pool.row_state(other)
+        codec[kv] = all(torch.equal(again["carry"][k], v)
+                        for k, v in payload["carry"].items())
+        e.pool.free(other)
+        with torch.no_grad():
+            e.drain()
+    emit("serve_disagg", run="codec", rows_bitwise=codec)
+    if not all(codec.values()):
+        raise AssertionError(f"disagg codec: a row did not round-trip {codec}")
+
+    # launches, copies and waits: per decode step of a full decode pool,
+    # per handoff, per restore
+    rng = np.random.default_rng(1)
+    p = plane(decode_slots=16, decode_pools=1)
+    for _ in range(16):
+        prompt = rng.integers(1, V + 1, size=int(rng.integers(16, 257)))
+        p.submit(prompt.tolist(), max_new_tokens=16)
+    with torch.no_grad():
+        out = p.prefill.pump()
+    per_handoff = window_counts(
+        lambda: [p._handoff(r, pl) for r, pl in out], "handoffs", len(out))
+    w = p.decoders[0]
+
+    def restore():
+        w.poll()
+        w.engine._admit()
+
+    per_restore = window_counts(restore, "restores", len(out))
+    with torch.no_grad():
+        w.step()                      # the first decode of the 16 rows
+
+    def steps8():
+        for _ in range(8):
+            w.step()
+
+    per_step = window_counts(steps8, "decode_steps", 8)
+    with torch.no_grad():
+        p.drain()
+    emit("serve_disagg", run="per_unit", handoffs=len(out),
+         per_handoff=per_handoff, per_restore=per_restore,
+         per_decode_step=per_step,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    # a handoff's one copy call is its readback (the leaves' cat is a
+    # kernel)
+    if (per_handoff["host_copy_calls"] != 1
+            or per_handoff["host_waits"] != 1
+            or per_restore["host_waits"] != 0
+            or per_step["device_to_host_copies"] != 1
+            or per_step["host_waits"] != 1):
+        raise AssertionError(
+            f"disagg: copies or waits off their budget: handoff "
+            f"{per_handoff}, restore {per_restore}, step {per_step}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2374,7 +2753,8 @@ def main() -> int:
         raise AssertionError("decode_attention or kv_requant never launched "
                              "on the main path")
     for phase in (lambda: serve_modes_phase(batched_gap_p99_s),
-                  serve_async_phase, serve_spec_phase, serve_lora_phase):
+                  serve_async_phase, serve_spec_phase, serve_lora_phase,
+                  serve_disagg_phase):
         n_da, n_kr = phase()
         entry["launches"] += n_da
         requant["launches"] += n_kr

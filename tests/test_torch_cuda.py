@@ -1004,3 +1004,92 @@ def test_serving_lora_on_the_card_matches_the_cpu(card):
             j = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
             assert _adapted_top2_gap(lm_cpu, bank, p, want[:j], i % 3) \
                 < 1e-3, (i, got, want)
+
+
+# -- the disaggregated plane on the card -----------------------------------
+
+def _top2_gap(lm, prompt, prefix):
+    """Top-1 minus top-2 log-prob of ``lm`` after ``prompt + prefix``
+    (1-based), through the batch prefill."""
+    from bigdl_tpu_torch.models import transformer as tm
+
+    dev = lm[0].weight.device
+    prefill = tm.make_batch_prefill_step(lm)
+    _, init = tm.make_batch_decode_step(lm)
+    seq = [t - 1 for t in prompt + prefix]
+    with torch.no_grad():
+        lp, _ = prefill(tm.serving_params(lm), torch.tensor([seq], device=dev),
+                        [len(seq)], init(1))
+    top2 = lp[0].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+@pytest.mark.cuda
+def test_serving_disagg_plane_on_the_card_matches_the_cpu(card):
+    """f32 with TF32 off: a two-pool plane on the card, with decode pool 0
+    killed mid-stream, emits the same plane's CPU tokens row for row; a
+    row may leave the CPU stream only where the CPU model's top-2 gap is
+    below 1e-3. Both kernels run on every decode pool of the card."""
+    import copy
+
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.serving import DisaggregatedEngine
+
+    lm = _serving_lm()
+    lm_cpu = copy.deepcopy(lm).to("cpu")
+    reqs = _serving_reqs(n=7, seed=8)
+    outs, summaries = [], []
+    for model, dev in ((lm, "cuda"), (lm_cpu, "cpu")):
+        d = DisaggregatedEngine(model, prefill_slots=3, decode_slots=3,
+                                decode_pools=2, kv_dtype="int8", device=dev)
+        da.launches = kr.launches = 0
+        with torch.no_grad():
+            rids = [d.submit(p, max_new_tokens=n) for p, n in reqs]
+            d.step()
+            d.step()
+            d.kill_pool(0)
+            d.drain()
+        if dev == "cuda":
+            steps = sum(w.engine.metrics.decode_step_count
+                        for w in d.decoders)
+            assert da.launches == kr.launches == steps * 2 > 0
+        outs.append([d.result(r).tolist() for r in rids])
+        summaries.append(d.summary())
+    for s in summaries:
+        assert s["serving/pool_deaths"] == 1.0
+        assert s["serving/finish_length"] == len(reqs)
+    for (p, _), got, want in zip(reqs, *outs):
+        if got != want:
+            j = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            assert _top2_gap(lm_cpu, p, want[:j]) < 1e-3, (p, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_serving_row_packs_on_the_card_and_restores_bitwise(card, kv):
+    """A row of a card pool through the wire: packed (one fenced copy),
+    unpacked to host tensors, restored into another slot (one upload):
+    every leaf bitwise, bf16 K/V included."""
+    from bigdl_tpu_torch.serving import (
+        ServingEngine, pack_payload, unpack_payload,
+    )
+    from bigdl_tpu_torch.serving.disagg import request_meta
+
+    eng = ServingEngine(_serving_lm(), n_slots=3, kv_dtype=kv,
+                        compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        eng.submit(list(range(3, 20)), max_new_tokens=12)
+        for _ in range(3):
+            eng.step()
+        slot, req = next(iter(eng.scheduler.running.items()))
+        payload = eng.pool.row_state(slot)
+        _, back = unpack_payload(pack_payload(request_meta(req), payload))
+        assert all(v.device.type == "cpu" for v in back["carry"].values())
+        other = eng.pool.alloc()
+        eng.pool.restore_row(other, back)
+        again = eng.pool.row_state(other)
+    want = torch.bfloat16 if kv == "bf16" else torch.int8
+    assert payload["carry"]["k0"].dtype == want
+    for k, v in payload["carry"].items():
+        assert again["carry"][k].is_cuda and torch.equal(again["carry"][k], v), k

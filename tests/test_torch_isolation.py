@@ -1,7 +1,8 @@
 """The port stands alone: ``bigdl_tpu_torch`` (and ``chip_smoke.py`` and
 the ``tools/torch_*.py`` scripts, which drive it on the card) import
 neither ``jax`` nor anything of the JAX package ``bigdl_tpu`` — jax-free
-modules included.
+modules included — nor ``ml_dtypes`` (the card's machine has no jax, so
+bf16 crosses the wire by the port's own codec).
 
 Two checks: a fresh interpreter imports every module of the package and
 finds no ``jax*`` module and no module whose first dotted part is
@@ -21,7 +22,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "bigdl_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "bigdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "bigdl_tpu", "ml_dtypes")
 
 
 def _modules():
@@ -70,7 +71,12 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.ops.kv_requant",
               "bigdl_tpu_torch.serving.speculative",
               "bigdl_tpu_torch.serving.lora",
-              "bigdl_tpu_torch.serving.constrain"):
+              "bigdl_tpu_torch.serving.constrain",
+              "bigdl_tpu_torch.parallel.block_store",
+              "bigdl_tpu_torch.serving.kv_tier",
+              "bigdl_tpu_torch.serving.disagg",
+              "bigdl_tpu_torch.serving.health",
+              "bigdl_tpu_torch.serving.autopilot"):
         assert m in mods
     for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu",
                 "conv3x3.cu", "kv_requant.cu"):

@@ -199,7 +199,7 @@ def test_entry_points_need_a_card_or_cpu_by_name(pair):
 
 @pytest.mark.parametrize("where,knob", [
     ("engine", {"mesh": object()}), ("engine", {"parallelism": {"data": 2}}),
-    ("engine", {"tier": True}), ("engine", {"autopilot": object()})])
+    ("engine", {"autopilot": object()})])
 def test_knobs_outside_the_slice_raise(pair, where, knob):
     from bigdl_tpu_torch.serving import ServingEngine
 

@@ -256,8 +256,8 @@ def test_prefix_cache_refcount_and_lru_eviction():
     assert got == _lru_sequence(JaxCache, True)
     with pytest.raises(ValueError, match="max_entries"):
         PrefixCache(0)
-    with pytest.raises(NotImplementedError, match="A.2.i"):
-        PrefixCache(tier=object())
+    tier = object()
+    assert PrefixCache(tier=tier).tier is tier
 
 
 # -- the prefix-cache engine --------------------------------------------------

@@ -9,8 +9,8 @@ layers, max_len 48):
 * preemption: every stream equals the unpreempted run's, the stash
   restores bitwise (``row_state`` → ``restore_row``), and a prefix cache
   shares the victim's state;
-* ``FaultInjector``: counts by kind equal JAX's for the same seed and
-  call sequence, and through the engine the same faults fire on the same
+* ``FaultInjector``: counts by kind (the "transfer" site's stalls
+  included) equal JAX's for the same seed and call sequence, and through the engine the same faults fire on the same
   dispatches as in the JAX engine; fail, garbage, stall and admission
   faults recover to the fault-free streams; a persistent fault errors
   out and never wedges;
@@ -198,7 +198,7 @@ def test_fault_injector_counts_match_jax():
         FaultError, FaultInjector, SteppingClock, VirtualClock,
     )
 
-    sites = ["prefill", "decode", "decode", "prefill"] * 60
+    sites = ["prefill", "decode", "transfer", "decode", "prefill"] * 60
 
     def drive(inj, out):
         seen = []
@@ -211,7 +211,8 @@ def test_fault_injector_counts_match_jax():
         return seen, inj.counts
 
     kw = dict(seed=4, p_fail=0.2, p_garbage=0.1, p_stall=0.1,
-              p_admit_fail=0.3, stall_s=2.0, max_faults=50)
+              p_admit_fail=0.3, p_transfer_stall=0.25, stall_s=2.0,
+              max_faults=50)
     out = (torch.zeros(3), torch.zeros(3, dtype=torch.int64), {"pos": 1})
     clk = VirtualClock()
     got, counts = drive(FaultInjector(clock=clk, **kw), out)
@@ -220,8 +221,8 @@ def test_fault_injector_counts_match_jax():
                           (np.zeros(3, np.float32), np.zeros(3, np.int64),
                            {"pos": 1}))
     assert got == want
-    assert counts == {k: v for k, v in jcounts.items() if k in counts}
-    assert jcounts["transfer_stall"] == 0 and clk.t == jclk.t > 0
+    assert counts == jcounts
+    assert counts["transfer_stall"] > 0 and clk.t == jclk.t > 0
     assert sum(counts.values()) == 50
     bad = FaultInjector(seed=0, p_garbage=1.0).call(
         "decode", lambda: out)
@@ -233,8 +234,10 @@ def test_fault_injector_counts_match_jax():
     assert [step(), step()] == [0.5, 1.0] and step.t == 1.0
     with pytest.raises(ValueError, match="rewind"):
         step.advance(-1.0)
+    with pytest.raises(ValueError, match="VirtualClock"):
+        FaultInjector(p_transfer_stall=0.1)
     with pytest.raises(ValueError, match="site"):
-        FaultInjector().call("transfer", lambda: out)
+        FaultInjector().call("bogus", lambda: out)
     assert issubclass(FaultError, RuntimeError)
 
 
@@ -270,9 +273,11 @@ def test_faults_fire_as_in_the_jax_engine_and_recover(pair, admission):
         if top2_gaps(jlm, p, w).min() > GAP:
             assert g == w, p
     counts = eng._faults.counts
-    assert counts == {k: v for k, v in jeng._faults.counts.items()
-                      if k in counts}
-    assert all(counts[k] > 0 for k in counts), counts
+    assert counts == jeng._faults.counts
+    # a monolithic engine sends no handoff: no transfer stall can fire
+    assert counts["transfer_stall"] == 0
+    assert all(counts[k] > 0 for k in counts if k != "transfer_stall"), \
+        counts
     assert (eng.summary()["serving/retries"]
             == jeng.metrics.summary()["serving/retries"] > 0)
     assert eng.pool.free_slots == eng.pool.n_slots

@@ -31,6 +31,15 @@ runs:
   a per-row chunk of candidate tokens scored in one call, each row
   advanced by the draws the target confirms.
 
+The LM's own decoder sits beside them: :func:`make_decode_step` (one
+token for every row at one shared position, attention through
+:func:`bigdl_tpu_torch.ops.decode_attention.decode_attention` over a
+float cache), its cached twins :func:`get_decode_step` /
+:func:`get_prefill_step`, and the two entry points built on them,
+:func:`generate` (greedy or per-row-sampled continuation of one prompt)
+and :func:`beam_generate` (beam search through
+:mod:`bigdl_tpu_torch.nn.beam_search`).
+
 Built with ``adapter=`` (an ``AdapterSpec``), each of the three steps takes
 a trailing ``(adapter_ids, bank)`` pair and adds every row's pooled-LoRA
 delta to the six projections of every block (:func:`_adapter_proj_fns`);
@@ -944,3 +953,233 @@ def make_batch_verify_step(model: Sequential, compute_dtype=None,
         return s_tok, s_lp, n_emit.to(torch.int32), carry
 
     return verify, init_carry
+
+
+# -- the LM's own KV-cached decoder ----------------------------------------
+
+
+def make_decode_step(model: Sequential, compute_dtype=None):
+    """KV-cached incremental decoding of a :func:`TransformerLM`
+    (``:1159``). Returns ``(step_fn, init_carry)``:
+
+    * ``init_carry(batch)`` — per-layer K/V caches ``(batch, max_len,
+      heads, head_dim)`` in the cache dtype (``compute_dtype``, default
+      f32) plus ``pos`` (batch,) int32, on the model's device: the
+      pooled carry's float layout (:func:`_serving_init_carry`) without
+      sampling state;
+    * ``step_fn(params, tokens, carry) -> (logprobs, carry)`` — ``tokens``
+      (N,) 0-based ids (logit column c is 1-based word id c + 1); every
+      row writes its K/V at the SHARED position ``pos`` (uniform across
+      rows, as beam search needs), attends over ``0..pos`` and advances
+      ``pos``. ``params`` is a :func:`serving_params` tree, or None for
+      the model's own weights cast to ``compute_dtype``. The carry is
+      updated IN PLACE and returned; the step reads nothing back to the
+      host.
+
+    Attention goes through :func:`bigdl_tpu_torch.ops.decode_attention.
+    decode_attention`: the CUDA kernel on a card tensor, its plain version
+    on a CPU tensor. The query is scaled and cast to the cache dtype
+    before the op, as the JAX step does; projections run in the serving
+    dtype, scores, softmax and the final log-softmax in f32."""
+    from bigdl_tpu_torch.ops.decode_attention import decode_attention
+
+    g = _model_geometry(model)
+    max_len, vocab, off, lnf = g["max_len"], g["vocab"], g["off"], g["lnf"]
+    heads, hd = g["heads"], g["hd"]
+    scale = hd ** -0.5
+    cache_dtype = compute_dtype or torch.float32
+    init_carry = _serving_init_carry(g["n_layers"], max_len, heads, hd,
+                                     cache_dtype, False, False, vocab,
+                                     g["device"])
+    own: list = []                 # the model's serving params, built once
+
+    def step(params, tokens, carry):
+        if params is None:
+            if not own:
+                own.append(serving_params(model, compute_dtype))
+            params = own[0]
+        lookup_w, pos_w, blocks, lnf_p, lin_p = \
+            _resolve_decode_views(model, off, params)
+        n = tokens.shape[0]
+        pos = carry["pos"]
+        t = pos[:1].long().clamp(0, max_len - 1)       # uniform across rows
+        x = lookup_w[tokens.long().clamp(0, lookup_w.shape[0] - 1)]
+        x = x + pos_w.index_select(0, t)
+        for i, (blk, bp) in enumerate(blocks):
+            lp = bp[blk._child_key(0)]
+            h = layer_norm(x, lp["weight"], lp["bias"], blk.ln1.eps)
+            ap = bp[blk._child_key(1)]
+            q = _serving_proj(ap["wq"], h).reshape(n, heads, hd)
+            k_new = _serving_proj(ap["wk"], h).reshape(n, heads, hd)
+            v_new = _serving_proj(ap["wv"], h).reshape(n, heads, hd)
+            kc, vc = carry[f"k{i}"], carry[f"v{i}"]
+            kc.index_copy_(1, t, k_new[:, None].to(cache_dtype))
+            vc.index_copy_(1, t, v_new[:, None].to(cache_dtype))
+            ctx = decode_attention((q * scale).to(cache_dtype), kc, vc, pos,
+                                   scale=1.0, out_dtype=x.dtype)
+            x = x + _serving_proj(ap["wo"], ctx.reshape(n, heads * hd))
+            x = _block_mlp(blk, bp, x, _plain_proj, i)
+        xf = layer_norm(x, lnf_p["weight"], lnf_p["bias"], lnf.eps)
+        logits = _serving_proj(lin_p, xf)
+        carry["pos"] = pos + 1
+        return torch.log_softmax(logits.float(), dim=-1), carry
+
+    return step, init_carry
+
+
+# per-model caches of built steps: id(model) -> {(kind, dtype, extra): step}
+_SERVING_STEPS: Dict[int, Dict] = {}
+
+
+def _step_cache(model: Sequential, kind: str, compute_dtype, make,
+                extra=None):
+    """The built step for ``(model, kind, compute_dtype, extra)``, built
+    once (``:2005``). Keyed by ``id(model)``; a ``weakref.finalize`` drops
+    the model's entry when it is collected, so a recycled id starts
+    fresh. Assumes the model's architecture is frozen after first use
+    (weights ride as runtime arguments)."""
+    import weakref
+
+    mid = id(model)
+    per_model = _SERVING_STEPS.get(mid)
+    if per_model is None:
+        per_model = _SERVING_STEPS[mid] = {}
+        weakref.finalize(model, _SERVING_STEPS.pop, mid, None)
+    key = (kind, None if compute_dtype is None else str(compute_dtype),
+           extra)
+    if key not in per_model:
+        per_model[key] = make()
+    return per_model[key]
+
+
+def get_decode_step(model: Sequential, compute_dtype=None):
+    """Cached :func:`make_decode_step`: the same ``(step, init_carry)``
+    for repeated calls with one (model, compute_dtype)."""
+    return _step_cache(model, "decode", compute_dtype,
+                       lambda: make_decode_step(model, compute_dtype))
+
+
+def get_prefill_step(model: Sequential, compute_dtype=None,
+                     kv_quant: bool = False):
+    """Cached :func:`make_prefill_step`; ``kv_quant`` (the int8-writing
+    variant) has its own entry."""
+    return _step_cache(model, "prefill", compute_dtype,
+                       lambda: make_prefill_step(model, compute_dtype,
+                                                 kv_quant=kv_quant),
+                       extra="int8" if kv_quant else None)
+
+
+def _primed_carry(model: Sequential, compute_dtype, prompt, rows: int,
+                  what: str, n_new: int):
+    """``(step, params, carry)`` with ``prompt[:-1]`` (1-based ids)
+    prefilled into ``rows`` identical rows in one pass, after the guards
+    every entry point shares: a non-empty prompt, and ``len(prompt) - 1 +
+    n_new <= max_len`` (past it the cache position would clamp)."""
+    if not prompt:
+        raise ValueError("need a non-empty prompt")
+    max_len = model[1].max_len
+    if len(prompt) - 1 + n_new > max_len:
+        raise ValueError(
+            f"prompt ({len(prompt)}) + {what} ({n_new}) exceeds the "
+            f"model's max_len {max_len} — the cache position would "
+            "silently clamp (same guard as PositionEmbedding)")
+    step, init_carry = get_decode_step(model, compute_dtype)
+    params = serving_params(model, compute_dtype)
+    carry = init_carry(rows)
+    if len(prompt) > 1:
+        prefill = get_prefill_step(model, compute_dtype)
+        ptoks = torch.tensor([[t - 1 for t in prompt[:-1]]] * rows,
+                             dtype=torch.int64, device=model[0].weight.device)
+        _, carry = prefill(params, ptoks, carry)
+    return step, params, carry
+
+
+def generate(model: Sequential, prompt_ids, length: int = 32,
+             temperature: float = 1.0, top_k: int = 0, seed: int = 0,
+             compute_dtype=None, sampling=None, return_logprobs=False):
+    """Greedy or sampled continuation of ONE prompt with the KV-cached
+    decoder (``:2180``). ``prompt_ids`` are 1-based; returns (n,) 1-based
+    ids (n == ``length`` unless a stop set ends the run), or ``(ids,
+    logprobs)`` with ``return_logprobs`` (the chosen tokens' raw model
+    log-probs).
+
+    ``temperature=0`` is greedy argmax, ``top_k > 0`` keeps the k most
+    likely tokens; ``sampling`` (a :class:`~bigdl_tpu_torch.serving.
+    sampling.SamplingParams`) overrides the three scalars. The draw runs
+    through the serving engine's per-row sampler (:func:`~bigdl_tpu_torch.
+    serving.sampling.sample_rows`, one row) from the lane
+    ``lane_key(seed)``, so a fixed seed gives the engine's stream for the
+    same request. ``compute_dtype`` is the serving precision."""
+    from bigdl_tpu_torch.serving.sampling import (
+        SamplingParams, knob_row_values, lane_key, match_stop_sequences,
+        sample_rows,
+    )
+
+    sp = sampling if sampling is not None else SamplingParams(
+        temperature=temperature, top_k=top_k, seed=seed)
+    if sp.max_tokens is not None:
+        length = sp.max_tokens
+    prompt = [int(t) for t in prompt_ids]
+    step, params, carry = _primed_carry(model, compute_dtype, prompt, 1,
+                                        "length", length)
+    dev = model[0].weight.device
+    vocab = model[0].n_index
+    # the engine's one-row knob layout
+    scal, ban_row = knob_row_values(sp, -1)
+    ban_base = bool(scal["ban"])
+    knobs = {k: torch.from_numpy(np.asarray([v])).to(dev)
+             for k, v in scal.items()}
+    knobs["ban_ids"] = torch.from_numpy(ban_row[None]).to(dev)
+    knobs["ban"] = torch.zeros((1,), dtype=torch.bool, device=dev)
+    counts = torch.zeros((1, vocab), dtype=torch.int32, device=dev)
+    pmask = np.zeros((1, vocab), bool)
+    pmask[0, np.clip(np.asarray(prompt) - 1, 0, vocab - 1)] = True
+    pmask = torch.from_numpy(pmask).to(dev)
+    keys = torch.from_numpy(
+        lane_key(sp.seed if sp.seed is not None else seed)[None]).to(dev)
+    tok = torch.tensor([prompt[-1] - 1], dtype=torch.int64, device=dev)
+    out, lps = [], []
+    with torch.no_grad():
+        for i in range(length):
+            logp, carry = step(params, tok, carry)
+            if ban_base:
+                knobs["ban"] = torch.tensor([i < sp.min_tokens], device=dev)
+            tok, chosen, keys, counts = sample_rows(logp, keys, knobs,
+                                                    counts, pmask)
+            t1 = int(tok[0]) + 1                 # back to 1-based ids
+            out.append(t1)
+            lps.append(float(chosen[0]))
+            if len(out) >= sp.min_tokens and (
+                    t1 in sp.stop_token_ids
+                    or match_stop_sequences(out, sp.stop_sequences)):
+                break
+    ids = np.asarray(out, np.int32)
+    if return_logprobs:
+        return ids, np.asarray(lps, np.float32)
+    return ids
+
+
+def beam_generate(model: Sequential, prompt_ids, beam_size: int = 4,
+                  decode_length: int = 32, eos_id: int = -1,
+                  alpha: float = 0.6, compute_dtype=None):
+    """Beam-search continuation of ONE prompt with the KV-cached decoder
+    (``:2130``). Returns ``(sequences (beam, decode_length) of 1-based
+    ids, scores (beam,))`` as numpy arrays, best first; positions after
+    an eos come back as 0. ``eos_id`` is 1-based, -1 for none; ``alpha``
+    the length penalty's exponent. The prompt is prefilled once into all
+    ``beam_size`` rows."""
+    from bigdl_tpu_torch.nn.beam_search import beam_search
+
+    prompt = [int(t) for t in prompt_ids]
+    step, params, carry = _primed_carry(model, compute_dtype, prompt,
+                                        beam_size, "decode_length",
+                                        decode_length)
+    vocab = model[0].n_index
+    with torch.no_grad():
+        seqs, scores = beam_search(
+            step, params, carry, 1, beam_size, vocab, decode_length,
+            sos_id=prompt[-1] - 1,
+            eos_id=(eos_id - 1) if eos_id > 0 else vocab + 7,
+            alpha=alpha, padding_value=-1)
+    return (seqs[0].cpu().numpy().astype(np.int32) + 1,
+            scores[0].cpu().numpy())

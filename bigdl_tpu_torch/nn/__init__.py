@@ -2,6 +2,7 @@
 
 from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch, beam_search
 from bigdl_tpu_torch.nn.containers import Container, Sequential
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.criterion import (
@@ -35,4 +36,4 @@ __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
            "RandomUniform", "RandomNormal", "Xavier", "MsraFiller",
            "AbstractCriterion", "ClassNLLCriterion", "CrossEntropyCriterion",
            "TimeDistributedCriterion", "TimeDistributedMaskCriterion",
-           "MaskedSoftmaxCECriterion"]
+           "MaskedSoftmaxCECriterion", "SequenceBeamSearch", "beam_search"]

@@ -17,12 +17,17 @@ per-row token automata that mask the sampler (structured output).
 ``kv_tier.py`` parks rows and evicted prefixes in host memory under a
 byte budget, and ``disagg.py`` splits serving into a prefill pool and
 decode pools that hand KV rows across a wire, with pool health,
-failover, graceful drain and an occupancy autoscaler (``health.py``,
-over ``autopilot.Controller``).
+failover, graceful drain and an occupancy autoscaler (``health.py``).
+``autopilot.py`` closes the SLO loop over all of it: windowed metrics
+drive the chunk budget, per-class degrade and the draft cap through one
+actuator bus, and deadline-aware preemption seats short-deadline
+waiters.
 """
 
 from bigdl_tpu_torch.serving.admission import Degrade, bucket_len
-from bigdl_tpu_torch.serving.autopilot import Controller
+from bigdl_tpu_torch.serving.autopilot import (
+    ACTUATION_SITES, ActuatorBus, Autopilot, AutopilotConfig, Controller,
+)
 from bigdl_tpu_torch.serving.constrain import (
     ConstraintCursor, ConstraintError, TokenDFA, fixed_sequence,
     from_token_sets,
@@ -62,4 +67,5 @@ __all__ = ["ServingEngine", "KVPool", "Scheduler", "Request",
            "ROW_PAYLOAD_KEYS", "pack_payload", "payload_header",
            "unpack_payload", "HealthConfig", "PoolHealth",
            "TransferRetryConfig", "AutoscalerConfig",
-           "OccupancyAutoscaler", "TieredKVStore", "Controller"]
+           "OccupancyAutoscaler", "TieredKVStore", "Controller",
+           "Autopilot", "AutopilotConfig", "ActuatorBus", "ACTUATION_SITES"]

@@ -755,10 +755,6 @@ class DisaggregatedEngine:
                  autoscaler=None, adapters=None, tier=None,
                  autopilot=None, dispatch_ahead: int = 0,
                  device=None) -> None:
-        if autopilot:
-            raise NotImplementedError(
-                "autopilot= is not ported yet: ROADMAP.md A.2.i SLO "
-                "autopilot (serving/autopilot.py)")
         if decode_pools < 1:
             raise ValueError(
                 f"decode_pools must be >= 1, got {decode_pools}")
@@ -841,6 +837,17 @@ class DisaggregatedEngine:
                 OccupancyAutoscaler(cfg)
         else:
             self._scaler = None
+        # the SLO autopilot runs on the PREFILL engine (it owns admission:
+        # the chunk budget, degrade, the priority key; its clock is the
+        # plane's), and the pool autoscaler registers on the same bus so
+        # scale decisions share its log (_autoscale still executes them)
+        self.autopilot = autopilot or None
+        if self.autopilot is not None:
+            self.autopilot.attach(self.prefill.engine)
+            self.prefill.engine.autopilot = self.autopilot
+            if self._scaler is not None:
+                self.autopilot.register_controller("pool_scale",
+                                                   self._scaler)
 
     # -- request surface ---------------------------------------------------
 
@@ -1178,6 +1185,9 @@ class DisaggregatedEngine:
             victim = min(active, key=lambda i: self.decoders[i].load)
             self.drain_pool(victim)
             self.metrics.on_autoscale("down")
+        if decision and self.autopilot is not None:
+            # pool actuations land in the bus's one log
+            self.autopilot.bus.note_pool_scale(decision)
 
     # -- the serving loop --------------------------------------------------
 

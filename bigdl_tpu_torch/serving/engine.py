@@ -62,6 +62,14 @@ Resilience, all host-side:
   the card), demotes the prefix cache's evicted entries there, and turns
   victim selection cold-first; every terminal disposition drops the
   request's entry;
+* ``autopilot=`` (an :class:`~bigdl_tpu_torch.serving.autopilot.
+  Autopilot`) closes the control loop: sampled once at the end of every
+  ``step()`` on the engine clock, it drives ``chunk_budget``, per-class
+  ``Degrade`` apply/restore and the speculative draft cap from windowed
+  metrics through its actuator bus, folds the measured service time into
+  the priority key (least laxity), and preempts for deadlines: a
+  short-deadline feasible waiter evicts the longest-slack running row
+  rather than miss;
 * every device dispatch goes through :meth:`_dispatch` (sites
   ``"decode"`` and ``"prefill"``), where a seeded
   :class:`~bigdl_tpu_torch.serving.faults.FaultInjector` may fail,
@@ -112,7 +120,6 @@ from bigdl_tpu_torch.utils.device import resolve_device
 _NOT_PORTED = {
     "mesh": "A.2.g sharded serving (serving/sharded.py)",
     "parallelism": "A.2.g sharded serving (serving/sharded.py)",
-    "autopilot": "A.2.i SLO autopilot (serving/autopilot.py)",
 }
 
 
@@ -161,7 +168,9 @@ class ServingEngine:
     a bare draft model); ``adapters`` an :class:`~bigdl_tpu_torch.serving.
     lora.AdapterBank` over this model (batched or chunked admission
     only); ``tier`` True or a :class:`~bigdl_tpu_torch.serving.kv_tier.
-    TieredKVStore` (the host spill tier); ``keep_finished``
+    TieredKVStore` (the host spill tier); ``autopilot`` an
+    :class:`~bigdl_tpu_torch.serving.autopilot.Autopilot` (the closed SLO
+    loop, one instance per engine); ``keep_finished``
     bounds the finished ledger; ``metrics`` a :class:`ServingMetrics` to
     record into; ``device`` defaults to ``cuda``."""
 
@@ -185,6 +194,7 @@ class ServingEngine:
                  speculative=None,
                  adapters=None,
                  tier=None,
+                 autopilot=None,
                  device=None,
                  **not_ported) -> None:
         for knob, value in not_ported.items():
@@ -361,6 +371,15 @@ class ServingEngine:
         # step that dispatched it (the engine without a window)
         self.dispatch_ahead = int(dispatch_ahead)
         self._window: deque = deque()
+        # the SLO autopilot: an engine-wide ceiling on the speculative
+        # draft count (host data the super-step's draft budgets read),
+        # and the loop itself, sampled at the end of every step(); attach
+        # binds its actuator bus here and folds the measured service time
+        # into the scheduler's priority key
+        self.draft_cap: Optional[int] = None
+        self.autopilot = autopilot or None
+        if self.autopilot is not None:
+            self.autopilot.attach(self)
 
     # -- request surface ---------------------------------------------------
 
@@ -563,6 +582,17 @@ class ServingEngine:
                     self._drain_window({})
                     continue
                 self._preempt_row(victim)
+            # deadline-aware preemption: evict long-slack rows so
+            # short-deadline feasible waiters seat in time, within or
+            # below their class (the loop above trades across classes
+            # only); through the same flush, then chosen again
+            if self.autopilot is not None:
+                victims = self.autopilot.deadline_victims(self, now)
+                if victims and self._window:
+                    self._drain_window({})
+                    victims = self.autopilot.deadline_victims(self, now)
+                for victim in victims:
+                    self._preempt_row(victim)
         n = self.scheduler.admissible(self.pool.free_slots)
         if n:
             if self.tier is not None:
@@ -615,6 +645,7 @@ class ServingEngine:
         req.finish_reason = reason
         req.resume_carry = None
         self._drop_tier_row(req)
+        req.finish_time = self._clock()
         self._finished[req.req_id] = req
         self._evict_finished()
         self.metrics.on_finish_reason(reason)
@@ -821,7 +852,7 @@ class ServingEngine:
 
     def _finish_row(self, req: Request, reason: str, now: float) -> None:
         """Free a finishing row's slot, then :meth:`_ledger_finish`."""
-        freed = self.scheduler.finish(req)
+        freed = self.scheduler.finish(req, now)
         self.pool.free(freed)
         self._configured.discard(freed)
         self._restored.discard(freed)
@@ -838,6 +869,7 @@ class ServingEngine:
         req.resume_carry = None
         self._drop_tier_row(req)
         req.state = FINISHED
+        req.finish_time = now
         self._finished[req.req_id] = req
         self._evict_finished()
         self.metrics.on_finish_reason(reason)
@@ -958,7 +990,8 @@ class ServingEngine:
         idle, when every slot-holding row is still mid-prefill, or while
         the dispatch-ahead window fills). Records one ``host_step_s``
         sample per consumed decode step: the step's wall time minus its
-        waits on the card."""
+        waits on the card. With an autopilot, ends with its one control
+        sample, idle steps included."""
         t_step = self._clock()
         dev0 = self.metrics.device_seconds
         ndec0 = self.metrics.decode_step_count
@@ -968,6 +1001,8 @@ class ServingEngine:
             n_new = self.metrics.decode_step_count - ndec0
             if n_new > 0:
                 self._note_host_step(t_step, dev0, n_samples=n_new)
+            if self.autopilot is not None:
+                self.autopilot.sample(self)
 
     def _account_token(self, slot: int, req: Request, tok0: int,
                        lp: float, now: float,

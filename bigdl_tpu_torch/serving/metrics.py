@@ -29,7 +29,8 @@ Counters, under the ``serving/`` prefix:
   ``chunks`` / ``chunk_tokens`` / ``partial_rows`` (chunked admission),
   ``preempted``, ``shed``, ``infeasible``, ``degraded`` /
   ``degrade_restored``, ``cancelled``, ``retries`` / ``recovered_rows``,
-  ``resumed_without_prefill``, and the KV format (``kv_bits``,
+  ``resumed_without_prefill``, ``actuations`` (and
+  ``actuation_<actuator>``: the autopilot's bus writes), and the KV format (``kv_bits``,
   ``kv_bytes_per_slot``, ``kv_slots_per_gib``)
 * the disaggregated plane (``disagg.py``, ``health.py``): ``handoffs`` /
   ``transfer_bytes`` / ``transfer_s`` per handoff,
@@ -82,7 +83,8 @@ class ServingMetrics:
     #: counters ``summary()`` reports as sums
     _SUMS = ("submitted", "finished", "retries", "recovered_rows",
              "preempted", "shed", "deadline_missed", "degraded",
-             "degrade_restored", "finished_in_slo", "infeasible", "chunks",
+             "degrade_restored", "actuations", "finished_in_slo",
+             "infeasible", "chunks",
              "chunk_tokens", "resumed_without_prefill", "handoffs",
              "transfer_bytes", "pool_deaths", "failovers", "migrated_rows",
              "replayed_rows", "transfer_timeouts", "autoscale_up",
@@ -166,6 +168,12 @@ class ServingMetrics:
 
     def on_degrade_restored(self) -> None:
         self.metrics.add("serving/degrade_restored", 1.0)
+
+    def on_actuation(self, actuator: str) -> None:
+        """One autopilot bus write (``autopilot.py``), counted in total
+        and per actuator."""
+        self.metrics.add("serving/actuations", 1.0)
+        self.metrics.add(f"serving/actuation_{actuator}", 1.0)
 
     def on_cancel(self) -> None:
         self.metrics.add("serving/cancelled", 1.0)

@@ -26,9 +26,16 @@ fault recovery: the request keeps its original key, hence its place
 among same-priority peers, its emitted ``output`` and its counters; only
 its slot is given up. With a host KV tier attached (``kv_tier.py``),
 victim selection within a priority class goes cold-first: the row whose
-last decode is oldest (``note_decoded`` stamps each healthy step). The
-autopilot's least-laxity key (its ``service_estimate``) and the
-``finish_time`` it reads belong to ROADMAP.md A.2.i.
+last decode is oldest (``note_decoded`` stamps each healthy step).
+
+With an SLO autopilot attached (``autopilot.py``) the priority key's
+deadline term becomes least-laxity: ``service_estimate`` (the engine's
+measured seconds per token) prices the request's remaining budget, so a
+row's urgency is the latest time it can start and still finish. The key
+is evaluated when the request enters the queue (``submit``, ``requeue``)
+and never re-sorted while it waits. ``finish_time`` stamps every
+terminal disposition on the engine clock; the autopilot's goodput
+accounting reads it.
 """
 
 from __future__ import annotations
@@ -90,6 +97,7 @@ class Request:
     finish_reason: Optional[str] = None
     submit_time: float = 0.0
     first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
     priority: int = 0
     deadline_s: Optional[float] = None
     degrade: Optional[object] = None   # admission.Degrade
@@ -131,6 +139,10 @@ class Scheduler:
             raise ValueError(
                 f"unknown admission policy {policy!r} (one of {_POLICIES})")
         self.policy = policy
+        #: optional zero-argument callable giving the measured seconds per
+        #: emitted token, or None; set by the autopilot's ``attach``. With
+        #: one, the priority key orders deadlines by least laxity
+        self.service_estimate: Optional[object] = None
         self._waiting: List[list] = []            # heap of [key, req]
         self.running: Dict[int, Request] = {}     # slot -> request
         self.partial: Dict[int, Request] = {}     # slot -> mid-prefill
@@ -146,7 +158,15 @@ class Scheduler:
         if self.policy != "priority":
             return (0, 0.0, req.seq)
         dl = req.deadline_time
-        return (-req.priority, _INF if dl is None else dl, req.seq)
+        urgency = _INF if dl is None else dl
+        if dl is not None and self.service_estimate is not None:
+            est = self.service_estimate()
+            if est:
+                # least laxity: the latest feasible START, the deadline
+                # less the time the remaining budget needs
+                rem = max(1, req.max_new_tokens - len(req.output))
+                urgency = dl - est * rem
+        return (-req.priority, urgency, req.seq)
 
     def submit(self, req: Request) -> None:
         if not req.prompt:
@@ -286,9 +306,9 @@ class Scheduler:
                     return req
         return None
 
-    def finish(self, req: Request) -> int:
-        """Mark finished (a RUNNING row, or a PARTIAL row erroring out);
-        returns the freed slot id."""
+    def finish(self, req: Request, now: float) -> int:
+        """Mark finished at engine-clock time ``now`` (a RUNNING row, or a
+        PARTIAL row erroring out); returns the freed slot id."""
         slot = req.slot
         if self.running.get(slot) is req:
             del self.running[slot]
@@ -296,6 +316,7 @@ class Scheduler:
             del self.partial[slot]
         req.state = FINISHED
         req.slot = None
+        req.finish_time = now
         return slot
 
     @property

@@ -158,9 +158,13 @@ class Speculator:
         token budget (a chunk must not overshoot ``max_new_tokens``, or the
         lane would run ahead of the plain stream); 0 while the row's
         min-tokens ban is up or the row is constrained (the ban and the
-        allow mask are per-step host state a chunk must not cross)."""
+        allow mask are per-step host state a chunk must not cross). The
+        autopilot's engine-wide ``draft_cap`` caps every row."""
         k = self.k if req.draft_tokens is None \
             else min(int(req.draft_tokens), self.k)
+        cap = self.engine.draft_cap
+        if cap is not None:
+            k = min(k, int(cap))
         if self.engine._knobs["ban"][slot] or slot in self.engine._constraints:
             k = 0
         rem = req.max_new_tokens - len(req.output)

@@ -97,34 +97,66 @@ any failure raises, so the exit code is non-zero and no result prints:
               TTFT p50/p99 and the multitenant overhead; launches, copies
               and waits per decode step for the bank-less, base-only and
               mixed engines;
-12. train    — the training path at full width: the same 137m model at
+12. serve_disagg — the disaggregated plane, the host KV tier and pool
+              health on the same model (bf16, int8 KV) with the serve
+              phase's 24 requests: ``DisaggregatedEngine(prefill_slots=16,
+              decode_slots=16, decode_pools=2)`` bitwise against
+              ``ServingEngine(n_slots=16)``; ``kill_pool(0)`` after 3 steps
+              at 8 decode slots (migrated rows bitwise, replayed rows
+              counted); ``serving_bench``'s two-wave tiered trace through a
+              ``TieredKVStore`` and through a tier of one row's budget; a
+              bf16 and an int8 row packed, unpacked and restored bitwise;
+              launches, copies and waits per decode step, handoff and
+              restore;
+13. serve_autopilot — the SLO autopilot on the same model (bf16, int8
+              KV, 4 slots, chunked admission, priority policy,
+              ``SteppingClock(0.002)``): ``tools/torch_serving_zoo.py``'s
+              seeded zoo trace (seed 43, 49 requests) through four static
+              passes and the closed loop; per pass the goodput, misses by
+              class, actuations by actuator, wall seconds, tok/s and step
+              p50; the closed loop's goodput above every static pass's,
+              its high-priority misses not above the best static's, one
+              decode input layout; rows clean in the closed and reference
+              passes with equal chunk boundaries identical, others parted
+              only within the measured error; the host µs of one
+              ``sample()``; launches, copies and waits per decode step
+              without and with an autopilot;
+14. generate — the LM's own decoder on the same model at f32 (TF32 off)
+              and bf16: ``generate`` on the serve phase's first 8 prompts
+              (32 tokens, greedy and seeded-sampled) against
+              ``ServingEngine(n_slots=8)`` with float KV, equal or parted
+              at a near-tie within the measured error (counted);
+              ``beam_generate`` (beam 4, 64-token prompt, 32 tokens) with
+              sorted scores and the top score re-scored by the f32 model;
+              ``make_decode_step``'s step p50 and tok/s at batch 1 and 4;
+15. train    — the training path at full width: the same 137m model at
               max_len = T = 2048, ``output="logits"``, trained through
               ``Optimizer(...).optimize()`` with
               ``MaskedSoftmaxCECriterion(0)``, ``Adam(1e-4)``, bf16 compute,
               batch 8, 2 warm + 5 timed steps on one seeded batch: step ms
               p50, tokens/s, MFU, peak memory, first and last loss;
-13. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
+16. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
               kernels against their plain versions: the stage-1 block join
               (M 802,816, C 256, K 64, residual, y and extra dy, bf16), the
               stage-4 bn2 edge (M 12,544, C 512, K 2048, bf16) and an f32
               case with ragged M, C and K; per-row errors and channel-sum
               errors against the stated tolerances, kernel, plain, bare
               cuBLAS product and unfused-torch times, and the bound;
-14. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
+17. fused_shapes — the three fused-conv kernels at each of the 10 (M, C,
               K) that ResNet-50's step launches them at (batch 256, bf16):
               each against its plain version, each kernel's median and
               min-max time beside its bound, the cuBLAS product and the
               unfused sequence, and per kernel the step's sum of launches x
               (time - bound);
-15. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
+18. resnet_check — a bottleneck graph's three f32 SGD steps (every edge
               on the kernels) on the card against the CPU: losses,
               parameters and BN running statistics;
-16. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
+19. resnet_train — ResNet-50 at batch 256, 224², bf16 compute, SGD 0.1 /
               momentum 0.9 / weight decay 1e-4, ``maybe_fuse`` with
               ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
               timed steps: step ms p50, images/s, peak memory, losses; then
               the unfused ``Graph`` on the same recipe;
-17. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+20. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
@@ -137,8 +169,11 @@ any failure raises, so the exit code is non-zero and no result prints:
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; each of its kernels must have launched (decode attention and
 kv_requant once per layer per decode step in serve, serve_modes,
-serve_async and serve_lora; in serve_spec decode attention once per draft layer per draft
-step and kv_requant besides once per target layer per verify step; each
+serve_async, serve_lora, serve_disagg (summed over the decode pools) and
+each pass of serve_autopilot; decode attention once per layer per decode
+step in generate, which launches no kv_requant (float KV); in serve_spec
+kv_requant once per target layer per verify step and no decode
+attention; each
 flash kernel once per layer per step, each
 fused-conv kernel exactly 28 times per ResNet-50 step, the conv3x3 kernel
 once per checked case and 33 times per timed shape).
@@ -2711,6 +2746,289 @@ def serve_disagg_phase():
     return totals
 
 
+def model_logp(lm, ids):
+    """The f32 model's log-probs after every prefix of ``ids`` (1-based):
+    (len(ids), V) on the card."""
+    import torch
+
+    x = torch.tensor([ids], dtype=torch.float32, device=lm[0].weight.device)
+    with torch.no_grad():
+        return torch.log_softmax(lm(x)[0].float(), dim=-1)
+
+
+def parting(lm, prompt, got, got_lp, want, want_lp):
+    """Where two greedy streams of one request part (the C.3 rule for int8
+    and bf16): the first differing position i, the f32 model's log-prob
+    gap there between the two chosen tokens (after the common prefix), and
+    the larger of the two streams' measured log-prob errors against the
+    f32 model up to i. Each stream ordered the pair its own way, so an
+    honest parting has gap <= 2 x error; ``ok`` says so."""
+    import torch
+
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    err = 0.0
+    for out, lps in ((got, got_lp), (want, want_lp)):
+        lp = model_logp(lm, list(prompt) + list(out[:i + 1]))
+        at = torch.arange(len(prompt) - 1, len(prompt) + i,
+                          device=lp.device)
+        ref = lp[at, torch.tensor(out[:i + 1], device=lp.device) - 1]
+        err = max(err, float((torch.as_tensor(
+            np.asarray(lps[:i + 1]), device=lp.device) - ref).abs().max()))
+    lp = model_logp(lm, list(prompt) + list(want[:i]))[-1]
+    gap = abs(float(lp[got[i] - 1] - lp[want[i] - 1]))
+    return {"position": i, "gap": gap, "error": err, "ok": gap <= 2 * err}
+
+
+def serve_autopilot_phase():
+    """The SLO autopilot on the 137m model (bf16, int8 KV, 4 slots, chunked
+    admission, the priority policy, ``SteppingClock(0.002)``):
+    ``tools/torch_serving_zoo.py``'s seeded zoo trace (seed 43, 49
+    requests, prompts over the full vocabulary) through the four static
+    passes of ``run_autopilot`` and the closed loop
+    (``ServingEngine(autopilot=Autopilot())``). Asserted, as the JAX bench
+    asserts: the closed loop's goodput above every static pass's, its
+    high-priority misses not above the best static pass's, one decode input
+    layout per pass; and the stream rule of int8 KV: a row clean in the
+    closed and the reference static pass with the same chunk boundaries in
+    both emits the same tokens, a row chunked differently may part only
+    where ``parting`` allows. Both kernels launch once per layer per decode
+    step in every pass. Then launches, copies and waits per decode step of
+    a full 16-slot priority engine without and with an autopilot (batched
+    admission). Returns both kernels' launches over the five passes."""
+    import torch
+
+    import tools.torch_serving_zoo as zoo
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.serving import Autopilot, ServingEngine
+
+    lm, _ = lm_137m()
+    V, layers = lm[0].n_index, lm_layers(lm)
+    bf16 = torch.bfloat16
+    # warm-up: library handles and allocator pools, outside the counts
+    warm = ServingEngine(lm, n_slots=4, compute_dtype=bf16, kv_dtype="int8",
+                         admission="chunked", policy="priority")
+    for p in ([5, 9, 2] * 7, [4] * 40):
+        warm.submit(p, max_new_tokens=3)
+    with torch.no_grad():
+        warm.drain()
+    del warm
+    totals = [0, 0]
+
+    def probe(name, run):
+        torch.cuda.synchronize()
+        da.launches = kr.launches = 0
+        with torch.no_grad():
+            r = run()
+        torch.cuda.synchronize()
+        steps = r.stats["decode_steps"]
+        for k, n in (("decode_attention", da.launches),
+                     ("kv_requant", kr.launches)):
+            if n != steps * layers:
+                raise AssertionError(f"autopilot {name}: {k} launched {n} "
+                                     f"times, expected {steps} x {layers}")
+        totals[0] += da.launches
+        totals[1] += kr.launches
+        st = r.stats
+        emit("serve_autopilot", run=name, goodput=st["goodput"],
+             hi_missed=st["hi_missed"], lo_missed=st["lo_missed"],
+             preempted=st["preempted"], degraded=st["degraded"],
+             degrade_restored=st["degrade_restored"],
+             actuations=st["actuations_by_actuator"],
+             virtual_s=st["virtual_s"], steps=st["steps"],
+             decode_steps=steps, wall_s=st["wall_s"], tokens=st["tokens"],
+             tok_s=st["tok_s"], step_p50_ms=st["step_p50_ms"],
+             decode_layouts=st["decode_layouts"],
+             sample_us_p50=st.get("sample_us_p50"),
+             decode_attention_launches=da.launches,
+             kv_requant_launches=kr.launches)
+        return r
+
+    out = zoo.run_autopilot(lm, compute_dtype=bf16, kv_dtype="int8",
+                            device=lm[0].weight.device, stream_rule="chunks",
+                            sync=torch.cuda.synchronize, probe=probe)
+    closed, ref = out["runs"]["closed"], out["runs"][zoo.REFERENCE_STATIC]
+    parted = []
+    for ti, i, same in out["partings"]:
+        prompt = out["trace"][ti][1]
+        f = parting(lm, prompt, closed.outs[ti].tolist(),
+                    closed.logprobs[ti], ref.outs[ti].tolist(),
+                    ref.logprobs[ti])
+        parted.append({"row": ti, "same_chunks": same, **f})
+    emit("serve_autopilot", closed_goodput=out["closed"]["goodput"],
+         best_static=out["best_static"],
+         gain_vs_best=out["goodput_gain_vs_best"],
+         identical_rows=out["identical_rows"], partings=parted,
+         sample_us_p50=out["closed"]["sample_us_p50"],
+         samples=out["closed"]["samples"])
+    if not all(p["ok"] for p in parted):
+        raise AssertionError(f"autopilot: a row parted off the measured "
+                             f"error: {parted}")
+
+    rng = np.random.default_rng(0)
+    for label, ap in (("without", None), ("with", Autopilot)):
+        def engine(ap=ap):
+            return ServingEngine(lm, n_slots=16, compute_dtype=bf16,
+                                 kv_dtype="int8", policy="priority",
+                                 autopilot=None if ap is None else ap())
+
+        per_step, dtoh, syncs, waits = decode_step_trace(engine, V, rng)
+        emit("serve_autopilot", decode_step=label + " autopilot",
+             device_launches=per_step, device_to_host_copies=dtoh,
+             host_waits=syncs, traced_wait_calls=waits)
+        if dtoh != 1 or syncs != 1:
+            raise AssertionError(
+                f"autopilot {label}: a decode step made {dtoh} copies and "
+                f"{syncs} waits; one readback is all it may make")
+    return totals
+
+
+def serve_generate_phase():
+    """The LM's own decoder on the 137m model, at f32 (TF32 off) and bf16:
+    ``generate`` on the serve phase's first 8 prompts (32 new tokens; greedy,
+    and seeded-sampled where ``serve_traffic`` samples) against
+    ``ServingEngine(n_slots=8)``'s streams with float KV: a greedy row
+    equal, or parted at a near-tie as ``parting`` allows (counted); a
+    seeded-sampled row equal at f32, and at bf16 reported with its first
+    differing position (its draw also crosses the top-k and top-p
+    thresholds, which move with the bf16 rounding of an 8-row against a
+    1-row product, so no log-prob gap bounds it); ``beam_generate`` (beam
+    4, a 64-token prompt, 32 tokens): scores sorted, the top beam's score
+    its length-penalised log-prob sum re-scored by the f32 model (1e-4
+    relative at f32, 1e-2 at bf16); then ``make_decode_step``'s step p50
+    and tok/s at batch 1 and 4 (32 steps after a 64-token prefill, each
+    synchronized), and its launches, copies and waits per step over 8
+    more. Decode attention launches exactly 12 times per decode step in
+    each counted run.
+    Returns its launches."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import (
+        beam_generate, get_decode_step, get_prefill_step, generate,
+        serving_params,
+    )
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    lm, _ = lm_137m()
+    V, layers = lm[0].n_index, lm_layers(lm)
+    reqs = serve_traffic(np.random.default_rng(0), V)[:8]
+    rng = np.random.default_rng(13)
+    beam_prompt = rng.integers(1, V + 1, size=64).tolist()
+    total = 0
+
+    def counted(name, fn, steps):
+        nonlocal total
+        torch.cuda.synchronize()
+        da.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if da.launches != steps * layers:
+            raise AssertionError(f"generate {name}: decode_attention "
+                                 f"launched {da.launches} times, expected "
+                                 f"{steps} x {layers}")
+        total += da.launches
+        return out, wall
+
+    for dtype_name, dt, beam_rtol in (("fp32", None, 1e-4),
+                                      ("bf16", torch.bfloat16, 1e-2)):
+        generate(lm, [5, 9, 2], length=2, temperature=0.0,
+                 compute_dtype=dt)                             # warm-up
+        eng = ServingEngine(lm, n_slots=8, compute_dtype=dt)
+        rids = [eng.submit(p, max_new_tokens=32, sampling=sp)
+                for p, sp in reqs]
+        with torch.no_grad():
+            outs = eng.drain()
+        equal, parted, sampled_parted, gen_wall = 0, [], [], 0.0
+        for (prompt, sp), rid in zip(reqs, rids):
+            (ids, lps), wall = counted(
+                "generate", lambda: generate(lm, prompt, length=32,
+                                             temperature=0.0, sampling=sp,
+                                             compute_dtype=dt,
+                                             return_logprobs=True), 32)
+            gen_wall += wall
+            got, want = ids.tolist(), outs[rid].tolist()
+            if got == want:
+                equal += 1
+            elif sp is None:
+                parted.append({"request": rid, **parting(
+                    lm, prompt, got, lps, want, eng.logprobs(rid))})
+            else:
+                i = next(j for j, (a, b) in enumerate(zip(got, want))
+                         if a != b)
+                sampled_parted.append({"request": rid, "position": i})
+        emit("generate", dtype=dtype_name, requests=len(reqs),
+             equal_to_engine=equal, parted_at_near_ties=parted,
+             sampled_parted=sampled_parted,
+             tok_s=32 * len(reqs) / gen_wall)
+        if dt is None and sampled_parted:
+            raise AssertionError(f"generate fp32: seeded-sampled streams "
+                                 f"differ from the engine's: {sampled_parted}")
+        if not all(p["ok"] for p in parted):
+            raise AssertionError(f"generate {dtype_name}: streams part from "
+                                 f"the engine's off a near-tie: {parted}")
+
+        (seqs, scores), wall = counted(
+            "beam", lambda: beam_generate(lm, beam_prompt, beam_size=4,
+                                          decode_length=32, alpha=0.6,
+                                          compute_dtype=dt), 32)
+        lp = model_logp(lm, beam_prompt + seqs[0].tolist())
+        at = torch.arange(len(beam_prompt) - 1, len(beam_prompt) + 31,
+                          device=lp.device)
+        tok = torch.as_tensor(seqs[0].astype(np.int64), device=lp.device) - 1
+        rescored = float(lp[at, tok].sum()) / ((5.0 + 32) / 6.0) ** 0.6
+        rel = abs(float(scores[0]) - rescored) / abs(rescored)
+        # the carry gather per step copies every leaf of the beam-4 carry:
+        # each layer's (4, 512, 12, 64) K and V caches, and pos
+        copied = sum(t.numel() * t.element_size()
+                     for t in get_decode_step(lm, dt)[1](4).values())
+        emit("generate", beam=4, dtype=dtype_name, wall_s=wall,
+             scores=scores.tolist(), top_score=float(scores[0]),
+             rescored=rescored, rel_err=rel, rel_tol=beam_rtol,
+             gather_bytes_copied_per_step=copied,
+             gather_bytes_moved_per_step=2 * copied)
+        if not (np.all(np.diff(scores) <= 0) and rel <= beam_rtol
+                and ((seqs >= 1) & (seqs <= V)).all()):
+            raise AssertionError(f"beam {dtype_name}: scores {scores}, "
+                                 f"rescored {rescored} (rel {rel})")
+
+        step, init = get_decode_step(lm, dt)
+        P = serving_params(lm, dt)
+        prefill = get_prefill_step(lm, dt)
+        for batch in (1, 4):
+            ptoks = torch.tensor([[t - 1 for t in beam_prompt]] * batch,
+                                 device=lm[0].weight.device)
+            with torch.no_grad():
+                _, carry = prefill(P, ptoks, init(batch))
+            tok = torch.zeros((batch,), dtype=torch.int64,
+                              device=ptoks.device)
+            times = []
+
+            def decode():
+                nonlocal carry
+                for _ in range(32):
+                    t = time.perf_counter()
+                    logp, carry = step(P, tok, carry)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t)
+
+            _, wall = counted(f"step b{batch}", decode, 32)
+
+            def traced():
+                nonlocal carry
+                for _ in range(8):
+                    _, carry = step(P, tok, carry)
+
+            emit("generate", decode_step_batch=batch, dtype=dtype_name,
+                 step_p50_ms=float(np.percentile(times, 50)) * 1e3,
+                 tok_s=batch * 32 / wall,
+                 per_step=window_counts(traced, "decode_step", 8))
+    return total, 0
+
+
 def main() -> int:
     import torch
 
@@ -2754,7 +3072,8 @@ def main() -> int:
                              "on the main path")
     for phase in (lambda: serve_modes_phase(batched_gap_p99_s),
                   serve_async_phase, serve_spec_phase, serve_lora_phase,
-                  serve_disagg_phase):
+                  serve_disagg_phase, serve_autopilot_phase,
+                  serve_generate_phase):
         n_da, n_kr = phase()
         entry["launches"] += n_da
         requant["launches"] += n_kr

@@ -1093,3 +1093,86 @@ def test_serving_row_packs_on_the_card_and_restores_bitwise(card, kv):
     assert payload["carry"]["k0"].dtype == want
     for k, v in payload["carry"].items():
         assert again["carry"][k].is_cuda and torch.equal(again["carry"][k], v), k
+
+
+# -- the SLO autopilot and the LM's own decoder on the card ------------------
+
+@pytest.mark.cuda
+def test_serving_autopilot_on_the_card_matches_the_cpu(card):
+    """The closed loop on the zoo trace (int8 KV, f32 compute, TF32 off):
+    the card's actuation log, goodput and misses equal the CPU's exactly
+    (the schedule is host bookkeeping on a stepping clock), both kernels
+    launch once per layer per decode step, and each row's tokens equal
+    the CPU's or part where the CPU model's top-2 gap is below 1e-3."""
+    import copy
+
+    import tools.torch_serving_zoo as zoo
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+
+    lm = TransformerLM(29, hidden_size=32, n_heads=1, n_layers=2,
+                       max_len=80, device="cuda", seed=9)
+    lm.evaluate()
+    lm_cpu = copy.deepcopy(lm).to("cpu")
+    trace = zoo.make_zoo_trace({"vocab": 29}, 43)
+    runs = []
+    for model, dev in ((lm, "cuda"), (lm_cpu, "cpu")):
+        da.launches = kr.launches = 0
+        ap = zoo.default_autopilot()
+        with torch.no_grad():
+            r = zoo.run_zoo_engine(model, trace, autopilot=ap,
+                                   kv_dtype="int8", device=dev)
+        if dev == "cuda":
+            steps = r.stats["decode_steps"]
+            assert da.launches == kr.launches == steps * 2 > 0
+        runs.append((r, ap.bus.log))
+    (gpu, gpu_log), (cpu, cpu_log) = runs
+    assert gpu_log == cpu_log and gpu_log
+    for k in ("goodput", "hi_missed", "lo_missed", "preempted", "degraded",
+              "steps", "virtual_s"):
+        assert gpu.stats[k] == cpu.stats[k], k
+    for ti, want in cpu.outs.items():
+        got, want = gpu.outs[ti].tolist(), want.tolist()
+        if got != want:
+            j = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            assert _top2_gap(lm_cpu, trace[ti][1], want[:j]) < 1e-3, ti
+
+
+@pytest.mark.cuda
+def test_generate_and_beam_generate_on_the_card_match_the_cpu(card):
+    """f32 with TF32 off: ``generate`` (greedy and seeded-sampled) and
+    ``beam_generate`` on the card emit the CPU's ids (a greedy row may
+    part only where the CPU model's top-2 gap is below 1e-3), beam scores
+    within 1e-4, and the decode-attention kernel launches once per layer
+    per decode step."""
+    import copy
+
+    from bigdl_tpu_torch.models.transformer import beam_generate, generate
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.serving import SamplingParams
+
+    lm = _serving_lm()
+    lm_cpu = copy.deepcopy(lm).to("cpu")
+    sp = SamplingParams(temperature=0.9, top_k=8, seed=21)
+    for prompt, n in _serving_reqs(n=4, seed=8):
+        for sampling in (None, sp):
+            da.launches = 0
+            got = generate(lm, prompt, length=n, temperature=0.0,
+                           sampling=sampling).tolist()
+            assert da.launches == n * 2
+            want = generate(lm_cpu, prompt, length=n, temperature=0.0,
+                            sampling=sampling).tolist()
+            if got != want:
+                assert sampling is None, (prompt, got, want)
+                j = next(j for j, (a, b) in enumerate(zip(got, want))
+                         if a != b)
+                assert _top2_gap(lm_cpu, prompt, want[:j]) < 1e-3
+    da.launches = 0
+    seqs, scores = beam_generate(lm, [3, 7, 2, 9], beam_size=4,
+                                 decode_length=10)
+    assert da.launches == 10 * 2
+    seqs_c, scores_c = beam_generate(lm_cpu, [3, 7, 2, 9], beam_size=4,
+                                     decode_length=10)
+    assert (seqs == seqs_c).all()
+    assert abs(scores - scores_c).max() <= 1e-4

@@ -76,7 +76,8 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.serving.kv_tier",
               "bigdl_tpu_torch.serving.disagg",
               "bigdl_tpu_torch.serving.health",
-              "bigdl_tpu_torch.serving.autopilot"):
+              "bigdl_tpu_torch.serving.autopilot",
+              "bigdl_tpu_torch.nn.beam_search"):
         assert m in mods
     for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu",
                 "conv3x3.cu", "kv_requant.cu"):
@@ -105,7 +106,7 @@ def test_fresh_interpreter_imports_no_jax_and_no_jax_package():
     + ["chip_smoke.py", "tools/torch_serving_profile.py",
        "tools/torch_training_profile.py",
        "tools/torch_flash_fault_check.py", "tools/torch_resnet_profile.py",
-       "tools/torch_kernel_times.py"]))
+       "tools/torch_kernel_times.py", "tools/torch_serving_zoo.py"]))
 def test_no_source_file_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     hits = []

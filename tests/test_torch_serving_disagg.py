@@ -230,7 +230,7 @@ def _wipe_and_restore(eng, req, restored):
     before = {k: v.clone() for k, v in eng.pool.carry.items()}
     dbefore = None if eng.pool.draft_carry is None else {
         k: v.clone() for k, v in eng.pool.draft_carry.items()}
-    eng.pool.free(eng.scheduler.finish(req))
+    eng.pool.free(eng.scheduler.finish(req, 0.0))
     assert eng.pool.alloc() == slot              # LIFO free list
     eng.pool.restore_row(slot, restored)
     for k, v in before.items():
@@ -459,8 +459,30 @@ def test_plane_metrics_and_accounting(pair):
     assert len(shed) == n_shed
     for r in shed:
         assert d.result(r) is not None and len(d.result(r)) == 0
-    with pytest.raises(NotImplementedError, match="A.2.i"):
-        DisaggregatedEngine(tlm, device="cpu", autopilot=object())
+
+def test_plane_autopilot_registers_the_pool_scaler(pair):
+    """tests/test_serving_autopilot.py:440 on the port: the autopilot
+    attaches to the prefill engine, the autoscaler registers on its
+    bus as "pool_scale", and streams equal the monolithic engine's."""
+    from bigdl_tpu_torch.serving import (
+        Autopilot, DisaggregatedEngine, ServingEngine,
+    )
+    from bigdl_tpu_torch.serving.health import OccupancyAutoscaler
+
+    _, tlm = pair
+    prompts = [[3, 7, 2], [9, 4, 5], [6, 1, 8]]
+    mono = ServingEngine(tlm, n_slots=2, device="cpu")
+    want = [mono.submit(p, max_new_tokens=6) for p in prompts]
+    want = [mono.drain()[r].tolist() for r in want]
+    ap = Autopilot()
+    d = DisaggregatedEngine(tlm, prefill_slots=2, decode_slots=2,
+                            decode_pools=2, standby_pools=1,
+                            autoscaler=True, autopilot=ap, device="cpu")
+    rids = [d.submit(p, max_new_tokens=6) for p in prompts]
+    got = d.drain()
+    assert [got[r].tolist() for r in rids] == want
+    assert isinstance(ap.controllers["pool_scale"], OccupancyAutoscaler)
+    assert ap.bus is not None and ap.bus.engine is d.prefill.engine
 
 
 # -- adapters and constraints across the wire ------------------------------------

@@ -1027,26 +1027,17 @@ def make_decode_step(model: Sequential, compute_dtype=None):
     return step, init_carry
 
 
-# per-model caches of built steps: id(model) -> {(kind, dtype, extra): step}
-_SERVING_STEPS: Dict[int, Dict] = {}
-
-
-def _step_cache(model: Sequential, kind: str, compute_dtype, make,
-                extra=None):
-    """The built step for ``(model, kind, compute_dtype, extra)``, built
-    once (``:2005``). Keyed by ``id(model)``; a ``weakref.finalize`` drops
-    the model's entry when it is collected, so a recycled id starts
-    fresh. Assumes the model's architecture is frozen after first use
-    (weights ride as runtime arguments)."""
-    import weakref
-
-    mid = id(model)
-    per_model = _SERVING_STEPS.get(mid)
-    if per_model is None:
-        per_model = _SERVING_STEPS[mid] = {}
-        weakref.finalize(model, _SERVING_STEPS.pop, mid, None)
-    key = (kind, None if compute_dtype is None else str(compute_dtype),
-           extra)
+def _step_cache(model: Sequential, kind: str, compute_dtype, make):
+    """The built step for ``(model, kind, compute_dtype)``, built once
+    (``:2005``). The cache lives on the model, so it goes with it; a copy
+    of the model (whose dict holds the same steps, built over the
+    original) starts its own. Assumes the model's architecture is frozen
+    after first use (weights ride as runtime arguments)."""
+    owner, per_model = model.__dict__.get("_serving_steps", (None, None))
+    if owner != id(model):
+        per_model = {}
+        model.__dict__["_serving_steps"] = (id(model), per_model)
+    key = (kind, None if compute_dtype is None else str(compute_dtype))
     if key not in per_model:
         per_model[key] = make()
     return per_model[key]
@@ -1059,14 +1050,10 @@ def get_decode_step(model: Sequential, compute_dtype=None):
                        lambda: make_decode_step(model, compute_dtype))
 
 
-def get_prefill_step(model: Sequential, compute_dtype=None,
-                     kv_quant: bool = False):
-    """Cached :func:`make_prefill_step`; ``kv_quant`` (the int8-writing
-    variant) has its own entry."""
+def get_prefill_step(model: Sequential, compute_dtype=None):
+    """Cached :func:`make_prefill_step` (float KV)."""
     return _step_cache(model, "prefill", compute_dtype,
-                       lambda: make_prefill_step(model, compute_dtype,
-                                                 kv_quant=kv_quant),
-                       extra="int8" if kv_quant else None)
+                       lambda: make_prefill_step(model, compute_dtype))
 
 
 def _primed_carry(model: Sequential, compute_dtype, prompt, rows: int,

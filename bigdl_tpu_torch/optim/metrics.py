@@ -34,6 +34,12 @@ class Metrics:
         with self._lock:
             return list(self._values.get(name, []))
 
+    def tail(self, name: str, n: int) -> List[float]:
+        """The last ``n`` recorded samples, copied without the rest: a
+        windowed reader costs O(n) however long the series has grown."""
+        with self._lock:
+            return self._values.get(name, [])[-int(n):]
+
     def mean(self, name: str) -> float:
         total, n = self.get(name)
         return total / n if n else 0.0

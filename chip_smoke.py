@@ -24,7 +24,10 @@ any failure raises, so the exit code is non-zero and no result prints:
 3. kernels  — each kernel against its plain PyTorch version on the card at
               its main path's shapes: decode attention at the serving shape
               (N=16 rows, H=12 heads, L=512, D=64) with per-row positions
-              that include 0 and L-1, plus a ragged L, timed with the mean,
+              that include 0 and L-1, plus a ragged L, and at the other
+              row counts the main path launches it at (serve_autopilot's 4
+              int8 slots; make_decode_step's bf16 and f32 caches at 1, 4
+              and 8 rows, whose split counts differ), timed with the mean,
               median and min-max of its repetitions beside SDPA's; the
               flash forward, dq and dk/dv kernels at the training shape
               (B=8, T=2048, H=12, D=64, bf16, causal), non-causal at a
@@ -118,14 +121,17 @@ any failure raises, so the exit code is non-zero and no result prints:
               its high-priority misses not above the best static's, one
               decode input layout; rows clean in the closed and reference
               passes with equal chunk boundaries identical, others parted
-              only within the measured error; the host µs of one
+              only within the measured error, which stays within a stated
+              limit (as on 8 clean rows); the host µs of one
               ``sample()``; launches, copies and waits per decode step
               without and with an autopilot;
 14. generate — the LM's own decoder on the same model at f32 (TF32 off)
               and bf16: ``generate`` on the serve phase's first 8 prompts
               (32 tokens, greedy and seeded-sampled) against
-              ``ServingEngine(n_slots=8)`` with float KV, equal or parted
-              at a near-tie within the measured error (counted);
+              ``ServingEngine(n_slots=8)`` with float KV, equal, or at
+              bf16 parted at a near-tie within the measured error (greedy)
+              or where both sampler rows lie near the f32 model's
+              (sampled), the error within a stated limit (counted);
               ``beam_generate`` (beam 4, 64-token prompt, 32 tokens) with
               sorted scores and the top score re-scored by the f32 model;
               ``make_decode_step``'s step p50 and tok/s at batch 1 and 4;
@@ -184,6 +190,7 @@ The last lines are the ``{"kernels": [...]}`` summary, the card's
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -411,34 +418,53 @@ def kernels_phase():
 
     from bigdl_tpu_torch.ops import decode_attention as da
 
-    n, L, h, d = SERVING_DECODE
-    # (case, q/out dtype, L, tolerance and why)
+    n_serve, L, h, d = SERVING_DECODE
+    bf16, f32 = torch.bfloat16, torch.float32
+    bf16_out = "bf16 output: two bf16 ulps at |out| <= 2"
+    f32_sums = "f32 math, sums in another order"
+    # (case, rows, q/out dtype, L, tolerance and why): the serving step's
+    # call first, then the other row counts the main path launches at —
+    # serve_autopilot's 4 int8 slots, and make_decode_step's float caches
+    # at generate's batch 1, the beam's 4 and the 8-slot engine oracle
+    # ("step" cases: q pre-scaled and cast to the cache dtype, scale 1.0,
+    # as that step calls it)
     cases = [
-        ("int8_serving", torch.bfloat16, L, 1.6e-2,
-         "bf16 output: two bf16 ulps at |out| <= 2"),
-        ("int8", torch.float32, L, 2e-5, "f32 math, sums in another order"),
-        ("int8_ragged_L300", torch.float32, 300, 2e-5,
+        ("int8_serving", n_serve, bf16, L, 1.6e-2, bf16_out),
+        ("int8", n_serve, f32, L, 2e-5, f32_sums),
+        ("int8_ragged_L300", n_serve, f32, 300, 2e-5,
          "f32 math, L not a tile multiple"),
-        ("bf16", torch.float32, L, 2e-2,
+        ("bf16", n_serve, f32, L, 2e-2,
          "p rounded to bf16 before p.v (unnormalized in the kernel)"),
-        ("fp32", torch.float32, L, 2e-5, "f32 math, sums in another order"),
+        ("fp32", n_serve, f32, L, 2e-5, f32_sums),
+        ("int8_slots4", 4, bf16, L, 1.6e-2, bf16_out),
     ]
+    for rows in (1, 4, 8):
+        cases += [
+            (f"bf16_step_b{rows}", rows, bf16, L, 3.6e-2,
+             "p rounded to bf16 before p.v (2e-2), and the bf16 output's "
+             "two ulps at |out| <= 2 (1.6e-2)"),
+            (f"fp32_step_b{rows}", rows, f32, L, 2e-5, f32_sums)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     entry = None
-    for i, (case, qdt, Lc, tol, why) in enumerate(cases):
+    for i, (case, n, qdt, Lc, tol, why) in enumerate(cases):
         kind = case.split("_")[0]
         q, k, v, pos, ks, vs = attention_inputs(kind, n, Lc, h, d, seed=i)
+        scale = None
+        if "_step_" in case:
+            q, scale = (q * d ** -0.5).to(k.dtype), 1.0
         q = q.to(qdt)
-        got = da.pooled_decode_attention(q, k, v, pos, ks, vs,
+        got = da.pooled_decode_attention(q, k, v, pos, ks, vs, scale=scale,
                                          out_dtype=qdt)
         want = da.decode_attention_reference(q, k, v, pos, ks, vs,
-                                             out_dtype=qdt)
+                                             scale=scale, out_dtype=qdt)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         finite = bool(torch.isfinite(got).all())
         emit("kernels", kernel="decode_attention", case=case,
              shape=[n, Lc, h, d], kv_dtype=str(k.dtype), out_dtype=str(qdt),
-             max_abs_err=err, tol=tol, why=why, finite=finite)
+             max_abs_err=err, tol=tol, why=why, finite=finite,
+             splits=da.split_count(n * h, Lc, sms))
         if not finite or err > tol:
             raise AssertionError(
                 f"decode_attention {case}: max abs err {err} > tol {tol}")
@@ -458,8 +484,7 @@ def kernels_phase():
         emit("kernels", kernel="decode_attention", case=case, ms=ms,
              ms_median=kern["median"], ms_min_max=[kern["min"], kern["max"]],
              host_ms_max=kern["host_ms_max"],
-             splits=da.split_count(n * h, Lc, torch.cuda.get_device_properties(
-                 0).multi_processor_count),
+             splits=da.split_count(n * h, Lc, sms),
              plain_ms=plain_ms, library_ms=library_ms,
              library_ms_median=lib_t["median"],
              library_ms_min_max=[lib_t["min"], lib_t["max"]],
@@ -2756,27 +2781,115 @@ def model_logp(lm, ids):
         return torch.log_softmax(lm(x)[0].float(), dim=-1)
 
 
-def parting(lm, prompt, got, got_lp, want, want_lp):
+#: the largest log-prob error against the f32 model that a bf16 stream
+#: over a float cache may show where it parts from another: the bf16
+#: tolerance of tests/test_torch_generate.py (the decode step against
+#: JAX's). Greedy bf16 partings of the 137m model measured 1.1e-2 to
+#: 1.8e-2, the sampler rows of sampled ones 1.3e-2 to 1.7e-2 (H100 80GB
+#: HBM3, 700 W)
+BF16_LOGP_TOL = 5e-2
+
+
+def stream_error(lm, prompt, out, lps, upto):
+    """The largest |log-prob - the f32 model's| over a stream's first
+    ``upto`` tokens (its recorded chosen log-probs against a teacher-forced
+    f32 pass)."""
+    import torch
+
+    lp = model_logp(lm, list(prompt) + list(out[:upto]))
+    at = torch.arange(len(prompt) - 1, len(prompt) - 1 + upto,
+                      device=lp.device)
+    ref = lp[at, torch.tensor(out[:upto], device=lp.device) - 1]
+    return float((torch.as_tensor(np.asarray(lps[:upto]), device=lp.device)
+                  - ref).abs().max())
+
+
+def parting(lm, prompt, got, got_lp, want, want_lp, limit):
     """Where two greedy streams of one request part (the C.3 rule for int8
     and bf16): the first differing position i, the f32 model's log-prob
     gap there between the two chosen tokens (after the common prefix), and
     the larger of the two streams' measured log-prob errors against the
     f32 model up to i. Each stream ordered the pair its own way, so an
-    honest parting has gap <= 2 x error; ``ok`` says so."""
+    honest parting has gap <= 2 x error; and the error itself must stay
+    within ``limit``, so a wrong kernel cannot widen its own bound. ``ok``
+    says both."""
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    err = max(stream_error(lm, prompt, got, got_lp, i + 1),
+              stream_error(lm, prompt, want, want_lp, i + 1))
+    lp = model_logp(lm, list(prompt) + list(want[:i]))[-1]
+    gap = abs(float(lp[got[i] - 1] - lp[want[i] - 1]))
+    return {"position": i, "gap": gap, "error": err, "limit": limit,
+            "ok": gap <= 2 * err and err <= limit}
+
+
+#: the same for bf16 compute over an int8 cache (serve_autopilot): 8 clean
+#: rows of its closed pass measured 2.7e-2 (H100 80GB HBM3, 700 W)
+INT8_BF16_LOGP_TOL = 1e-1
+
+
+@contextlib.contextmanager
+def sampler_inputs():
+    """Keep a copy, on the card, of every ``(lanes, logp)`` pair the serving
+    sampler is given while the block runs: the engine's decode step and
+    ``generate`` both import ``sample_rows`` from its module at each call,
+    so replacing it there catches both. Yields the list."""
+    from bigdl_tpu_torch.serving import sampling
+
+    real, seen = sampling.sample_rows, []
+
+    def keeping(logp, lanes, *args):
+        seen.append((lanes.clone(), logp.clone()))
+        return real(logp, lanes, *args)
+
+    sampling.sample_rows = keeping
+    try:
+        yield seen
+    finally:
+        sampling.sample_rows = real
+
+
+def sampler_row(seen, seed: int, draws: int):
+    """The log-prob row the sampler drew from for the lane ``(seed,
+    draws)``: a lane advances once per draw of an active row, so it names
+    one draw of one request."""
+    for lanes, logp in seen:
+        hit = ((lanes[:, 0] == seed) & (lanes[:, 1] == draws)).nonzero()
+        if len(hit):
+            return logp[int(hit[0, 0])]
+    raise AssertionError(f"no sampler call drew from lane ({seed}, {draws})")
+
+
+def sampled_parting(lm, prompt, sp, got, got_lp, gen_seen, want, want_lp,
+                    eng_seen, limit):
+    """Where two seeded-sampled streams of one request part. A Gumbel draw
+    from the same lane uniforms parts wherever the two log-prob rows order
+    two perturbed tokens differently or cross a top-k/top-p cut apart, so
+    no log-prob gap bounds it; what it takes is the sampler's inputs: at
+    the first differing position i, both streams' rows (each checked
+    against the log-prob it recorded for its token) must lie within
+    ``limit`` of the f32 model's row over the tokens either row's top-k
+    keeps (the only ones the draw can reach), as must each stream's
+    log-probs up to i."""
     import torch
 
     i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
-    err = 0.0
-    for out, lps in ((got, got_lp), (want, want_lp)):
-        lp = model_logp(lm, list(prompt) + list(out[:i + 1]))
-        at = torch.arange(len(prompt) - 1, len(prompt) + i,
-                          device=lp.device)
-        ref = lp[at, torch.tensor(out[:i + 1], device=lp.device) - 1]
-        err = max(err, float((torch.as_tensor(
-            np.asarray(lps[:i + 1]), device=lp.device) - ref).abs().max()))
-    lp = model_logp(lm, list(prompt) + list(want[:i]))[-1]
-    gap = abs(float(lp[got[i] - 1] - lp[want[i] - 1]))
-    return {"position": i, "gap": gap, "error": err, "ok": gap <= 2 * err}
+    r_gen = sampler_row(gen_seen, sp.seed, i)
+    r_eng = sampler_row(eng_seen, sp.seed, i)
+    if not (float(r_gen[got[i] - 1]) == float(got_lp[i])
+            and float(r_eng[want[i] - 1]) == float(want_lp[i])):
+        raise AssertionError("the kept sampler rows do not hold the tokens "
+                             "the streams drew")
+    ref = model_logp(lm, list(prompt) + list(want[:i]))[-1]
+    k = sp.top_k if sp.top_k > 0 else ref.numel()
+    reach = torch.cat([r_gen.topk(k).indices, r_eng.topk(k).indices]).unique()
+    row_err = max(float((r - ref)[reach].abs().max())
+                  for r in (r_gen, r_eng))
+    err = max(stream_error(lm, prompt, got, got_lp, i),
+              stream_error(lm, prompt, want, want_lp, i)) if i else 0.0
+    return {"position": i, "row_error": row_err,
+            "rows_apart": float((r_gen - r_eng)[reach].abs().max()),
+            "tokens_reached": int(reach.numel()), "error": err,
+            "limit": limit, "ok": max(row_err, err) <= limit}
 
 
 def serve_autopilot_phase():
@@ -2853,12 +2966,22 @@ def serve_autopilot_phase():
         prompt = out["trace"][ti][1]
         f = parting(lm, prompt, closed.outs[ti].tolist(),
                     closed.logprobs[ti], ref.outs[ti].tolist(),
-                    ref.logprobs[ti])
+                    ref.logprobs[ti], INT8_BF16_LOGP_TOL)
         parted.append({"row": ti, "same_chunks": same, **f})
+    # the error a clean stream shows, for scale beside the limit
+    clean = sorted(closed.clean)[:8]
+    clean_err = max(stream_error(lm, out["trace"][ti][1],
+                                 closed.outs[ti].tolist(), closed.logprobs[ti],
+                                 len(closed.outs[ti])) for ti in clean)
+    if not clean_err <= INT8_BF16_LOGP_TOL:
+        raise AssertionError(f"autopilot: clean streams' log-prob error "
+                             f"{clean_err} > {INT8_BF16_LOGP_TOL}")
     emit("serve_autopilot", closed_goodput=out["closed"]["goodput"],
          best_static=out["best_static"],
          gain_vs_best=out["goodput_gain_vs_best"],
          identical_rows=out["identical_rows"], partings=parted,
+         clean_rows_measured=len(clean), clean_logp_error=clean_err,
+         logp_limit=INT8_BF16_LOGP_TOL,
          sample_us_p50=out["closed"]["sample_us_p50"],
          samples=out["closed"]["samples"])
     if not all(p["ok"] for p in parted):
@@ -2887,15 +3010,16 @@ def serve_generate_phase():
     """The LM's own decoder on the 137m model, at f32 (TF32 off) and bf16:
     ``generate`` on the serve phase's first 8 prompts (32 new tokens; greedy,
     and seeded-sampled where ``serve_traffic`` samples) against
-    ``ServingEngine(n_slots=8)``'s streams with float KV: a greedy row
-    equal, or parted at a near-tie as ``parting`` allows (counted); a
-    seeded-sampled row equal at f32, and at bf16 reported with its first
-    differing position (its draw also crosses the top-k and top-p
-    thresholds, which move with the bf16 rounding of an 8-row against a
-    1-row product, so no log-prob gap bounds it); ``beam_generate`` (beam
+    ``ServingEngine(n_slots=8)``'s streams with float KV: every row equal
+    at f32; at bf16 a greedy row equal, or parted at a near-tie as
+    ``parting`` allows (counted), and a seeded-sampled row equal, or parted
+    where both streams' sampler rows lie within ``BF16_LOGP_TOL`` of the
+    f32 model's (``sampled_parting``: a draw crossing a top-k or top-p cut
+    has no log-prob gap to bound it); ``beam_generate`` (beam
     4, a 64-token prompt, 32 tokens): scores sorted, the top beam's score
     its length-penalised log-prob sum re-scored by the f32 model (1e-4
-    relative at f32, 1e-2 at bf16); then ``make_decode_step``'s step p50
+    relative at f32; at bf16 32 x ``BF16_LOGP_TOL`` over the length
+    penalty, 6.1e-3 relative here); then ``make_decode_step``'s step p50
     and tok/s at batch 1 and 4 (32 steps after a 64-token prefill, each
     synchronized), and its launches, copies and waits per step over 8
     more. Decode attention launches exactly 12 times per decode step in
@@ -2933,43 +3057,49 @@ def serve_generate_phase():
         total += da.launches
         return out, wall
 
-    for dtype_name, dt, beam_rtol in (("fp32", None, 1e-4),
-                                      ("bf16", torch.bfloat16, 1e-2)):
+    for dtype_name, dt in (("fp32", None), ("bf16", torch.bfloat16)):
         generate(lm, [5, 9, 2], length=2, temperature=0.0,
                  compute_dtype=dt)                             # warm-up
         eng = ServingEngine(lm, n_slots=8, compute_dtype=dt)
         rids = [eng.submit(p, max_new_tokens=32, sampling=sp)
                 for p, sp in reqs]
-        with torch.no_grad():
+        with torch.no_grad(), sampler_inputs() as eng_seen:
             outs = eng.drain()
         equal, parted, sampled_parted, gen_wall = 0, [], [], 0.0
         for (prompt, sp), rid in zip(reqs, rids):
-            (ids, lps), wall = counted(
-                "generate", lambda: generate(lm, prompt, length=32,
-                                             temperature=0.0, sampling=sp,
-                                             compute_dtype=dt,
-                                             return_logprobs=True), 32)
+            with sampler_inputs() as gen_seen:
+                (ids, lps), wall = counted(
+                    "generate", lambda: generate(
+                        lm, prompt, length=32, temperature=0.0, sampling=sp,
+                        compute_dtype=dt, return_logprobs=True), 32)
             gen_wall += wall
             got, want = ids.tolist(), outs[rid].tolist()
             if got == want:
                 equal += 1
             elif sp is None:
                 parted.append({"request": rid, **parting(
-                    lm, prompt, got, lps, want, eng.logprobs(rid))})
+                    lm, prompt, got, lps, want, eng.logprobs(rid),
+                    BF16_LOGP_TOL)})
             else:
-                i = next(j for j, (a, b) in enumerate(zip(got, want))
-                         if a != b)
-                sampled_parted.append({"request": rid, "position": i})
+                sampled_parted.append({"request": rid, **sampled_parting(
+                    lm, prompt, sp, got, lps, gen_seen, want,
+                    eng.logprobs(rid), eng_seen, BF16_LOGP_TOL)})
+            del gen_seen
+        del eng_seen
         emit("generate", dtype=dtype_name, requests=len(reqs),
              equal_to_engine=equal, parted_at_near_ties=parted,
              sampled_parted=sampled_parted,
              tok_s=32 * len(reqs) / gen_wall)
-        if dt is None and sampled_parted:
-            raise AssertionError(f"generate fp32: seeded-sampled streams "
-                                 f"differ from the engine's: {sampled_parted}")
+        if dt is None and (parted or sampled_parted):
+            raise AssertionError(f"generate fp32: streams differ from the "
+                                 f"engine's: {parted + sampled_parted}")
         if not all(p["ok"] for p in parted):
             raise AssertionError(f"generate {dtype_name}: streams part from "
                                  f"the engine's off a near-tie: {parted}")
+        if not all(p["ok"] for p in sampled_parted):
+            raise AssertionError(
+                f"generate {dtype_name}: sampled streams part where the "
+                f"sampler's rows lie off the f32 model: {sampled_parted}")
 
         (seqs, scores), wall = counted(
             "beam", lambda: beam_generate(lm, beam_prompt, beam_size=4,
@@ -2979,8 +3109,13 @@ def serve_generate_phase():
         at = torch.arange(len(beam_prompt) - 1, len(beam_prompt) + 31,
                           device=lp.device)
         tok = torch.as_tensor(seqs[0].astype(np.int64), device=lp.device) - 1
-        rescored = float(lp[at, tok].sum()) / ((5.0 + 32) / 6.0) ** 0.6
+        penalty = ((5.0 + 32) / 6.0) ** 0.6
+        rescored = float(lp[at, tok].sum()) / penalty
         rel = abs(float(scores[0]) - rescored) / abs(rescored)
+        # bf16: each of the 32 log-probs within BF16_LOGP_TOL of the f32
+        # model's, so the penalised sum within 32 x that over the penalty
+        beam_rtol = 1e-4 if dt is None else \
+            32 * BF16_LOGP_TOL / penalty / abs(rescored)
         # the carry gather per step copies every leaf of the beam-4 carry:
         # each layer's (4, 512, 12, 64) K and V caches, and pos
         copied = sum(t.numel() * t.element_size()

@@ -287,8 +287,14 @@ def test_decode_step_bf16_tracks_f32(rng):
 
 
 def test_step_caches_and_carry_layout(pair):
-    """get_* return the same steps per (model, dtype); the decode carry is
-    the engine pool's float layout without sampling state."""
+    """get_* return the same steps per (model, dtype), a copy of the model
+    builds its own, and the cache does not keep a dropped model alive; the
+    decode carry is the engine pool's float layout without sampling
+    state."""
+    import copy
+    import gc
+    import weakref
+
     from bigdl_tpu_torch.models.transformer import (
         get_decode_step, get_prefill_step, make_batch_decode_step,
     )
@@ -298,7 +304,13 @@ def test_step_caches_and_carry_layout(pair):
     assert get_decode_step(tlm) is a
     assert get_decode_step(tlm, torch.bfloat16) is not a
     assert get_prefill_step(tlm) is get_prefill_step(tlm)
-    assert get_prefill_step(tlm, kv_quant=True) is not get_prefill_step(tlm)
+    twin = copy.deepcopy(tlm)
+    assert get_decode_step(twin) is not a
+    assert get_decode_step(twin) is get_decode_step(twin)
+    gone = weakref.ref(twin)
+    del twin
+    gc.collect()
+    assert gone() is None
     carry = a[1](3)
     _, pool_init = make_batch_decode_step(tlm)
     pool = pool_init(3)

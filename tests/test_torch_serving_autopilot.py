@@ -124,6 +124,25 @@ def test_window_and_service_estimate_match_jax():
     assert got[1][2] == [1.0, 0.01]
 
 
+def test_window_reads_only_its_tail(monkeypatch):
+    """``window`` runs once per control sample, so it copies the last ``n``
+    samples and never the whole series (which grows with the run)."""
+    from bigdl_tpu_torch.serving import ServingMetrics
+
+    m = ServingMetrics()
+    for v in range(1000):
+        m.metrics.add("serving/decode_gap_s", float(v))
+
+    def whole_series(name):
+        raise AssertionError(f"window copied the whole {name} series")
+
+    monkeypatch.setattr(m.metrics, "values", whole_series)
+    assert m.metrics.tail("serving/decode_gap_s", 3) == [997.0, 998.0, 999.0]
+    assert m.metrics.tail("serving/none", 3) == []
+    w = m.window("decode_gap_s", 64)
+    assert w["n"] == 64 and w["mean"] == float(np.mean(range(936, 1000)))
+
+
 def test_least_laxity_key_orders_as_jax():
     """With a service estimate attached, the priority key orders deadlines
     by latest feasible start; the key is taken when a request enters the

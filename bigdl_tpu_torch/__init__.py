@@ -13,8 +13,10 @@ decode → ``drain``) with the pooled decode-attention kernel
 ``Optimizer.optimize()`` with the flash-attention kernels
 (``csrc/flash_attention.cu``); and ResNet-50 training through
 ``optimize()``, fused by :func:`bigdl_tpu_torch.nn.tpu_fusion.maybe_fuse`
-into BN → ReLU → 1×1-conv kernels (``csrc/fused_conv.cu``). Every kernel
-is hand-written CUDA, built at first use.
+into BN → ReLU → 1×1-conv kernels (``csrc/fused_conv.cu``); LeNet-5 on
+MNIST through ``LocalOptimizer`` (``models/lenet.py``) with validation,
+checkpoints and resume. Every kernel is hand-written CUDA, built at first
+use.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise

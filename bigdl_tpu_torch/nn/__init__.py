@@ -1,6 +1,6 @@
 """Layers of the port (``bigdl_tpu.nn`` counterparts), as ``nn.Module``s."""
 
-from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU
+from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU, Tanh
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch, beam_search
 from bigdl_tpu_torch.nn.containers import Container, Sequential
@@ -28,7 +28,7 @@ from bigdl_tpu_torch.nn.shape_ops import CAddTable, Reshape
 
 __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
            "Sequential", "Graph", "Input", "ModuleNode", "Linear",
-           "LookupTable", "LogSoftMax", "ReLU", "MultiHeadAttention",
+           "LookupTable", "LogSoftMax", "ReLU", "Tanh", "MultiHeadAttention",
            "SpatialConvolution", "BatchNormalization",
            "SpatialBatchNormalization", "SpatialMaxPooling",
            "SpatialAveragePooling", "Reshape", "CAddTable",

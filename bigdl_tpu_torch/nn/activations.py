@@ -20,6 +20,13 @@ class ReLU(TensorModule):
         return torch.relu(x)
 
 
+class Tanh(TensorModule):
+    """``tanh(x)`` (``bigdl_tpu/nn/activations.py:36``)."""
+
+    def forward(self, x):
+        return torch.tanh(x)
+
+
 class LogSoftMax(AbstractModule):
     def forward(self, x):
         return torch.log_softmax(x, dim=-1)

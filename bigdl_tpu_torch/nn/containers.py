@@ -6,7 +6,9 @@ JAX container keys its params tree (``containers.py:33``), so the two
 trees line up index by index (:func:`bigdl_tpu_torch.models.transformer.
 load_jax_params` matches children by the integer before the ``:``; the
 names after it carry per-process instance counters and differ between
-builds).
+builds). A child is keyed by the name it has when it is added, so
+``set_name`` comes before ``add`` (``AbstractModule.set_name`` refuses a
+later rename).
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from bigdl_tpu_torch.nn.module import AbstractModule
 
 class Container(AbstractModule):
     def add(self, module: AbstractModule) -> "Container":
-        self.add_module(f"{len(self._modules)}:{module.name}", module)
+        key = f"{len(self._modules)}:{module.name}"
+        self.add_module(key, module)
+        module._container_key = key
         return self
 
     def layers(self) -> List[AbstractModule]:

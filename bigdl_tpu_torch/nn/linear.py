@@ -6,7 +6,9 @@ params leaf copies in unchanged. Default init is the reference's
 ``init_weight``/``init_bias`` take an
 :class:`~bigdl_tpu_torch.nn.init_methods.InitializationMethod` (as
 ``ResNet`` passes ``Xavier()``/``Zeros()``), ``weight_init``/``bias_init``
-a callable that fills the tensor.
+a callable that fills the tensor. ``w_regularizer``/``b_regularizer``
+(:mod:`bigdl_tpu_torch.optim.regularizer`) add their gradient terms in
+the train step.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from bigdl_tpu_torch.nn.module import AbstractModule, new_param
 
 class Linear(AbstractModule):
     def __init__(self, input_size: int, output_size: int,
-                 with_bias: bool = True, device=None,
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None, device=None,
                  generator: torch.Generator = None,
                  weight_init=None, bias_init=None,
                  init_weight=None, init_bias=None) -> None:
@@ -27,6 +30,8 @@ class Linear(AbstractModule):
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         bound = 1.0 / max(input_size, 1) ** 0.5
 
         def uniform(t):

@@ -1,9 +1,30 @@
 """Optimization side of the port (``bigdl_tpu.optim`` counterparts): the
-optim methods, the train step, triggers and the local optimizer."""
+optim methods and SGD's schedules, the train step, triggers, the local
+optimizer, validation methods, the evaluator and the regularizers."""
 
-from bigdl_tpu_torch.optim.optim_method import SGD, Adam, OptimMethod
+from bigdl_tpu_torch.optim.evaluator import (
+    Evaluator, LocalPredictor, Predictor, Validator,
+)
+from bigdl_tpu_torch.optim.metrics import Metrics
+from bigdl_tpu_torch.optim.optim_method import (
+    SGD, Adam, Default, Exponential, LearningRateSchedule, MultiStep,
+    OptimMethod, Plateau, Poly, SequentialSchedule, Step, Warmup,
+)
 from bigdl_tpu_torch.optim.optimizer import LocalOptimizer, Optimizer
+from bigdl_tpu_torch.optim.regularizer import (
+    L1L2Regularizer, L1Regularizer, L2Regularizer,
+)
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.optim.validation import (
+    MAE, AccuracyResult, Loss, LossResult, Top1Accuracy, Top5Accuracy,
+    ValidationMethod, ValidationResult,
+)
 
-__all__ = ["Adam", "LocalOptimizer", "OptimMethod", "Optimizer", "SGD",
-           "Trigger"]
+__all__ = ["Adam", "Default", "Exponential", "LearningRateSchedule",
+           "MultiStep", "OptimMethod", "Plateau", "Poly",
+           "SequentialSchedule", "SGD", "Step", "Warmup", "LocalOptimizer",
+           "Optimizer", "Trigger", "Evaluator", "LocalPredictor",
+           "Predictor", "Validator", "AccuracyResult", "Loss", "LossResult",
+           "MAE", "Top1Accuracy", "Top5Accuracy", "ValidationMethod",
+           "ValidationResult", "Metrics", "L1L2Regularizer", "L1Regularizer",
+           "L2Regularizer"]

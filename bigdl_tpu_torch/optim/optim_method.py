@@ -1,5 +1,8 @@
 """OptimMethods (``bigdl_tpu/optim/optim_method.py``): the ``OptimMethod``
-base, ``SGD`` with the ``Default`` learning-rate schedule, and ``Adam``.
+base with ``save``/``load``/``clear_history``, ``SGD`` with its
+learning-rate schedules (``Default``, ``Step``, ``MultiStep``,
+``Exponential``, ``Poly``, ``Warmup``, ``SequentialSchedule``,
+``Plateau``; ``:53-190``), and ``Adam``.
 
 Each method keeps the JAX package's functional contract
 ``update(grads, state, params) -> (new_params, new_state)`` over dicts of
@@ -12,9 +15,17 @@ tensors are the ones passed in, updated with ``torch._foreach_*`` ops
 (one launch per op for all tensors), so a step holds no second copy of
 the params or the slots.
 
-Not ported yet (they raise ``NotImplementedError``): the other schedules
-of SGD, Adam's bf16 slot storage (``state_dtype``) and stochastic
-rounding, and the other methods.
+A schedule is host arithmetic on the optimizer's own step counter
+``neval`` (0 at the first update, as in JAX), each operation rounded to
+f32 in the order the JAX schedule's operations run one by one, so the
+rates equal JAX's bit for bit. (Inside JAX's jitted train step XLA may
+contract ``a * b + c`` into one fused multiply-add, or divide by a
+constant as a multiply; the rate it applies can then differ from the
+op-by-op value, and from the port's, by an ulp.) ``Plateau`` reads the
+scale that ``record_score`` (fed by validation) last set.
+
+Not ported yet (they raise ``NotImplementedError``): Adam's bf16 slot
+storage (``state_dtype``) and stochastic rounding, and the other methods.
 """
 
 from __future__ import annotations
@@ -32,16 +43,151 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-class Default:
+_F32 = np.float32
+
+
+class LearningRateSchedule:
+    def lr(self, base_lr: float, step: int) -> float:
+        """The rate of update ``step`` (``neval``, from 0)."""
+        raise NotImplementedError
+
+
+class Default(LearningRateSchedule):
     """lr / (1 + step * learningRateDecay) — the reference SGD default."""
 
     def __init__(self, learning_rate_decay: float = 0.0) -> None:
         self.learning_rate_decay = learning_rate_decay
 
     def lr(self, base_lr: float, step: int) -> float:
-        return _f32(np.float32(base_lr) / (np.float32(1.0) + np.float32(step)
-                                           * np.float32(
-                                               self.learning_rate_decay)))
+        return _f32(_F32(base_lr) / (_F32(1.0) + _F32(step)
+                                     * _F32(self.learning_rate_decay)))
+
+
+class Step(LearningRateSchedule):
+    """lr * gamma ^ floor(step / stepSize)."""
+
+    def __init__(self, step_size: int, gamma: float) -> None:
+        self.step_size = step_size
+        self.gamma = gamma
+
+    def lr(self, base_lr, step):
+        e = np.floor(_F32(step) / _F32(self.step_size))
+        return _f32(_F32(base_lr) * _F32(self.gamma) ** e)
+
+
+class MultiStep(LearningRateSchedule):
+    """lr * gamma ^ (number of milestones passed)."""
+
+    def __init__(self, step_sizes, gamma: float) -> None:
+        self.step_sizes = list(step_sizes)
+        self.gamma = gamma
+
+    def lr(self, base_lr, step):
+        e = _F32(sum(_F32(step >= s) for s in self.step_sizes))
+        return _f32(_F32(base_lr) * _F32(self.gamma) ** e)
+
+
+class Exponential(LearningRateSchedule):
+    """lr * decayRate ^ (step / decayStep), floored when ``stair_case``."""
+
+    def __init__(self, decay_step: int, decay_rate: float,
+                 stair_case: bool = False) -> None:
+        self.decay_step = decay_step
+        self.decay_rate = decay_rate
+        self.stair_case = stair_case
+
+    def lr(self, base_lr, step):
+        e = _F32(step) / _F32(self.decay_step)
+        if self.stair_case:
+            e = np.floor(e)
+        return _f32(_F32(base_lr) * _F32(self.decay_rate) ** e)
+
+
+class Poly(LearningRateSchedule):
+    """lr * (1 - step/maxIteration)^power — Inception-v1's schedule."""
+
+    def __init__(self, power: float, max_iteration: int) -> None:
+        self.power = power
+        self.max_iteration = max_iteration
+
+    def lr(self, base_lr, step):
+        frac = np.clip(_F32(step) / _F32(self.max_iteration), _F32(0.0),
+                       _F32(1.0))
+        return _f32(_F32(base_lr) * (_F32(1.0) - frac) ** _F32(self.power))
+
+
+class Warmup(LearningRateSchedule):
+    """Linear ramp by ``delta`` per step (chained inside a
+    SequentialSchedule for the warm-up-then-step recipe)."""
+
+    def __init__(self, delta: float, iteration_num=None) -> None:
+        self.delta = delta
+        self.iteration_num = iteration_num
+
+    def lr(self, base_lr, step):
+        return _f32(_F32(base_lr) + _F32(step) * _F32(self.delta))
+
+
+class SequentialSchedule(LearningRateSchedule):
+    """Chain schedules, each active for its ``iterations`` steps and fed
+    the step counted from its own start."""
+
+    def __init__(self, iteration_per_schedule=None) -> None:
+        self.schedules = []
+
+    def add(self, schedule: LearningRateSchedule,
+            iterations: int) -> "SequentialSchedule":
+        self.schedules.append((schedule, iterations))
+        return self
+
+    def lr(self, base_lr, step):
+        out, offset = None, 0
+        for sched, iters in self.schedules:
+            if out is None or step >= offset:
+                out = sched.lr(base_lr, step - offset)
+            offset += iters
+        return out
+
+
+class Plateau(LearningRateSchedule):
+    """Reduce on plateau: ``record_score`` (called by the optimizer's
+    validation) scales the rate by ``factor`` after ``patience`` scores
+    without an improvement of ``epsilon``, then waits ``cooldown``
+    scores."""
+
+    def __init__(self, monitor: str = "score", factor: float = 0.1,
+                 patience: int = 10, mode: str = "min", epsilon: float = 1e-4,
+                 cooldown: int = 0, min_lr: float = 0.0) -> None:
+        self.factor = factor
+        self.patience = patience
+        self.mode = mode
+        self.epsilon = epsilon
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self._scale = 1.0
+        self._best = None
+        self._wait = 0
+        self._cooldown_left = 0
+
+    def record_score(self, score: float) -> None:
+        improved = (
+            self._best is None
+            or (self.mode == "min" and score < self._best - self.epsilon)
+            or (self.mode == "max" and score > self._best + self.epsilon))
+        if improved:
+            self._best = score
+            self._wait = 0
+        elif self._cooldown_left > 0:
+            self._cooldown_left -= 1
+        else:
+            self._wait += 1
+            if self._wait >= self.patience:
+                self._scale *= self.factor
+                self._wait = 0
+                self._cooldown_left = self.cooldown
+
+    def lr(self, base_lr, step):
+        return _f32(max(_F32(base_lr * self._scale), _F32(self.min_lr)))
 
 
 class OptimMethod:
@@ -57,6 +203,24 @@ class OptimMethod:
                params: Tensors) -> Tuple[Tensors, Dict]:
         raise NotImplementedError
 
+    def clear_history(self) -> "OptimMethod":
+        self.state = {"epoch": 1, "neval": 1}
+        return self
+
+    def save(self, path: str, over_write: bool = False) -> "OptimMethod":
+        """Pickle this method (hyper-parameters, schedule, host state) to
+        ``path`` atomically (:mod:`bigdl_tpu_torch.utils.file_io`)."""
+        from bigdl_tpu_torch.utils.file_io import File
+
+        File.save(self, path, over_write=over_write)
+        return self
+
+    @staticmethod
+    def load(path: str) -> "OptimMethod":
+        from bigdl_tpu_torch.utils.file_io import File
+
+        return File.load(path)
+
 
 class SGD(OptimMethod):
     def __init__(self, learning_rate: float = 1e-3,
@@ -65,11 +229,6 @@ class SGD(OptimMethod):
                  nesterov: bool = False,
                  learning_rate_schedule=None) -> None:
         super().__init__()
-        if learning_rate_schedule is not None and not isinstance(
-                learning_rate_schedule, Default):
-            raise NotImplementedError(
-                f"{type(learning_rate_schedule).__name__} schedule is not "
-                "ported yet (only Default)")
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.momentum = momentum

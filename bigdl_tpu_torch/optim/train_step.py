@@ -13,10 +13,14 @@ inside the autograd graph, the output is cast to f32 for the loss, and
 the gradients flow back through the casts to the f32 masters. Integer
 inputs (token ids) pass through untouched.
 
-Not ported yet: per-layer regularizers and frozen layers (the step
-raises if a module asks for either), stochastic layers (``rng`` is
-accepted for the JAX signature and unused: no port layer draws noise),
-and the JAX step's ``grad_transform``/``device_preprocess`` hooks.
+Per-layer regularizers (a layer's ``w_regularizer``/``b_regularizer``)
+change the gradients right after the backward pass, before clipping, in
+the JAX step's order (``apply_module_regularizers``).
+
+Not ported yet: frozen layers (the step raises if a module asks for
+them), stochastic layers (``rng`` is accepted for the JAX signature and
+unused: no port layer draws noise), and the JAX step's
+``grad_transform``/``device_preprocess`` hooks.
 """
 
 from __future__ import annotations
@@ -74,15 +78,38 @@ def clip_by_value(grads: Dict[str, torch.Tensor], min_v: float, max_v: float):
     return {k: g.clamp(min_v, max_v) for k, g in grads.items()}
 
 
-_UNPORTED = ("w_regularizer", "u_regularizer", "b_regularizer")
+#: (regularizer attribute, the leaf it regularizes)
+_REGULARIZED = (("w_regularizer", "weight"), ("b_regularizer", "bias"))
+
+
+def module_regularizers(model):
+    """``[(parameter name, regularizer)]`` for every regularized leaf,
+    named as ``named_parameters`` names it: the module's name in
+    ``model.named_modules()`` (child indices included), then the leaf."""
+    own = dict(model.named_parameters())
+    out = []
+    for prefix, m in model.named_modules():
+        for reg_attr, key in _REGULARIZED:
+            reg = getattr(m, reg_attr, None)
+            name = f"{prefix}.{key}" if prefix else key
+            if reg is not None and name in own:
+                out.append((name, reg))
+    return out
+
+
+def apply_module_regularizers(regs, params, grads):
+    """Add each regularizer's gradient term (``regs`` from
+    :func:`module_regularizers`); returns a new grads dict."""
+    if not regs:
+        return grads
+    out = dict(grads)
+    for name, reg in regs:
+        out[name] = reg.grad_update(params[name], out[name])
+    return out
 
 
 def _refuse_unported(model) -> None:
     for m in model.modules():
-        if any(getattr(m, a, None) is not None for a in _UNPORTED):
-            raise NotImplementedError(
-                f"{type(m).__name__}: per-layer regularizers are not ported "
-                "yet")
         if getattr(m, "frozen", None):
             raise NotImplementedError(
                 f"{type(m).__name__}: frozen layers are not ported yet")
@@ -105,6 +132,7 @@ def make_train_step(model, criterion, optim_method,
     backward pass and divides the gradients after (fp16)."""
     _refuse_unported(model)
     compute_dtype = resolve_dtype(compute_dtype)
+    regs = module_regularizers(model)
 
     def step(params, opt_state, model_state, rng, inputs, targets):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
@@ -123,6 +151,7 @@ def make_train_step(model, criterion, optim_method,
         if loss_scale != 1.0:
             loss = loss / loss_scale
             grads = {k: g / loss_scale for k, g in grads.items()}
+        grads = apply_module_regularizers(regs, params, grads)
         if grad_clip:
             if grad_clip.get("l2_norm") is not None:
                 grads = clip_by_global_norm(grads, grad_clip["l2_norm"])

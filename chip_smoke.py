@@ -162,7 +162,22 @@ any failure raises, so the exit code is non-zero and no result prints:
               ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
               timed steps: step ms p50, images/s, peak memory, losses; then
               the unfused ``Graph`` on the same recipe;
-20. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+20. lenet    — BASELINE config #1: ``generate_idx_dataset`` writes
+              60,000 train and 10,000 test images (seed 7, noise 220);
+              ``train_main`` (batch 128, lr 0.05, momentum 0.9, 5 epochs,
+              ``--cache``) and ``test_main`` on its last snapshot, Top-1 >=
+              0.97; the ``Optimizer`` API with ``set_validation`` every
+              epoch (each validation line printed): step p50, records/s,
+              epoch wall, the host pipeline's share, validation seconds,
+              peak memory and, by ``torch.profiler`` over 8 steps,
+              launches, copies and waits per train step; a run stopped
+              after epoch 2 and resumed into a freshly built model equal to
+              the uninterrupted run bitwise under ``cudnn.deterministic``,
+              and the same difference without it printed; 20 steps on the
+              card against the CPU from the same weights, parameters within
+              ``LENET_CARD_TOL``. No port kernel runs on this path (cuDNN's
+              5x5 convolutions);
+21. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
@@ -203,6 +218,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 HOST_GUARD_CYCLES = 2_000_000    # ~1 ms of device spin while the host enqueues
+LENET_CARD_TOL = 1e-5            # LeNet, 20 f32 SGD steps, card vs CPU
 
 
 def emit(phase: str, **fields) -> None:
@@ -1277,6 +1293,247 @@ def resnet_train_phase(warm: int = 2, timed: int = 5, batch: int = 256):
                       "unfused_images_per_s": batch / u_p50,
                       "unfused_peak_mem_gib": u_peak}))
     return launches
+
+
+def timed_stream(inner):
+    """``inner`` (a dataset of MiniBatches) whose training iterator adds
+    the host seconds spent producing each batch (the pipeline: shuffle,
+    normalize, stack) to its ``fetch_s``."""
+    from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
+
+    class Timed(AbstractDataSet):
+        fetch_s = 0.0
+
+        def size(self) -> int:
+            return inner.size()
+
+        def data(self, train: bool):
+            it = inner.data(train)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.fetch_s += time.perf_counter() - t0
+                yield batch
+
+    return Timed()
+
+
+def lenet_run(device, samples, test_set, epochs, seed, ckpt=None,
+              resume=False, validate=False):
+    """LeNet-5 trained through ``Optimizer`` with the recipe of
+    ``train_main`` (batch 128, SGD 0.05 / momentum 0.9, normalized
+    MNIST), from weights drawn on the CPU from ``seed``; returns (model,
+    optimizer, timed stream)."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.dataset import mnist
+    from bigdl_tpu_torch.dataset.image import GreyImgNormalizer
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.optim.validation import Loss, Top1Accuracy
+
+    model = LeNet5(10, device="cpu",
+                   generator=torch.Generator().manual_seed(seed)).to(device)
+    stream = timed_stream(
+        DataSet.array(samples)
+        >> GreyImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD)
+        >> SampleToMiniBatch(128))
+    opt = Optimizer(model, stream, ClassNLLCriterion(),
+                    end_trigger=Trigger.max_epoch(epochs))
+    opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+    if ckpt is not None:
+        opt.set_checkpoint(ckpt, Trigger.every_epoch())
+    if validate:
+        opt.set_validation(Trigger.every_epoch(), test_set,
+                           [Top1Accuracy(), Loss()], 128)
+    opt.optimize(resume=resume)
+    return model, opt, stream
+
+
+def max_param_diff(a, b) -> float:
+    return max(float((x.detach() - y.detach()).abs().max())
+               for x, y in zip(a.parameters(), b.parameters()))
+
+
+def lenet_phase(device="cuda", n_train=60000, n_test=10000, epochs=5,
+                card_steps=20):
+    """BASELINE config #1: LeNet-5 on MNIST-sized generated idx data
+    through LocalOptimizer (see the phase list). No port kernel runs on
+    this path: its 5x5 convolutions are cuDNN's ``F.conv2d``."""
+    import copy
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.dataset import mnist
+    from bigdl_tpu_torch.dataset.image import GreyImgNormalizer
+    from bigdl_tpu_torch.models.lenet import LeNet5, test_main, train_main
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    on_card = device == "cuda"
+    work = tempfile.mkdtemp(prefix="lenet_")
+    lines = []
+
+    class Validation(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("validation ["):
+                lines.append(msg)
+
+    log = logging.getLogger("bigdl_tpu_torch")
+    handler = Validation()
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        mnist.generate_idx_dataset(work, n_train=n_train, n_test=n_test,
+                                   seed=7, noise=220.0)
+        gen_s = time.perf_counter() - t0
+        # 1-3: the mains, on the device they default to
+        ckpt = os.path.join(work, "main_ckpt")
+        dev_args = [] if on_card else ["--device", device]
+        torch.manual_seed(0)
+        t0 = time.perf_counter()
+        train_main(["-f", work, "-b", "128", "--learningRate", "0.05",
+                    "--maxEpoch", str(epochs), "--cache", ckpt] + dev_args)
+        main_s = time.perf_counter() - t0
+        (res,) = test_main(["-f", work, "--model",
+                            os.path.join(ckpt, "model")] + dev_args)
+        top1, scored = res.result()
+        emit("lenet", what="train_main + test_main", epochs=epochs,
+             train_images=n_train, test_images=n_test, gen_s=gen_s,
+             train_main_s=main_s, top1=top1, scored=scored,
+             checkpoints=sorted(os.listdir(ckpt)))
+        if not (scored == n_test and top1 >= 0.97):
+            raise AssertionError(f"LeNet test_main Top-1 {top1} on {scored} "
+                                 "images, expected >= 0.97")
+        # 4: the Optimizer API with validation every epoch, measured
+        samples = mnist.load_samples(work, "train", synthetic_fallback=False)
+        test_set = (DataSet.array(mnist.load_samples(
+            work, "test", synthetic_fallback=False))
+            >> GreyImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD))
+        if on_card:
+            torch.backends.cudnn.deterministic = False
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        val_s = []
+        run = Optimizer._run_validation
+
+        def timed_validation(self, *args):
+            t = time.perf_counter()
+            try:
+                return run(self, *args)
+            finally:
+                val_s.append(time.perf_counter() - t)
+
+        Optimizer._run_validation = timed_validation
+        try:
+            t0 = time.perf_counter()
+            whole, opt, stream = lenet_run(device, samples, test_set, epochs,
+                                           seed=5, validate=True)
+            wall = time.perf_counter() - t0
+        finally:
+            Optimizer._run_validation = run
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 20 if on_card
+                else None)
+        step_s = opt.metrics.values("computing time")
+        steps = len(step_s)
+        train_wall = wall - sum(val_s)
+        p50 = float(np.median(step_s))
+        if len(lines) != 2 * epochs:
+            raise AssertionError(f"{len(lines)} validation lines for "
+                                 f"{epochs} epochs: {lines}")
+        counts = None
+        if on_card:
+            def eight_steps():
+                m = copy.deepcopy(whole)
+                o = Optimizer(m, DataSet.array(samples[:1024])
+                              >> GreyImgNormalizer(mnist.TRAIN_MEAN,
+                                                   mnist.TRAIN_STD)
+                              >> SampleToMiniBatch(128),
+                              ClassNLLCriterion(),
+                              end_trigger=Trigger.max_iteration(8))
+                o.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+                o.optimize()
+            eight_steps()                             # warm
+            counts = window_counts(eight_steps, "lenet_train", 8)
+        emit("lenet", what="Optimizer with validation every epoch",
+             card=nvidia_smi() if on_card else device, epochs=epochs,
+             steps=steps, validation=lines,
+             step_ms_p50=p50 * 1e3,
+             step_ms_p90=float(np.percentile(step_s, 90)) * 1e3,
+             records_per_s=128 / p50,
+             epoch_wall_s=train_wall / epochs,
+             pipeline_s_per_epoch=stream.fetch_s / epochs,
+             pipeline_share=stream.fetch_s / train_wall,
+             outside_step_share=(train_wall - sum(step_s)
+                                 + stream.fetch_s) / train_wall,
+             validation_s=val_s, peak_mem_mib=peak, per_step=counts)
+        # 5: resume = uninterrupted, bitwise under cudnn.deterministic
+        diffs = {}
+        for det in ((True, False) if on_card else (True,)):
+            if on_card:
+                torch.backends.cudnn.deterministic = det
+            ref = (lenet_run(device, samples, test_set, epochs, seed=5)[0]
+                   if det else whole)
+            part = os.path.join(work, f"ckpt_{det}")
+            lenet_run(device, samples, test_set, 2, seed=5, ckpt=part)
+            resumed, ropt, _ = lenet_run(device, samples, test_set, epochs,
+                                         seed=99, ckpt=part, resume=True)
+            diffs[det] = max_param_diff(resumed, ref)
+            if ropt.optim_method.state["neval"] != steps + 1:
+                raise AssertionError("the resumed run ended at iteration "
+                                     f"{ropt.optim_method.state['neval']}")
+        if on_card:
+            torch.backends.cudnn.deterministic = False
+        emit("lenet", what="resume after epoch 2 into a fresh model vs an "
+             "uninterrupted run", epochs=epochs,
+             max_abs_diff_deterministic=diffs[True],
+             max_abs_diff_default=diffs.get(False))
+        if diffs[True] != 0.0:
+            raise AssertionError("resumed LeNet parameters differ from the "
+                                 f"uninterrupted run's by {diffs[True]}")
+        # 6: the card against the CPU from the same weights and batches
+        if on_card:
+            batches = list(zip(range(card_steps), (
+                DataSet.array(samples)
+                >> GreyImgNormalizer(mnist.TRAIN_MEAN, mnist.TRAIN_STD)
+                >> SampleToMiniBatch(128)).data(train=True)))
+            cpu = LeNet5(10, device="cpu",
+                         generator=torch.Generator().manual_seed(11))
+            gpu = copy.deepcopy(cpu).to("cuda")
+            for m in (cpu, gpu):
+                o = Optimizer(m, DataSet.array([b for _, b in batches]),
+                              ClassNLLCriterion(),
+                              end_trigger=Trigger.max_iteration(card_steps))
+                o.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+                o.optimize()
+            err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                      for a, b in zip(gpu.parameters(), cpu.parameters()))
+            emit("lenet", what=f"{card_steps} steps on the card vs the CPU",
+                 param_max_abs_err=err, tol=LENET_CARD_TOL)
+            if not err <= LENET_CARD_TOL:
+                raise AssertionError(f"LeNet card vs CPU after {card_steps} "
+                                     f"steps: {err} > {LENET_CARD_TOL}")
+        print(json.dumps({"lenet_step_ms_p50": p50 * 1e3,
+                          "lenet_records_per_s": 128 / p50,
+                          "lenet_epoch_wall_s": train_wall / epochs,
+                          "lenet_pipeline_share":
+                              stream.fetch_s / train_wall,
+                          "lenet_test_top1": top1}))
+    finally:
+        log.removeHandler(handler)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def requant_inputs(case: str, seed: int):
@@ -3219,6 +3476,7 @@ def main() -> int:
     resnet_check_phase()
     for name, n in resnet_train_phase().items():
         fused[name]["launches"] = n
+    lenet_phase()
     conv = conv3x3_phase()
     emit("timing_guard", guard_ms=guard_ms(),
          host_enqueue_ms_max=HOST_ENQUEUE["max_ms"],

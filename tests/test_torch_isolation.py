@@ -77,7 +77,13 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.serving.disagg",
               "bigdl_tpu_torch.serving.health",
               "bigdl_tpu_torch.serving.autopilot",
-              "bigdl_tpu_torch.nn.beam_search"):
+              "bigdl_tpu_torch.nn.beam_search",
+              "bigdl_tpu_torch.models.lenet", "bigdl_tpu_torch.models.utils",
+              "bigdl_tpu_torch.dataset.mnist", "bigdl_tpu_torch.dataset.image",
+              "bigdl_tpu_torch.optim.validation",
+              "bigdl_tpu_torch.optim.evaluator",
+              "bigdl_tpu_torch.optim.regularizer",
+              "bigdl_tpu_torch.utils.file_io", "bigdl_tpu_torch.utils.engine"):
         assert m in mods
     for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu",
                 "conv3x3.cu", "kv_requant.cu"):

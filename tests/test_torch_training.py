@@ -138,14 +138,19 @@ def test_optim_method_updates_match_jax(kind):
 
 
 def test_unported_optim_knobs_raise():
-    from bigdl_tpu_torch.optim.optim_method import SGD, Adam
+    from bigdl_tpu_torch.optim.optim_method import SGD, Adam, Step
 
     with pytest.raises(NotImplementedError, match="state_dtype"):
         Adam(state_dtype="bf16")
     with pytest.raises(NotImplementedError, match="stochastic_rounding"):
         Adam(stochastic_rounding=True)
-    with pytest.raises(NotImplementedError, match="schedule"):
-        SGD(learning_rate_schedule=object())
+    # SGD's schedules are ported: a Step schedule drives the update's rate
+    sgd = SGD(learning_rate=0.1, learning_rate_schedule=Step(2, 0.5))
+    p = {"w": torch.ones(3)}
+    state = sgd.init_state(p)
+    for _ in range(3):
+        p, state = sgd.update({"w": torch.ones(3)}, state, p)
+    assert torch.allclose(p["w"], torch.full((3,), 1 - 0.1 - 0.1 - 0.05))
 
 
 # ------------------------------------------------------------ train step
@@ -282,7 +287,7 @@ def test_optimizer_optimize_matches_jax_local_optimizer():
             atol=10e-3 if k.endswith("wk.bias") else 2e-6)
 
 
-def test_optimizer_refuses_unported_knobs_and_does_not_retry():
+def test_optimizer_refuses_unported_knobs_and_does_not_retry(tmp_path):
     from bigdl_tpu_torch.dataset import Sample
     from bigdl_tpu_torch.nn import MaskedSoftmaxCECriterion
     from bigdl_tpu_torch.optim import Optimizer, Trigger
@@ -298,16 +303,23 @@ def test_optimizer_refuses_unported_knobs_and_does_not_retry():
     opt = Optimizer(tlm, [Sample(x, y) for x, y in _samples(4, 0)],
                     Failing(0), batch_size=4,
                     end_trigger=Trigger.max_iteration(2))
-    for name in ("set_checkpoint", "set_validation", "set_train_summary",
-                 "set_profile", "handle_preemption"):
+    for name in ("set_train_summary", "set_profile", "handle_preemption"):
         with pytest.raises(NotImplementedError):
             getattr(opt, name)()
-    with pytest.raises(NotImplementedError, match="resume"):
-        opt.optimize(resume=True)
     before = {k: p.detach().clone() for k, p in tlm.named_parameters()}
     with pytest.raises(RuntimeError, match="kernel failed"):
         opt.optimize()
     assert calls == [1]                       # one attempt, no retry
+    # checkpoints, validation and resume are ported: each now works here
+    from bigdl_tpu_torch.optim.validation import Loss
+
+    ckpt = str(tmp_path / "ckpt")
+    assert opt.set_checkpoint(ckpt, Trigger.every_epoch()) is opt
+    assert opt.set_validation(Trigger.every_epoch(), [
+        Sample(x, y) for x, y in _samples(4, 1)], [Loss(Failing(0))], 4) is opt
+    with pytest.raises(RuntimeError, match="kernel failed"):
+        opt.optimize(resume=True)             # nothing saved yet: fresh
+    assert calls == [1, 1]                    # again one attempt
     for k, p in tlm.named_parameters():
         assert torch.equal(p.detach(), before[k])
 

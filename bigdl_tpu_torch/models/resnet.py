@@ -13,8 +13,8 @@ carries a JAX model's weights and BN statistics across. Weights are f32,
 made on ``device`` (default ``cuda``; raises without a card unless
 ``device="cpu"``) from a ``torch.Generator`` seeded with ``seed``.
 Wrap the result with :func:`bigdl_tpu_torch.nn.tpu_fusion.maybe_fuse` for
-the fused NHWC execution. ``train_main`` is not ported yet (it needs
-``models/utils.py`` and the data loaders).
+the fused NHWC execution. ``train_main`` is the reference's
+TrainImageNet/TrainCIFAR10 main over ``models/utils.py``.
 """
 
 from __future__ import annotations
@@ -179,3 +179,51 @@ def _resnet_cifar(b: _Builder, class_num, depth, shortcut_type,
     x = Reshape([64], batch_mode=True).inputs(x)
     x = b.linear(64, class_num).inputs(x)
     return Graph(inp, LogSoftMax().inputs(x))
+
+
+def train_main(argv=None):
+    """Reference ``models/resnet/TrainImageNet.scala`` /
+    ``TrainCIFAR10.scala`` mains: ``--dataset cifar10`` trains ResNet-20
+    (shortcut A) on the CIFAR pickle batches under ``-f`` or the synthetic
+    set, ``--dataset imagenet`` ResNet-50 (shortcut B) on
+    ``synthetic_imagenet_samples``, both with nesterov SGD; ``--device``
+    (default ``cuda``). Returns the trained model."""
+    from bigdl_tpu_torch.models.utils import run_training, train_parser
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim.optim_method import SGD
+
+    p = train_parser("ResNet training", batch_size=128,
+                     learning_rate=0.1, max_epoch=10)
+    p.add_argument("--dataset", default="cifar10",
+                   choices=["cifar10", "imagenet"])
+    p.add_argument("--depth", type=int, default=None,
+                   help="default: 20 (cifar10) / 50 (imagenet)")
+    p.add_argument("--warmupEpoch", type=int, default=0)
+    args = p.parse_args(argv)
+
+    if args.dataset == "cifar10":
+        from bigdl_tpu_torch.dataset.cifar import load_samples
+
+        samples = load_samples(args.folder or "/nonexistent", "train",
+                               synthetic_count=args.synthetic)
+        model = ResNet(10, {"depth": args.depth or 20, "shortcutType": "A",
+                            "dataSet": "cifar10"}, device=args.device)
+    else:
+        from bigdl_tpu_torch.models.utils import synthetic_imagenet_samples
+
+        if args.folder:
+            raise NotImplementedError(
+                "-f with --dataset imagenet reads an image folder "
+                "(image_folder_samples), which comes with the host data "
+                "plane (ROADMAP.md A.6); omit -f for synthetic data")
+        samples = synthetic_imagenet_samples(args.synthetic)
+        model = ResNet(1000, {"depth": args.depth or 50, "shortcutType": "B"},
+                       device=args.device)
+    method = SGD(learning_rate=args.learningRate, momentum=args.momentum,
+                 weight_decay=args.weightDecay, nesterov=True)
+    return run_training(model, samples, CrossEntropyCriterion(), args,
+                        optim_method=method)
+
+
+if __name__ == "__main__":
+    train_main()

@@ -4,10 +4,10 @@
 The reference knob names (``-f`` data dir, ``-b`` batchSize,
 ``--learningRate``, ``--maxEpoch``, ``--cache`` checkpoint dir,
 ``--overWrite``, ``--model``/``--state`` snapshots to resume from,
-``--computeDtype``), plus ``--device`` (default ``cuda``; ``cpu`` only
-when asked for). A main without ``-f`` (or with a missing directory)
-falls back to synthetic data. ``--summary`` raises until summaries are
-ported, and ``synthetic_imagenet_samples`` comes with the ImageNet mains.
+``--computeDtype``, ``--summary`` TensorBoard log dir), plus
+``--device`` (default ``cuda``; ``cpu`` only when asked for). A main
+without ``-f`` (or with a missing directory) falls back to synthetic
+data; ``synthetic_imagenet_samples`` is the ImageNet-scale mains' one.
 """
 
 from __future__ import annotations
@@ -41,8 +41,7 @@ def train_parser(description: str, batch_size: int = 128,
                    help="overwrite checkpoint files")
     p.add_argument("--model", default=None, help="model snapshot to resume")
     p.add_argument("--state", default=None, help="optim state snapshot")
-    p.add_argument("--summary", default=None,
-                   help="TensorBoard log dir (not ported yet)")
+    p.add_argument("--summary", default=None, help="TensorBoard log dir")
     p.add_argument("--computeDtype", default=None,
                    choices=["bf16", "fp16", "fp32"],
                    help="mixed-precision compute dtype")
@@ -66,11 +65,10 @@ def test_parser(description: str,
 
 def configure_optimizer(opt, args):
     """Apply the shared CLI knobs onto an Optimizer (end trigger,
-    checkpoint, dtype). Returns the optimizer."""
+    checkpoint, summary, dtype). Returns the optimizer."""
     from bigdl_tpu_torch.optim.trigger import Trigger
+    from bigdl_tpu_torch.visualization import TrainSummary
 
-    if args.summary:
-        raise NotImplementedError("--summary (TrainSummary) is not ported yet")
     if args.maxIteration:
         opt.set_end_when(Trigger.max_iteration(args.maxIteration))
     else:
@@ -79,6 +77,8 @@ def configure_optimizer(opt, args):
         opt.set_checkpoint(args.cache, Trigger.every_epoch())
         if args.overWrite:
             opt.over_write_checkpoint()
+    if args.summary:
+        opt.set_train_summary(TrainSummary(args.summary, "train"))
     if args.computeDtype and args.computeDtype != "fp32":
         opt.set_compute_dtype(args.computeDtype)
     return opt
@@ -88,6 +88,19 @@ def setup_logging() -> None:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s - %(message)s")
+
+
+def synthetic_imagenet_samples(count: int, seed: int = 0):
+    """Random (3, 224, 224) images with 1-based labels in 1..1000 — the
+    ImageNet-scale mains' synthetic data, the JAX package's draws."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.sample import Sample
+
+    rng = np.random.default_rng(seed)
+    return [Sample(rng.standard_normal((3, 224, 224)).astype(np.float32),
+                   np.int32(rng.integers(1, 1001)))
+            for _ in range(count)]
 
 
 def run_training(model, samples, criterion, args,

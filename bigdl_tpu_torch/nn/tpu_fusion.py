@@ -156,6 +156,12 @@ class FusedGraph(AbstractModule):
         self.graph = graph
         self._build_plan()
 
+    def __setstate__(self, state) -> None:
+        # the plan is keyed by node ids, which a deep copy or an unpickle
+        # (``Module.load`` of a checkpoint) gives new values
+        super().__setstate__(state)
+        self._build_plan()
+
     def _build_plan(self) -> None:
         pnodes, ins, outs = _expand(self.graph)
         self._pnodes, self._ins, self._outs = pnodes, ins, outs

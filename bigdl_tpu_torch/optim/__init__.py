@@ -1,6 +1,7 @@
 """Optimization side of the port (``bigdl_tpu.optim`` counterparts): the
 optim methods and SGD's schedules, the train step, triggers, the local
-optimizer, validation methods, the evaluator and the regularizers."""
+optimizer (with ``TrainingPreempted``), the pinned batch upload,
+validation methods, the evaluator and the regularizers."""
 
 from bigdl_tpu_torch.optim.evaluator import (
     Evaluator, LocalPredictor, Predictor, Validator,
@@ -10,7 +11,9 @@ from bigdl_tpu_torch.optim.optim_method import (
     SGD, Adam, Default, Exponential, LearningRateSchedule, MultiStep,
     OptimMethod, Plateau, Poly, SequentialSchedule, Step, Warmup,
 )
-from bigdl_tpu_torch.optim.optimizer import LocalOptimizer, Optimizer
+from bigdl_tpu_torch.optim.optimizer import (
+    LocalOptimizer, Optimizer, TrainingPreempted,
+)
 from bigdl_tpu_torch.optim.regularizer import (
     L1L2Regularizer, L1Regularizer, L2Regularizer,
 )
@@ -23,7 +26,8 @@ from bigdl_tpu_torch.optim.validation import (
 __all__ = ["Adam", "Default", "Exponential", "LearningRateSchedule",
            "MultiStep", "OptimMethod", "Plateau", "Poly",
            "SequentialSchedule", "SGD", "Step", "Warmup", "LocalOptimizer",
-           "Optimizer", "Trigger", "Evaluator", "LocalPredictor",
+           "Optimizer", "TrainingPreempted", "Trigger", "Evaluator",
+           "LocalPredictor",
            "Predictor", "Validator", "AccuracyResult", "Loss", "LossResult",
            "MAE", "Top1Accuracy", "Top5Accuracy", "ValidationMethod",
            "ValidationResult", "Metrics", "L1L2Regularizer", "L1Regularizer",

@@ -6,7 +6,10 @@ Each batch goes to the model's device, runs through
 own parameters and buffers in eval mode, and is scored by the
 ValidationMethods (``Evaluator.test``) or brought back to the host
 (``Predictor``). Every record counts: a dataset keeps its trailing
-partial batch. The sharded evaluator (``make_sharded_eval_step``,
+partial batch. A ``device_preprocess`` (the twin of
+``Optimizer.set_device_preprocess``) maps each raw batch on the device
+first, so a model trained on the u8-NHWC feed is scored on the same
+feed. The sharded evaluator (``make_sharded_eval_step``,
 ``pad_shard_call``) comes with the data-parallel slice.
 """
 
@@ -62,9 +65,12 @@ class Evaluator:
     """Batched evaluation of a model against ValidationMethods (reference
     ``Evaluator(model).test(dataset, methods, batchSize)``)."""
 
-    def __init__(self, model) -> None:
+    def __init__(self, model, device_preprocess=None) -> None:
+        """``device_preprocess`` mirrors ``Optimizer.set_device_preprocess``:
+        raw (e.g. uint8-NHWC) batches reach the model through it."""
         self.model = model
-        self._step = make_eval_step(model)
+        self.device_preprocess = device_preprocess
+        self._step = make_eval_step(model, device_preprocess)
 
     def _forward(self, inp):
         m = self.model
@@ -89,8 +95,8 @@ class Evaluator:
 class Predictor:
     """Batched prediction (reference ``Predictor.predict/predictClass``)."""
 
-    def __init__(self, model) -> None:
-        self._ev = Evaluator(model)
+    def __init__(self, model, device_preprocess=None) -> None:
+        self._ev = Evaluator(model, device_preprocess=device_preprocess)
         self.model = model
 
     @staticmethod

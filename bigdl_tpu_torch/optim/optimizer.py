@@ -3,14 +3,17 @@
 
 ``Optimizer(model, dataset, criterion, batch_size, end_trigger)`` returns
 a :class:`LocalOptimizer` (the only kind ported so far); ``optimize()``
-drives a thin host loop: fetch the next host batch, move it to the card,
-run the step of :func:`bigdl_tpu_torch.optim.train_step.make_train_step`,
-fetch the following batch while the step runs, and read the loss once
-(``float(loss)``, the one sync per step). After the step come, where the
-JAX loop has them, the epoch bookkeeping, validation (whose first score
-feeds a ``Plateau`` schedule) and the checkpoint. The state dict
-(``epoch``, ``neval``, ``seen``, ``loss``, ``score``) and the
-``records/second`` and ``computing time`` metrics are the JAX loop's.
+drives a thin host loop: fetch the next host batch, stage it onto the
+card (:class:`bigdl_tpu_torch.optim.upload.PinnedUploader`: pinned
+staging, a side stream and an event, so the upload of the next batch
+overlaps the running step), run the step of
+:func:`bigdl_tpu_torch.optim.train_step.make_train_step`, and read the
+loss once (``float(loss)``, the one sync per step). After the step come,
+where the JAX loop has them, the summaries, the epoch bookkeeping,
+validation (whose first score feeds a ``Plateau`` schedule) and the
+checkpoint. The state dict (``epoch``, ``neval``, ``seen``, ``loss``,
+``score``) and the ``records/second`` and ``computing time`` metrics are
+the JAX loop's.
 
 Checkpoints (``set_checkpoint``, ``backend="pickle"``) are the JAX
 ``model``/``optimMethod`` snapshot pair, or ``model.N``/``optimMethod.N``
@@ -21,12 +24,17 @@ instance counters that differ between builds), and replays the
 deterministic data stream up to the checkpointed record, since each epoch
 reshuffles by its index: the resumed run then equals an uninterrupted one.
 
-Not ported yet (they raise): summaries (``set_train_summary``,
-``set_val_summary``), ``set_profile``, ``set_device_preprocess``,
-``handle_preemption``, the orbax checkpoint backends, the pod rank
-directories and ``LATEST`` markers, and the JAX factory's
-``DistriOptimizer`` branch. The JAX loop retries a failed attempt from
-its last checkpoint; the port raises on the first failure, so a failing
+``set_train_summary``/``set_val_summary`` write TensorBoard scalars (and
+``Parameters/...`` histograms on the summary's trigger) from values the
+loop already reads; ``set_profile`` opens a ``torch.profiler`` window over
+a range of iterations; ``set_device_preprocess`` maps each raw batch on
+the card (the u8-NHWC feed); ``handle_preemption`` turns a SIGTERM into a
+checkpoint and :class:`TrainingPreempted` at the next iteration boundary.
+
+Not ported yet: the orbax checkpoint backends, the pod rank directories
+and ``LATEST`` markers, and the JAX factory's ``DistriOptimizer`` branch.
+The JAX loop retries a failed attempt from its last checkpoint; the port
+raises on the first failure (``TrainingPreempted`` included), so a failing
 kernel is never retried or hidden: resuming is the caller's explicit
 ``optimize(resume=True)``.
 """
@@ -36,6 +44,7 @@ from __future__ import annotations
 import logging
 import os
 import pickle
+import signal
 import time
 from typing import Any, Dict, List, Optional
 
@@ -44,14 +53,22 @@ import torch
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, DataSet
 from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
-from bigdl_tpu_torch.optim.evaluator import to_device
+from bigdl_tpu_torch.nn.tpu_fusion import FusedGraph
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.train_step import make_eval_step, make_train_step
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.optim.upload import PinnedUploader
 from bigdl_tpu_torch.optim.validation import ValidationMethod
 
 logger = logging.getLogger("bigdl_tpu_torch")
+
+
+class TrainingPreempted(RuntimeError):
+    """Raised when training stops at an iteration boundary because a
+    SIGTERM arrived under ``handle_preemption()``, after a final
+    checkpoint was written. The restarted job continues with
+    ``optimize(resume=True)``."""
 
 
 def _ensure_dataset(dataset, batch_size: Optional[int],
@@ -106,14 +123,6 @@ def _match_by_index(live: Dict[str, Any], restored: Dict[str, Any],
     return pairs
 
 
-def _not_ported(what: str):
-    def refuse(self, *args, **kwargs):
-        raise NotImplementedError(f"Optimizer.{what} is not ported yet")
-
-    refuse.__name__ = what
-    return refuse
-
-
 class Optimizer:
     """Fluent training config; ``Optimizer(...)`` returns a
     :class:`LocalOptimizer` (reference factory semantics)."""
@@ -134,10 +143,16 @@ class Optimizer:
         self.validation_trigger: Optional[Trigger] = None
         self.validation_dataset: Optional[AbstractDataSet] = None
         self.validation_methods: List[ValidationMethod] = []
+        self.train_summary = None
+        self.validation_summary = None
         self.grad_clip: Dict[str, Any] = {}
         self.compute_dtype = None
         self.loss_scale = 1.0
         self.metrics = Metrics()
+        self._device_preprocess = None
+        self._profile: Optional[Dict[str, Any]] = None
+        self._handle_preemption = False
+        self._preempt_flag = False
 
     # -- fluent config (reference names, snake_case) -----------------------
 
@@ -230,11 +245,49 @@ class Optimizer:
         self.grad_clip = {}
         return self
 
-    set_train_summary = _not_ported("set_train_summary")
-    set_val_summary = _not_ported("set_val_summary")
-    set_profile = _not_ported("set_profile")
-    set_device_preprocess = _not_ported("set_device_preprocess")
-    handle_preemption = _not_ported("handle_preemption")
+    def set_train_summary(self, summary) -> "Optimizer":
+        """``Loss``, ``Throughput`` and ``LearningRate`` at every
+        iteration, ``Parameters/...`` histograms when the summary's
+        ``"Parameters"`` trigger fires (each reads the parameters to the
+        host: the only added sync)."""
+        self.train_summary = summary
+        return self
+
+    def set_val_summary(self, summary) -> "Optimizer":
+        """One scalar per validation method at every validation."""
+        self.validation_summary = summary
+        return self
+
+    def set_profile(self, trace_dir: str, start_iteration: int = 5,
+                    n_iterations: int = 3) -> "Optimizer":
+        """Trace iterations ``[start_iteration, start_iteration +
+        n_iterations)`` with ``torch.profiler`` (CPU activity, and CUDA
+        activity when the model is on the card) and export a Chrome-trace
+        JSON file under ``trace_dir`` that Perfetto opens: the counterpart
+        of the JAX loop's ``jax.profiler.start_trace``. A window the loop
+        leaves early is closed and written at loop exit."""
+        self._profile = {"dir": trace_dir, "start": start_iteration,
+                         "stop": start_iteration + n_iterations}
+        return self
+
+    def set_device_preprocess(self, fn) -> "Optimizer":
+        """``fn`` maps each raw input batch on the card before the forward
+        pass (and before the compute-dtype cast), in training and in
+        validation: pair it with ``NativeImagePipeline(output="u8_nhwc")``
+        and its ``device_normalizer()``, so the host uploads uint8
+        batches, a quarter of the f32 bytes."""
+        self._device_preprocess = fn
+        return self
+
+    def handle_preemption(self, enabled: bool = True) -> "Optimizer":
+        """While ``optimize()`` runs, a SIGTERM lets the in-flight
+        iteration finish, writes a checkpoint (``set_checkpoint`` is
+        required) and raises :class:`TrainingPreempted`; the restarted job
+        continues with ``optimize(resume=True)``. The handler is installed
+        from the main thread only, and the previous one comes back when
+        ``optimize()`` returns or raises."""
+        self._handle_preemption = bool(enabled)
+        return self
 
     # -- checkpoints -------------------------------------------------------
 
@@ -314,14 +367,14 @@ class Optimizer:
         if not (self.validation_dataset and self.validation_methods):
             return None
         if not hasattr(self, "_eval_step"):
-            self._eval_step = make_eval_step(self.model)
-        device = next(iter(params.values())).device
+            self._eval_step = make_eval_step(self.model,
+                                             self._device_preprocess)
         totals = [None] * len(self.validation_methods)
         self.model.eval()
         try:
             for batch in self.validation_dataset.data(train=False):
-                out = self._eval_step(params, model_state,
-                                      to_device(batch.get_input(), device))
+                (inp,) = self._upload(batch.get_input())
+                out = self._eval_step(params, model_state, inp)
                 for i, m in enumerate(self.validation_methods):
                     r = m.apply(out, batch.get_target())
                     totals[i] = r if totals[i] is None else totals[i] + r
@@ -334,6 +387,9 @@ class Optimizer:
             val, _ = r.result()
             logger.info("validation [%s] epoch %d iter %d: %s",
                         m.name, state["epoch"], state["neval"], r)
+            if self.validation_summary is not None:
+                self.validation_summary.add_scalar(m.name, val,
+                                                   state["neval"])
             if score is None:
                 score = val
         sched = getattr(self.optim_method, "learning_rate_schedule", None)
@@ -354,8 +410,34 @@ class Optimizer:
         newest checkpoint under ``set_checkpoint``'s path (no path or no
         checkpoint: a fresh start, as in JAX). Raises on the first
         failure."""
+        if self._handle_preemption and not self.checkpoint_path:
+            raise ValueError(
+                "handle_preemption() needs set_checkpoint(...) configured: "
+                "an eviction with nowhere to write the final snapshot "
+                "would lose all progress")
         self.model.train()          # the reference's model.training()
-        return self._optimize_loop(resume)
+        prev_sigterm, installed = None, False
+        if self._handle_preemption:
+            self._preempt_flag = False
+
+            def on_sigterm(signum, frame):
+                logger.warning(
+                    "SIGTERM received: finishing the current iteration, "
+                    "checkpointing, then stopping (TrainingPreempted)")
+                self._preempt_flag = True
+
+            try:        # a handler installs from the main thread only
+                prev_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
+                installed = True
+            except ValueError:
+                logger.warning("handle_preemption: not on the main thread, "
+                               "SIGTERM hook not installed")
+        try:
+            return self._optimize_loop(resume)
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, prev_sigterm)
+            self._stop_profile()     # the loop ended inside the window
 
     def _prepare(self):
         """Returns (step, place_batch, params, opt_state, model_state)."""
@@ -395,7 +477,14 @@ class Optimizer:
         epoch_start = time.time()
 
         while not self.end_when(state):
+            if self._preempt_flag:
+                self._checkpoint(state, params, model_state, opt_state)
+                raise TrainingPreempted(
+                    f"evicted at iteration {state['neval']}; checkpoint "
+                    f"written to {self.checkpoint_path}")
             state["epoch_finished"] = False
+            if self._profile is not None:
+                self._profile_window(state["neval"], params)
             if next_ready is None:
                 try:
                     b = next(data_iter)
@@ -426,13 +515,16 @@ class Optimizer:
                     next_ready = None
             loss_f = float(loss)
             dt = time.time() - t0
+            rate = bsz / max(dt, 1e-9)
             self.metrics.add("computing time", dt)
-            self.metrics.add("records/second", bsz / max(dt, 1e-9))
+            self.metrics.add("records/second", rate)
             state["loss"] = loss_f
             state["neval"] += 1
             self.optim_method.state["neval"] = state["neval"]
             seen_this_epoch += bsz
             state["seen"] = seen_this_epoch
+            if self.train_summary is not None:
+                self._summarize(params, state, loss_f, rate)
             if seen_this_epoch >= epoch_size:
                 state["epoch_finished"] = True
                 logger.info(
@@ -456,6 +548,55 @@ class Optimizer:
         self._writeback(params, opt_state, model_state)
         return self.model
 
+    def _summarize(self, params, state, loss: float, throughput: float):
+        """The JAX loop's train-summary block, at iteration ``neval - 1``."""
+        it = state["neval"] - 1
+        ts = self.train_summary
+        ts.add_scalar("Loss", loss, it)
+        ts.add_scalar("Throughput", throughput, it)
+        sched = getattr(self.optim_method, "learning_rate_schedule", None)
+        base_lr = getattr(self.optim_method, "learning_rate", None)
+        if sched is not None and base_lr is not None:
+            # the optim state's neval counts from 0, the host's from 1: the
+            # rate just applied was sched.lr(neval - 2)
+            ts.add_scalar("LearningRate",
+                          float(sched.lr(base_lr, max(0, state["neval"] - 2))),
+                          it)
+        if ts.should_record("Parameters", state):
+            # a FusedGraph shares its graph's tree in JAX: no "graph" level
+            strip = "graph." if isinstance(self.model, FusedGraph) else ""
+            for name, p in params.items():
+                tag = name[len(strip):] if name.startswith(strip) else name
+                ts.add_histogram("Parameters/" + tag.replace(".", "/"), p,
+                                 it)
+
+    def _profile_window(self, neval: int, params) -> None:
+        """Open the profile at the window's first iteration, close it at
+        the first one after."""
+        if neval == self._profile["start"]:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if next(iter(params.values())).device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profile["active"] = profile(activities=acts)
+            self._profile["active"].start()
+        elif neval == self._profile["stop"]:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        """Close an open profile window and write its Chrome trace."""
+        prof = (self._profile or {}).pop("active", None)
+        if prof is None:
+            return
+        prof.stop()
+        os.makedirs(self._profile["dir"], exist_ok=True)
+        path = os.path.join(
+            self._profile["dir"], f"iterations_{self._profile['start']}-"
+            f"{self._profile['stop'] - 1}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        logger.info("profile of iterations [%d, %d) written to %s",
+                    self._profile["start"], self._profile["stop"], path)
 
 class LocalOptimizer(Optimizer):
     """Single-process trainer driving the model's device with one step
@@ -472,11 +613,12 @@ class LocalOptimizer(Optimizer):
         opt_state = self.optim_method.init_state(params)
         step = make_train_step(self.model, self.criterion, self.optim_method,
                                self.grad_clip, loss_scale=self.loss_scale,
-                               compute_dtype=self.compute_dtype)
+                               compute_dtype=self.compute_dtype,
+                               device_preprocess=self._device_preprocess)
+        self._upload = PinnedUploader(device)
 
         def place_batch(batch: MiniBatch):
-            return (to_device(batch.get_input(), device),
-                    to_device(batch.get_target(), device))
+            return self._upload(batch.get_input(), batch.get_target())
 
         return step, place_batch, params, opt_state, model_state
 

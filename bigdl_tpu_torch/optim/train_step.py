@@ -17,15 +17,20 @@ Per-layer regularizers (a layer's ``w_regularizer``/``b_regularizer``)
 change the gradients right after the backward pass, before clipping, in
 the JAX step's order (``apply_module_regularizers``).
 
+``device_preprocess`` runs on the raw device batch before anything
+else, before the compute-dtype cast (the u8-NHWC feed's
+``DeviceImageNormalizer``: the host ships uint8 batches, a quarter of the
+f32 bytes, and the card normalizes them), in the train and the eval step.
+
 Not ported yet: frozen layers (the step raises if a module asks for
 them), stochastic layers (``rng`` is accepted for the JAX signature and
 unused: no port layer draws noise), and the JAX step's
-``grad_transform``/``device_preprocess`` hooks.
+``grad_transform`` hook.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.func import functional_call
@@ -118,7 +123,8 @@ def _refuse_unported(model) -> None:
 def make_train_step(model, criterion, optim_method,
                     grad_clip: Optional[dict] = None,
                     loss_scale: float = 1.0,
-                    compute_dtype: Optional[Any] = None):
+                    compute_dtype: Optional[Any] = None,
+                    device_preprocess: Optional[Callable] = None):
     """Returns ``step(params, opt_state, model_state, rng, inputs,
     targets) -> (params, opt_state, model_state, loss)``; ``loss`` is a
     0-d f32 tensor on the card (reading it is the caller's one sync).
@@ -129,13 +135,16 @@ def make_train_step(model, criterion, optim_method,
     ``functional_call`` and BatchNorm updates them IN PLACE in training
     mode, so the returned ``model_state`` is the dict passed in, holding
     the new statistics. ``loss_scale`` multiplies the loss before the
-    backward pass and divides the gradients after (fp16)."""
+    backward pass and divides the gradients after (fp16).
+    ``device_preprocess`` maps the raw input batch first."""
     _refuse_unported(model)
     compute_dtype = resolve_dtype(compute_dtype)
     regs = module_regularizers(model)
 
     def step(params, opt_state, model_state, rng, inputs, targets):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        if device_preprocess is not None:
+            inputs = device_preprocess(inputs)
         with torch.enable_grad():
             p, x = leaves, inputs
             if compute_dtype is not None:
@@ -164,9 +173,11 @@ def make_train_step(model, criterion, optim_method,
     return step
 
 
-def make_eval_step(model):
+def make_eval_step(model, device_preprocess: Optional[Callable] = None):
     @torch.no_grad()
     def step(params, model_state, inputs):
+        if device_preprocess is not None:
+            inputs = device_preprocess(inputs)
         return functional_call(model, {**params, **model_state}, (inputs,))
 
     return step

@@ -162,7 +162,37 @@ any failure raises, so the exit code is non-zero and no result prints:
               ``BIGDL_PALLAS_MIN_C=128``, through ``optimize()``, 2 warm + 5
               timed steps: step ms p50, images/s, peak memory, losses; then
               the unfused ``Graph`` on the same recipe;
-20. lenet    — BASELINE config #1: ``generate_idx_dataset`` writes
+20. resnet_main — ResNet's own main at full width: ``train_main
+              --dataset imagenet`` (ResNet-50 B on 512 synthetic 224²
+              images, batch 128, 8 iterations, bf16, nesterov SGD) with
+              ``--summary`` and ``--cache``: finite, falling losses, 8
+              ``Loss``, ``Throughput`` and ``LearningRate`` scalars read
+              back, the checkpoint's ``Module.load`` equal to the trained
+              parameters, step p50 and peak memory; then ``train_main
+              --dataset cifar10`` (ResNet-20, 1024 images, 16 iterations)
+              ends finite;
+21. resnet_u8 — the u8-NHWC feed: ResNet-50 (``maybe_fuse``,
+              ``BIGDL_PALLAS_MIN_C=128``, batch 256, bf16, the bench.py SGD
+              recipe) trained 6 iterations through ``optimize()`` on 512
+              seeded 256² uint8 images (crop 224, ImageNet mean/std) fed
+              by ``NativeImagePipeline(output="u8_nhwc")`` with
+              ``set_device_preprocess(pipe.device_normalizer())``, then by
+              ``output="f32_nchw"``; both with train and validation
+              summaries, a Top-1 validation every epoch on 256 images and
+              ``set_profile`` over iterations 3-4: the fused kernels 28
+              times per step (and the forward 28 times per eval batch),
+              the two runs' losses within 1e-3 relative, the trace names
+              the fused kernels, one Top-1 per validation; per feed the
+              step p50, bytes uploaded per step, and the shares of step
+              time in ``place_batch`` and in the host pipeline;
+22. resnet_preempt — ``handle_preemption`` on the card: a worker process
+              trains ResNet-20 on the cifar10 recipe of ``train_main``
+              with a checkpoint path; SIGTERM once its trigger reports
+              iteration 3; it must exit with ``TrainingPreempted`` and a
+              checkpoint at the iteration it stopped at; a resumed and an
+              uninterrupted process to iteration 8 end bitwise equal
+              under ``cudnn.deterministic``;
+23. lenet    — BASELINE config #1: ``generate_idx_dataset`` writes
               60,000 train and 10,000 test images (seed 7, noise 220);
               ``train_main`` (batch 128, lr 0.05, momentum 0.9, 5 epochs,
               ``--cache``) and ``test_main`` on its last snapshot, Top-1 >=
@@ -177,7 +207,7 @@ any failure raises, so the exit code is non-zero and no result prints:
               card against the CPU from the same weights, parameters within
               ``LENET_CARD_TOL``. No port kernel runs on this path (cuDNN's
               5x5 convolutions);
-21. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+24. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
@@ -196,7 +226,9 @@ step in generate, which launches no kv_requant (float KV); in serve_spec
 kv_requant once per target layer per verify step and no decode
 attention; each
 flash kernel once per layer per step, each
-fused-conv kernel exactly 28 times per ResNet-50 step, the conv3x3 kernel
+fused-conv kernel exactly 28 times per ResNet-50 step (resnet_train and
+both resnet_u8 runs; the forward also 28 times per eval batch of
+resnet_u8's validations), the conv3x3 kernel
 once per checked case and 33 times per timed shape).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
@@ -1293,6 +1325,405 @@ def resnet_train_phase(warm: int = 2, timed: int = 5, batch: int = 256):
                       "unfused_images_per_s": batch / u_p50,
                       "unfused_peak_mem_gib": u_peak}))
     return launches
+
+
+def resnet_main_phase():
+    """ResNet's own main at full width: ``train_main`` on ImageNet-shaped
+    synthetic data (ResNet-50, shortcut B, batch 128, 8 iterations, bf16,
+    nesterov SGD) with ``--summary`` and ``--cache``; then the cifar10
+    main (ResNet-20, 16 iterations). No port kernel runs on this path:
+    ``train_main`` builds the unfused graph, as the JAX main does."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.models.resnet import train_main
+    from bigdl_tpu_torch.nn.module import AbstractModule
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    work = tempfile.mkdtemp(prefix="resnet_main_")
+    try:
+        d1, d2 = os.path.join(work, "summary"), os.path.join(work, "ckpt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = train_main(["--dataset", "imagenet", "--synthetic", "512",
+                            "-b", "128", "--maxIteration", "8", "--summary",
+                            d1, "--cache", d2, "--computeDtype", "bf16"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ts = TrainSummary(d1, "train")
+        scalars = {tag: ts.read_scalar(tag)
+                   for tag in ("Loss", "Throughput", "LearningRate")}
+        ts.close()
+        losses = [v for _, v in scalars["Loss"]]
+        step_s = [128 / v for _, v in scalars["Throughput"]]
+        loaded = AbstractModule.load(os.path.join(d2, "model"))
+        same = all(torch.equal(a, b) for a, b in zip(loaded.parameters(),
+                                                      model.parameters()))
+        n_loaded = sum(1 for _ in loaded.parameters())
+        del model, loaded
+        torch.cuda.empty_cache()
+        cifar = train_main(["--dataset", "cifar10", "--synthetic", "1024",
+                            "-b", "128", "--maxIteration", "16"])
+        cifar_finite = all(bool(torch.isfinite(p).all())
+                           for p in cifar.parameters())
+        del cifar
+        emit("resnet_main", what="train_main --dataset imagenet (ResNet-50 "
+             "B, 224², batch 128, bf16, nesterov SGD 0.1/0.9) 8 iterations "
+             "--summary --cache; then --dataset cifar10 (ResNet-20) 16",
+             card=nvidia_smi(), wall_s=wall, losses=losses,
+             step_ms=[s * 1e3 for s in step_s],
+             step_ms_p50=float(np.median(step_s[1:])) * 1e3,
+             peak_mem_gib=peak,
+             scalars={k: len(v) for k, v in scalars.items()},
+             learning_rates=[v for _, v in scalars["LearningRate"]],
+             checkpoint=sorted(os.listdir(d2)),
+             checkpoint_equals_model=same, checkpoint_params=n_loaded,
+             cifar10_finite=cifar_finite)
+        if {k: len(v) for k, v in scalars.items()} != {
+                "Loss": 8, "Throughput": 8, "LearningRate": 8}:
+            raise AssertionError(f"summary scalars {scalars}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"resnet_main losses {losses}")
+        if not (same and n_loaded == 161):
+            raise AssertionError("the --cache checkpoint does not hold the "
+                                 "trained parameters")
+        if not cifar_finite:
+            raise AssertionError("cifar10 train_main ended non-finite")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+FEEDS = {"u8_nhwc": "u8_nhwc + DeviceImageNormalizer",
+         "f32_nchw": "f32_nchw (host normalize)"}
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+FUSED_TRACE_NAMES = {"fwd": ("fwd_wgmma", "fwd_panel_wgmma", "fwd_kernel"),
+                     "dgrad": ("dgrad_wgmma", "dgrad_kernel"),
+                     "wgrad": ("wgrad_wgmma", "wgrad_kernel")}
+
+
+def resnet_u8_run(output, images, labels, eval_images, eval_labels, steps,
+                  work):
+    """ResNet-50 (``maybe_fuse``, bf16, the bench.py:33-67 SGD recipe)
+    trained ``steps`` iterations through ``optimize()`` on
+    ``NativeImagePipeline(output=...)`` batches of 256 (crop 224, pad 0),
+    with train and validation summaries, a Top-1 validation every epoch
+    on a 256-image eval pipeline and a profile of iterations 3 and 4;
+    returns what the phase checks and prints."""
+    import os
+
+    import torch
+
+    from bigdl_tpu_torch.dataset import NativeImagePipeline
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.tpu_fusion import maybe_fuse
+    from bigdl_tpu_torch.ops import fused_conv as fc
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Top1Accuracy, Trigger
+    from bigdl_tpu_torch.visualization import TrainSummary, ValidationSummary
+
+    def pipe(imgs, labs):
+        return NativeImagePipeline(imgs, labs, batch_size=256,
+                                   crop=(224, 224), mean=IMAGENET_MEAN,
+                                   std=IMAGENET_STD, pad=0, seed=0,
+                                   output=output)
+
+    train = pipe(images, labels)
+    stream = timed_stream(train)
+    model = maybe_fuse(ResNet(1000, {"depth": 50, "shortcutType": "B"},
+                              seed=0))
+    opt = Optimizer(model, stream, CrossEntropyCriterion(),
+                    end_trigger=Trigger.max_iteration(steps))
+    opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9,
+                             weight_decay=1e-4)).set_compute_dtype("bf16")
+    if output == "u8_nhwc":
+        opt.set_device_preprocess(train.device_normalizer())
+    logs = os.path.join(work, output)
+    ts, vs = TrainSummary(logs, "job"), ValidationSummary(logs, "job")
+    trace_dir = os.path.join(logs, "trace")
+    opt.set_train_summary(ts).set_val_summary(vs)
+    opt.set_validation(Trigger.every_epoch(), pipe(eval_images, eval_labels),
+                       [Top1Accuracy()])
+    opt.set_profile(trace_dir, start_iteration=3, n_iterations=2)
+    place = {"s": 0.0, "bytes": 0, "n": 0}
+    prepare = opt._prepare
+
+    def timed_prepare():
+        step, place_batch, *rest = prepare()
+
+        def timed(batch):
+            t = time.perf_counter()
+            out = place_batch(batch)
+            place["s"] += time.perf_counter() - t
+            place["bytes"] += batch.input.nbytes + batch.target.nbytes
+            place["n"] += 1
+            return out
+
+        return (step, timed, *rest)
+
+    opt._prepare = timed_prepare
+    val = {"launches": [0, 0, 0], "s": 0.0}
+    run_validation = opt._run_validation
+
+    def counted_validation(*args):
+        before = (fc.fwd_launches, fc.dgrad_launches, fc.wgrad_launches)
+        t = time.perf_counter()
+        try:
+            return run_validation(*args)
+        finally:
+            val["s"] += time.perf_counter() - t
+            after = (fc.fwd_launches, fc.dgrad_launches, fc.wgrad_launches)
+            val["launches"] = [v + a - b for v, a, b in
+                               zip(val["launches"], after, before)]
+
+    opt._run_validation = counted_validation
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.fwd_launches = fc.dgrad_launches = fc.wgrad_launches = 0
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fc.fwd_launches, "dgrad": fc.dgrad_launches,
+                "wgrad": fc.wgrad_launches}
+    ts.close()
+    vs.close()
+    step_s = opt.metrics.values("computing time")
+    (trace_file,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace_file)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    traced = {k: sum(1 for n in names if any(s in n for s in subs))
+              for k, subs in FUSED_TRACE_NAMES.items()}
+    out = {"losses": [v for _, v in ts.read_scalar("Loss")],
+           "top1": vs.read_scalar("Top1Accuracy"), "step_s": step_s,
+           "wall_s": wall, "launches": launches,
+           "validation_launches": val["launches"], "validation_s": val["s"],
+           "place_s": place["s"], "placed": place["n"],
+           "bytes_per_step": place["bytes"] / place["n"],
+           "pipeline_s": stream.fetch_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "trace_file": trace_file, "traced_kernels": traced}
+    del opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_u8_phase(steps: int = 6):
+    """The u8-NHWC feed against the f32-NCHW feed on the fused ResNet-50
+    (see the phase list); returns the fused kernels' launch counts over
+    both runs."""
+    import os
+    import shutil
+    import tempfile
+
+    saved = os.environ.get("BIGDL_PALLAS_MIN_C")
+    os.environ["BIGDL_PALLAS_MIN_C"] = "128"
+    work = tempfile.mkdtemp(prefix="resnet_u8_")
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (512, 256, 256, 3), dtype=np.uint8)
+    labels = rng.integers(1, 1001, 512).astype(np.int32)
+    eval_images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
+    eval_labels = rng.integers(1, 1001, 256).astype(np.int32)
+    try:
+        runs = {out: resnet_u8_run(out, images, labels, eval_images,
+                                   eval_labels, steps, work)
+                for out in ("u8_nhwc", "f32_nchw")}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("BIGDL_PALLAS_MIN_C")
+        else:
+            os.environ["BIGDL_PALLAS_MIN_C"] = saved
+    validations = steps // 2                 # every epoch of 2 batches
+    u8, f32 = runs["u8_nhwc"], runs["f32_nchw"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(u8["losses"],
+                                                  f32["losses"]))
+    card = nvidia_smi()
+    for out, r in runs.items():
+        p50 = float(np.median(r["step_s"][1:]))
+        emit("resnet_u8", card=card, feed=FEEDS[out], steps=steps,
+             batch=256, image="256² u8, crop 224", compute="bf16",
+             step_ms=[s * 1e3 for s in r["step_s"]], step_ms_p50=p50 * 1e3,
+             images_per_s=256 / p50, wall_s=r["wall_s"],
+             bytes_uploaded_per_step=r["bytes_per_step"],
+             place_batch_s=r["place_s"], batches_placed=r["placed"],
+             place_batch_share=r["place_s"] / sum(r["step_s"]),
+             host_pipeline_s=r["pipeline_s"],
+             host_pipeline_share=r["pipeline_s"] / sum(r["step_s"]),
+             validation_s=r["validation_s"], top1=r["top1"],
+             losses=r["losses"], fused_launches=r["launches"],
+             validation_fused_launches=r["validation_launches"],
+             peak_mem_gib=r["peak_mem_gib"], trace=r["trace_file"],
+             traced_fused_kernels=r["traced_kernels"])
+    emit("resnet_u8", what="u8 vs f32 feed losses", loss_max_rel_diff=rel,
+         tol=1e-3)
+    print(json.dumps({
+        "resnet_u8_step_ms_p50": float(np.median(u8["step_s"][1:])) * 1e3,
+        "resnet_f32_feed_step_ms_p50":
+            float(np.median(f32["step_s"][1:])) * 1e3,
+        "resnet_u8_bytes_per_step": u8["bytes_per_step"],
+        "resnet_f32_feed_bytes_per_step": f32["bytes_per_step"],
+        "resnet_u8_place_batch_share": u8["place_s"] / sum(u8["step_s"]),
+        "resnet_f32_feed_place_batch_share":
+            f32["place_s"] / sum(f32["step_s"])}))
+    total = {"fwd": 0, "dgrad": 0, "wgrad": 0}
+    for out, r in runs.items():
+        val = r["validation_launches"]
+        train = {k: n - v for (k, n), v in zip(r["launches"].items(), val)}
+        if train != {"fwd": 28 * steps, "dgrad": 28 * steps,
+                     "wgrad": 28 * steps} or val != [28 * validations, 0, 0]:
+            raise AssertionError(f"{out}: fused launches {r['launches']}, "
+                                 f"{val} of them in validation; expected "
+                                 f"28 per step and 28 per eval batch")
+        if len(r["top1"]) != validations:
+            raise AssertionError(f"{out}: Top1 scalars {r['top1']}, "
+                                 f"expected {validations}")
+        if min(r["traced_kernels"].values()) < 1:
+            raise AssertionError(f"{out}: the profile trace names fused "
+                                 f"kernels {r['traced_kernels']}")
+        if not (len(r["losses"]) == steps and np.isfinite(r["losses"]).all()):
+            raise AssertionError(f"{out}: losses {r['losses']}")
+        for k in total:
+            total[k] += r["launches"][k]
+    if not rel <= 1e-3:
+        raise AssertionError(f"u8 and f32 feed losses differ by {rel}")
+    return total
+
+
+PREEMPT_WORKER = r'''
+import sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+from bigdl_tpu_torch.dataset.cifar import load_samples
+from bigdl_tpu_torch.models.resnet import ResNet
+from bigdl_tpu_torch.nn import CrossEntropyCriterion
+from bigdl_tpu_torch.optim import SGD, Optimizer, TrainingPreempted, Trigger
+
+mode, ckpt, out = sys.argv[1:4]
+
+
+def report(s):
+    print("STEP", s["neval"], flush=True)
+    if s["neval"] >= 3:
+        time.sleep(0.2)        # the parent's SIGTERM lands here
+    return s["neval"] > 100000
+
+
+end = (Trigger(report, lambda s: s["neval"] > 100000) if mode == "evict"
+       else Trigger.max_iteration(8))
+model = ResNet(10, {"depth": 20, "shortcutType": "A", "dataSet": "cifar10"},
+               seed=0)
+opt = Optimizer(model, load_samples("/nonexistent", "train",
+                                    synthetic_count=1024),
+                CrossEntropyCriterion(), batch_size=128, end_trigger=end)
+opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9, nesterov=True))
+if mode != "full":
+    opt.set_checkpoint(ckpt, Trigger(lambda s: False))
+if mode == "evict":
+    opt.handle_preemption()
+try:
+    opt.optimize(resume=mode == "resume")
+except TrainingPreempted as e:
+    print("PREEMPTED", opt.optim_method.state["neval"], e, flush=True)
+    sys.exit(7)
+torch.save([p.detach().cpu() for p in model.parameters()], out)
+print("DONE", opt.optim_method.state["neval"], flush=True)
+'''
+
+
+def resnet_preempt_phase():
+    """SIGTERM through ``handle_preemption`` on the card: a worker process
+    trains ResNet-20 (``train_main``'s cifar10 recipe: synthetic CIFAR,
+    batch 128, nesterov SGD 0.1/0.9) with a checkpoint path; the parent
+    sends SIGTERM once the worker's trigger reports iteration 3; the
+    worker must exit with ``TrainingPreempted`` after writing the
+    checkpoint at the iteration it stopped at. A second process resumes
+    to iteration 8, a third trains to 8 without a stop: parameters
+    bitwise equal under ``cudnn.deterministic``."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="resnet_preempt_")
+    script = os.path.join(work, "worker.py")
+    with open(script, "w") as f:
+        f.write(PREEMPT_WORKER)
+    ckpt = os.path.join(work, "ckpt")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+
+    def run(mode, out=""):
+        return subprocess.Popen(
+            [sys.executable, script, mode, ckpt, out], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    try:
+        t0 = time.perf_counter()
+        proc = run("evict")
+        try:
+            line, seen = "", []
+            while True:
+                line = proc.stdout.readline()
+                seen.append(line)
+                if line.strip() == "STEP 3" or line == "":
+                    break
+            if line.strip() != "STEP 3":
+                raise AssertionError("the worker never reached iteration 3: "
+                                     + "".join(seen)[-3000:])
+            proc.send_signal(signal.SIGTERM)
+            rest, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        evict_s = time.perf_counter() - t0
+        if proc.returncode != 7 or "PREEMPTED" not in rest:
+            raise AssertionError(f"worker rc {proc.returncode}: "
+                                 f"{rest[-3000:]}")
+        stop = int(rest.split("PREEMPTED", 1)[1].split()[0])
+        from bigdl_tpu_torch.utils.file_io import File
+
+        ck_neval = File.load(os.path.join(ckpt, "optimMethod"))["neval"]
+        outs = {m: os.path.join(work, f"{m}.pt") for m in ("resume", "full")}
+        procs = {m: run(m, outs[m]) for m in outs}     # side by side
+        try:
+            for mode, p in procs.items():
+                text, _ = p.communicate(timeout=600)
+                if p.returncode != 0 or "DONE 9" not in text:
+                    raise AssertionError(f"{mode} rc {p.returncode}: "
+                                         f"{text[-3000:]}")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        resumed, full = (torch.load(outs[m]) for m in ("resume", "full"))
+        diff = max(float((a - b).abs().max()) for a, b in zip(resumed, full))
+        emit("resnet_preempt", what="ResNet-20 cifar10 recipe, SIGTERM at "
+             "iteration 3, resume to 8 vs uninterrupted, "
+             "cudnn.deterministic", card=nvidia_smi(), stopped_at=stop,
+             checkpoint_neval=ck_neval, checkpoint=sorted(os.listdir(ckpt)),
+             evict_s=evict_s, wall_s=time.perf_counter() - t0,
+             max_abs_diff=diff, params=len(full))
+        if stop != ck_neval or stop < 3:
+            raise AssertionError(f"stopped at {stop}, checkpoint at "
+                                 f"{ck_neval}")
+        if diff != 0.0:
+            raise AssertionError(f"resumed ResNet-20 differs from the "
+                                 f"uninterrupted run by {diff}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def timed_stream(inner):
@@ -3476,6 +3907,10 @@ def main() -> int:
     resnet_check_phase()
     for name, n in resnet_train_phase().items():
         fused[name]["launches"] = n
+    resnet_main_phase()
+    for name, n in resnet_u8_phase().items():
+        fused[name]["launches"] += n
+    resnet_preempt_phase()
     lenet_phase()
     conv = conv3x3_phase()
     emit("timing_guard", guard_ms=guard_ms(),

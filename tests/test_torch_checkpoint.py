@@ -205,10 +205,16 @@ def test_refused_knobs_and_checkpoint_dialects(tmp_path):
     from bigdl_tpu_torch.optim import Trigger
 
     opt = _optimizer("pt", _mlp("pt", 1), 2)
-    for name in ("set_train_summary", "set_val_summary", "set_profile",
-                 "set_device_preprocess", "handle_preemption"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            getattr(opt, name)(str(tmp_path))
+    from bigdl_tpu_torch.visualization import TrainSummary, ValidationSummary
+
+    # the five knobs are ported: each returns the optimizer
+    for name, arg in (
+            ("set_train_summary", TrainSummary(str(tmp_path), "app")),
+            ("set_val_summary", ValidationSummary(str(tmp_path), "app")),
+            ("set_profile", str(tmp_path / "trace")),
+            ("set_device_preprocess", lambda x: x), ("handle_preemption",
+                                                      True)):
+        assert getattr(opt, name)(arg) is opt
     for backend in ("orbax", "orbax_async"):
         with pytest.raises(NotImplementedError, match="orbax"):
             opt.set_checkpoint(str(tmp_path), Trigger.every_epoch(),

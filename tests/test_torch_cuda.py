@@ -1220,3 +1220,117 @@ def test_lenet_steps_on_the_card_match_the_cpu(card):
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
     for a, b in zip(gpu.parameters(), cpu.parameters()):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_pinned_upload_stages_the_batch_behind_a_copy_event(card):
+    """``PinnedUploader`` (the optimizer's ``place_batch``): the batch on
+    the card equals the host batch; the copy runs on the side stream
+    without holding up the host, and the compute stream's work queued
+    after the upload waits for the copy's event. The side stream is held
+    by a ~50 ms device spin first, so the order shows in the events."""
+    import time
+
+    import numpy as np
+
+    from bigdl_tpu_torch.optim.upload import PinnedUploader
+
+    rng = np.random.default_rng(15)
+    up = PinnedUploader(card)
+    batches = [(rng.integers(0, 256, (16, 24, 24, 3), dtype=np.uint8),
+                rng.integers(1, 11, 16).astype(np.float32))
+               for _ in range(3)]
+    torch.cuda.synchronize()
+    up(*batches[0])                         # creates the side stream
+    torch.cuda.synchronize()
+    with torch.cuda.stream(up._stream):
+        torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    x, y = up(*batches[1])
+    host_s = time.perf_counter() - t0
+    after = torch.cuda.Event()
+    after.record()                          # on the compute stream
+    copied = up._copied[1]
+    assert not copied.query() and not after.query()
+    assert host_s < 0.02, host_s            # the host did not wait
+    total = x.float().sum()                 # a step's read
+    torch.cuda.synchronize()
+    assert copied.query() and after.query()
+    assert x.dtype == torch.uint8 and x.device.type == "cuda"
+    assert torch.equal(x.cpu(), torch.from_numpy(batches[1][0]))
+    assert torch.equal(y.cpu(), torch.from_numpy(batches[1][1]))
+    assert float(total) == float(batches[1][0].astype(np.float64).sum())
+    # the third batch reuses slot 0's staging buffer after its copy
+    x3, y3 = up(*batches[2])
+    torch.cuda.synchronize()
+    assert torch.equal(x3.cpu(), torch.from_numpy(batches[2][0]))
+    assert torch.equal(y3.cpu(), torch.from_numpy(batches[2][1]))
+
+
+@pytest.mark.cuda
+def test_u8_fed_fused_bottleneck_steps_on_the_card_match_the_cpu(
+        card, monkeypatch):
+    """A two-block bottleneck graph (``maybe_fuse``, every 1×1 edge on the
+    kernels at threshold 8) fed uint8 NHWC batches through
+    ``set_device_preprocess``, three f32 SGD steps (momentum 0.9, weight
+    decay 1e-4) through ``Optimizer`` on the card and on the CPU (plain
+    versions) from the same weights: losses within 1e-5 relative,
+    parameters within 5e-5 absolute (``resnet_check``'s tolerances)."""
+    import copy
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.dataset import NativeImagePipeline
+    from bigdl_tpu_torch.models.resnet import _Builder
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.tpu_fusion import FusedGraph
+    from bigdl_tpu_torch.ops import fused_conv as fc
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    monkeypatch.setenv("BIGDL_PALLAS_MIN_C", "8")
+    torch.backends.cudnn.allow_tf32 = False
+    b = _Builder("cpu", torch.Generator().manual_seed(4))
+    inp = tnn.Input()
+    x = b.conv(3, 16, 3, 1, 1).inputs(inp)
+    x = tnn.ReLU(True).inputs(b.bn(16).inputs(x))
+    x, n = b.residual(x, 16, 8, 1, b.bottleneck_block, "B", True)
+    x, n = b.residual(x, n, 16, 2, b.bottleneck_block, "B", True)
+    x = tnn.SpatialAveragePooling(4, 4, 1, 1).inputs(x)
+    x = tnn.Reshape([n], batch_mode=True).inputs(x)
+    cpu = FusedGraph(tnn.Graph(inp, b.linear(n, 10).inputs(x)))
+    with torch.no_grad():           # non-zero gammas: every block counts
+        for p in cpu.parameters():
+            if p.dim() == 1:
+                p.add_(0.3)
+    gpu = copy.deepcopy(cpu).to(card)
+    rng = np.random.default_rng(16)
+    imgs = rng.integers(0, 256, (16, 10, 10, 3), dtype=np.uint8)
+    labels = rng.integers(1, 11, 16)
+    losses = {}
+    fc.fwd_launches = fc.dgrad_launches = fc.wgrad_launches = 0
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        pipe = NativeImagePipeline(imgs, labels, batch_size=4, crop=(8, 8),
+                                   mean=(120.0, 115.0, 100.0),
+                                   std=(60.0, 61.0, 62.0), seed=3,
+                                   output="u8_nhwc")
+        seen = []
+
+        def record(state, seen=seen):
+            if state["loss"] is not None:
+                seen.append(state["loss"])
+            return state["neval"] > 3
+
+        opt = Optimizer(model, pipe, CrossEntropyCriterion(),
+                        end_trigger=Trigger(record,
+                                            Trigger.max_iteration(3).peek))
+        opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9,
+                                 weight_decay=1e-4))
+        opt.set_device_preprocess(pipe.device_normalizer())
+        opt.optimize()
+        losses[name] = seen
+    assert [fc.fwd_launches, fc.dgrad_launches, fc.wgrad_launches] == [12] * 3
+    assert len(losses["cuda"]) == 3
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for a, b_ in zip(gpu.parameters(), cpu.parameters()):
+        assert float((a.detach().cpu() - b_.detach()).abs().max()) <= 5e-5

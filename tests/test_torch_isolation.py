@@ -2,7 +2,9 @@
 the ``tools/torch_*.py`` scripts, which drive it on the card) import
 neither ``jax`` nor anything of the JAX package ``bigdl_tpu`` — jax-free
 modules included — nor ``ml_dtypes`` (the card's machine has no jax, so
-bf16 crosses the wire by the port's own codec).
+bf16 crosses the wire by the port's own codec), nor ``PIL``,
+``tensorboard`` or ``tensorflow`` (the card's machine has none of them:
+the event files are written by the port's own encoder).
 
 Two checks: a fresh interpreter imports every module of the package and
 finds no ``jax*`` module and no module whose first dotted part is
@@ -22,7 +24,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "bigdl_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "bigdl_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "bigdl_tpu", "ml_dtypes", "PIL", "tensorboard",
+             "tensorflow")
 
 
 def _modules():
@@ -83,7 +86,14 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.optim.validation",
               "bigdl_tpu_torch.optim.evaluator",
               "bigdl_tpu_torch.optim.regularizer",
-              "bigdl_tpu_torch.utils.file_io", "bigdl_tpu_torch.utils.engine"):
+              "bigdl_tpu_torch.utils.file_io", "bigdl_tpu_torch.utils.engine",
+              "bigdl_tpu_torch.utils.protowire",
+              "bigdl_tpu_torch.visualization",
+              "bigdl_tpu_torch.visualization.tensorboard",
+              "bigdl_tpu_torch.visualization.summary",
+              "bigdl_tpu_torch.optim.upload",
+              "bigdl_tpu_torch.dataset.native_pipeline",
+              "bigdl_tpu_torch.dataset.cifar"):
         assert m in mods
     for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu",
                 "conv3x3.cu", "kv_requant.cu"):

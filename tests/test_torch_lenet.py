@@ -468,8 +468,13 @@ def test_train_main_and_test_main_on_the_cpu(idx_dirs, tmp_path):
     test_set = mnist_dataset(SimpleNamespace(folder=d, synthetic=0), "test")
     (again,) = model.evaluate(test_set, [Top1Accuracy()], 128)
     assert again.correct == res.correct and res.result()[0] > 0.5
-    with pytest.raises(NotImplementedError, match="summary"):
-        train_main(["-f", d, "--summary", str(tmp_path), "--device", "cpu"])
+    # --summary is ported: a TrainSummary under <dir>/train/train
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    train_main(["-f", d, "--maxIteration", "2", "--summary", str(tmp_path),
+                "--device", "cpu"])
+    loss = TrainSummary(str(tmp_path), "train").read_scalar("Loss")
+    assert [s for s, _ in loss] == [1, 2] and all(v > 0 for _, v in loss)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_main(["-f", d])

@@ -272,6 +272,39 @@ def test_fused_graph_shares_the_graph_tree_and_passes_through():
     assert tuple(out.shape) == (2, 10)
 
 
+def test_fused_graph_keeps_its_edges_through_copy_and_load(monkeypatch,
+                                                          tmp_path):
+    """A deep copy or a ``Module.load`` (a checkpoint's ``model`` file)
+    gives every graph node a new id; the plan, keyed by node ids, is
+    rebuilt, so the copy still runs its 4 kernel edges (threshold 8) and
+    gives the original's output bitwise."""
+    import copy
+
+    from bigdl_tpu_torch.nn import tpu_fusion as tfu
+    from bigdl_tpu_torch.nn.module import AbstractModule
+
+    monkeypatch.setenv("BIGDL_PALLAS_MIN_C", "8")
+    calls = []
+    real = tfu.bn_relu_conv1x1
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tfu, "bn_relu_conv1x1", counted)
+    f = maybe_fuse(_tiny_pair(8)[1]).evaluate()
+    f.save(str(tmp_path / "m"))
+    x = torch.from_numpy(_x(4))
+    want = f(x)
+    for other in (copy.deepcopy(f),
+                  AbstractModule.load(str(tmp_path / "m"), device="cpu")):
+        assert set(other._edges) <= {id(p) for p in other._pnodes}
+        assert len(other._edges) == len(f._edges)
+        calls.clear()
+        assert torch.equal(other.evaluate()(x), want)
+        assert len(calls) == 4
+
+
 def test_resnet50_trees_load_from_jax_and_fuse_28_edges(monkeypatch):
     """No full-size forward: the port's ResNet-50 takes the JAX model's
     params and state trees leaf for leaf, and FusedGraph finds the 31

@@ -303,9 +303,14 @@ def test_optimizer_refuses_unported_knobs_and_does_not_retry(tmp_path):
     opt = Optimizer(tlm, [Sample(x, y) for x, y in _samples(4, 0)],
                     Failing(0), batch_size=4,
                     end_trigger=Trigger.max_iteration(2))
-    for name in ("set_train_summary", "set_profile", "handle_preemption"):
-        with pytest.raises(NotImplementedError):
-            getattr(opt, name)()
+    # the summaries, the profile window and preemption are ported: each
+    # knob now returns the optimizer
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    assert opt.set_train_summary(TrainSummary(str(tmp_path), "app")) is opt
+    assert opt.set_profile(str(tmp_path / "trace")) is opt
+    assert opt.handle_preemption() is opt
+    opt.handle_preemption(False)        # it would ask for a checkpoint
     before = {k: p.detach().clone() for k, p in tlm.named_parameters()}
     with pytest.raises(RuntimeError, match="kernel failed"):
         opt.optimize()

@@ -41,6 +41,7 @@ class NativeImagePipeline(AbstractDataSet):
     def __init__(self, images: np.ndarray, labels: Sequence[int], *,
                  batch_size: int, crop: Optional[tuple] = None,
                  mean, std, pad: int = 0, hflip: bool = True,
+                 queue_depth: int = 4, n_workers: int = 4,
                  seed: int = 0, output: str = "f32_nchw") -> None:
         if output not in ("f32_nchw", "u8_nhwc"):
             raise ValueError(f"unknown output {output!r}")
@@ -62,6 +63,10 @@ class NativeImagePipeline(AbstractDataSet):
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
         self.hflip = hflip
+        # the native loader's prefetch depth and worker count; the numpy
+        # feeds here do not use them, as JAX's u8 feed does not
+        self.queue_depth = queue_depth
+        self.n_workers = n_workers
         self.seed = seed
         self.output = output
 

@@ -1027,9 +1027,10 @@ def make_decode_step(model: Sequential, compute_dtype=None):
     return step, init_carry
 
 
-def _step_cache(model: Sequential, kind: str, compute_dtype, make):
-    """The built step for ``(model, kind, compute_dtype)``, built once
-    (``:2005``). The cache lives on the model, so it goes with it; a copy
+def _step_cache(model: Sequential, kind: str, compute_dtype, make,
+                extra=None):
+    """The built step for ``(model, kind, compute_dtype[, extra])``, built
+    once (``:2005``). The cache lives on the model, so it goes with it; a copy
     of the model (whose dict holds the same steps, built over the
     original) starts its own. Assumes the model's architecture is frozen
     after first use (weights ride as runtime arguments)."""
@@ -1038,6 +1039,8 @@ def _step_cache(model: Sequential, kind: str, compute_dtype, make):
         per_model = {}
         model.__dict__["_serving_steps"] = (id(model), per_model)
     key = (kind, None if compute_dtype is None else str(compute_dtype))
+    if extra is not None:
+        key = key + (extra,)
     if key not in per_model:
         per_model[key] = make()
     return per_model[key]
@@ -1050,10 +1053,14 @@ def get_decode_step(model: Sequential, compute_dtype=None):
                        lambda: make_decode_step(model, compute_dtype))
 
 
-def get_prefill_step(model: Sequential, compute_dtype=None):
-    """Cached :func:`make_prefill_step` (float KV)."""
+def get_prefill_step(model: Sequential, compute_dtype=None,
+                     kv_quant: bool = False):
+    """Cached :func:`make_prefill_step`; ``kv_quant`` selects the variant
+    that writes int8 KV, its own cache entry (its carry differs)."""
     return _step_cache(model, "prefill", compute_dtype,
-                       lambda: make_prefill_step(model, compute_dtype))
+                       lambda: make_prefill_step(model, compute_dtype,
+                                                 kv_quant=kv_quant),
+                       extra="int8" if kv_quant else None)
 
 
 def _primed_carry(model: Sequential, compute_dtype, prompt, rows: int,

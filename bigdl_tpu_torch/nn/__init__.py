@@ -3,11 +3,13 @@
 from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU, Tanh
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch, beam_search
-from bigdl_tpu_torch.nn.containers import Container, Sequential
+from bigdl_tpu_torch.nn.containers import (
+    Concat, ConcatTable, Container, Sequential,
+)
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.criterion import (
     AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion,
-    TimeDistributedCriterion,
+    ParallelCriterion, TimeDistributedCriterion,
 )
 from bigdl_tpu_torch.nn.criterion_more import (
     MaskedSoftmaxCECriterion, TimeDistributedMaskCriterion,
@@ -18,22 +20,28 @@ from bigdl_tpu_torch.nn.init_methods import (
     RandomUniform, Xavier, Zeros,
 )
 from bigdl_tpu_torch.nn.linear import Linear
-from bigdl_tpu_torch.nn.misc import LookupTable
+from bigdl_tpu_torch.nn.misc import Dropout, LookupTable
 from bigdl_tpu_torch.nn.module import AbstractModule, Identity, TensorModule
 from bigdl_tpu_torch.nn.normalization import (
-    BatchNormalization, SpatialBatchNormalization,
+    BatchNormalization, SpatialBatchNormalization, SpatialCrossMapLRN,
 )
 from bigdl_tpu_torch.nn.pooling import SpatialAveragePooling, SpatialMaxPooling
-from bigdl_tpu_torch.nn.shape_ops import CAddTable, Reshape
+from bigdl_tpu_torch.nn.recurrent import LSTM, BiRecurrent, Cell, Recurrent
+from bigdl_tpu_torch.nn.shape_ops import (
+    CAddTable, FlattenTable, Reshape, Select,
+)
 
 __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
-           "Sequential", "Graph", "Input", "ModuleNode", "Linear",
-           "LookupTable", "LogSoftMax", "ReLU", "Tanh", "MultiHeadAttention",
-           "SpatialConvolution", "BatchNormalization",
-           "SpatialBatchNormalization", "SpatialMaxPooling",
-           "SpatialAveragePooling", "Reshape", "CAddTable",
+           "Sequential", "Concat", "ConcatTable", "Graph", "Input",
+           "ModuleNode", "Linear", "LookupTable", "Dropout", "LogSoftMax",
+           "ReLU", "Tanh", "MultiHeadAttention", "SpatialConvolution",
+           "BatchNormalization", "SpatialBatchNormalization",
+           "SpatialCrossMapLRN", "SpatialMaxPooling",
+           "SpatialAveragePooling", "Reshape", "Select", "CAddTable",
+           "FlattenTable", "Cell", "LSTM", "Recurrent", "BiRecurrent",
            "InitializationMethod", "Zeros", "Ones", "ConstInitMethod",
            "RandomUniform", "RandomNormal", "Xavier", "MsraFiller",
            "AbstractCriterion", "ClassNLLCriterion", "CrossEntropyCriterion",
-           "TimeDistributedCriterion", "TimeDistributedMaskCriterion",
-           "MaskedSoftmaxCECriterion", "SequenceBeamSearch", "beam_search"]
+           "ParallelCriterion", "TimeDistributedCriterion",
+           "TimeDistributedMaskCriterion", "MaskedSoftmaxCECriterion",
+           "SequenceBeamSearch", "beam_search"]

@@ -1,5 +1,6 @@
-"""Containers — ``Container`` and ``Sequential``
-(``bigdl_tpu/nn/containers.py:21`` and ``:61``).
+"""Containers — ``Container``, ``Sequential``, ``Concat`` and
+``ConcatTable`` (``bigdl_tpu/nn/containers.py:21``, ``:61``, ``:82``,
+``:108``).
 
 Children are registered under ``f"{i}:{child.name}"`` exactly as the
 JAX container keys its params tree (``containers.py:33``), so the two
@@ -14,6 +15,8 @@ later rename).
 from __future__ import annotations
 
 from typing import List
+
+import torch
 
 from bigdl_tpu_torch.nn.module import AbstractModule
 
@@ -46,3 +49,25 @@ class Sequential(Container):
         for m in self._modules.values():
             x = m(x)
         return x
+
+
+class Concat(Container):
+    """Every child on the same input, the outputs concatenated along
+    ``dimension`` (1-based; ``Concat(2)`` is the channel axis of NCHW),
+    Inception's block (reference ``nn/Concat.scala``)."""
+
+    def __init__(self, dimension: int) -> None:
+        super().__init__()
+        self.dimension = dimension
+
+    def forward(self, x):
+        return torch.cat([m(x) for m in self._modules.values()],
+                         dim=self.dimension - 1)
+
+
+class ConcatTable(Container):
+    """Every child on the same input; the output is the list of their
+    outputs (reference ``nn/ConcatTable.scala``)."""
+
+    def forward(self, x):
+        return [m(x) for m in self._modules.values()]

@@ -1,6 +1,6 @@
 """Criteria (``bigdl_tpu/nn/criterion.py``): ``AbstractCriterion``,
-``ClassNLLCriterion``, ``CrossEntropyCriterion`` and
-``TimeDistributedCriterion``.
+``ClassNLLCriterion``, ``CrossEntropyCriterion``, ``ParallelCriterion``
+and ``TimeDistributedCriterion``.
 
 Conventions kept for parity: **class labels are 1-based** (the Torch
 heritage of the reference), and ``size_average=True`` divides by the
@@ -12,7 +12,7 @@ a float and ``backward`` returns its gradient with respect to the input
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -92,6 +92,49 @@ class CrossEntropyCriterion(AbstractCriterion):
         logp = torch.log_softmax(input, dim=-1)
         return ClassNLLCriterion(self.weights, self.size_average).apply(
             logp, target)
+
+
+class ParallelCriterion(AbstractCriterion):
+    """The weighted sum of criteria over a table input: criterion i takes
+    ``input[i]`` and ``target[i]``, or the one shared ``target`` with
+    ``repeat_target`` (``Inception_v1``'s three heads, reference
+    ``ParallelCriterion.scala``)."""
+
+    def __init__(self, repeat_target: bool = False) -> None:
+        super().__init__()
+        self.criterions: List[AbstractCriterion] = []
+        self.crit_weights: List[float] = []
+        self.repeat_target = repeat_target
+
+    def add(self, criterion: AbstractCriterion,
+            weight: float = 1.0) -> "ParallelCriterion":
+        self.criterions.append(criterion)
+        self.crit_weights.append(weight)
+        return self
+
+    def apply(self, input, target):
+        total = 0.0
+        for i, (c, w) in enumerate(zip(self.criterions, self.crit_weights)):
+            t = target if self.repeat_target else target[i]
+            total = total + w * c.apply(input[i], t)
+        return total
+
+    def forward(self, input, target) -> float:
+        xs = [_as_tensor(x) for x in input]
+        t = (_as_tensor(target, xs[0]) if self.repeat_target
+             else [_as_tensor(v, x) for v, x in zip(target, xs)])
+        self.output = float(self.apply(xs, t))
+        return self.output
+
+    __call__ = forward
+
+    def backward(self, input, target):
+        xs = [_as_tensor(x).detach().requires_grad_() for x in input]
+        t = (_as_tensor(target, xs[0]) if self.repeat_target
+             else [_as_tensor(v, x) for v, x in zip(target, xs)])
+        with torch.enable_grad():
+            self.grad_input = list(torch.autograd.grad(self.apply(xs, t), xs))
+        return self.grad_input
 
 
 class TimeDistributedCriterion(AbstractCriterion):

@@ -24,7 +24,13 @@ the layer's computation. What carries over from the JAX base:
   :mod:`bigdl_tpu_torch.optim.evaluator`;
 * ``save``/``load`` (:mod:`bigdl_tpu_torch.utils.file_io`);
 * ``module.inputs(...)`` (``bigdl_tpu/nn/graph.py:38-43``), which
-  attaches the module to a :class:`~bigdl_tpu_torch.nn.graph.Graph` node.
+  attaches the module to a :class:`~bigdl_tpu_torch.nn.graph.Graph` node;
+* the ``rng`` of the JAX ``apply``: stochastic layers (``Dropout``, a
+  recurrent cell's variational dropout) draw from the
+  ``torch.Generator`` that :func:`use_rng` makes current (the train step
+  does, with the step's generator) and are the identity when none is,
+  as JAX's are with ``rng=None``; they never draw from torch's global
+  generator. The facade passes no generator.
 
 Names the JAX facade shares with ``nn.Module`` keep PyTorch's meaning,
 because PyTorch's optimizers and utilities call them:
@@ -48,14 +54,34 @@ parameter name split at its dots), so the flat vectors equal JAX's.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import itertools
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 _instance_counter = itertools.count()
+_rng: contextvars.ContextVar = contextvars.ContextVar("bigdl_tpu_torch_rng",
+                                                     default=None)
+
+
+@contextlib.contextmanager
+def use_rng(generator: Optional[torch.Generator]):
+    """Make ``generator`` the one stochastic layers draw from inside the
+    ``with`` block (``None``: they draw nothing)."""
+    token = _rng.set(generator)
+    try:
+        yield generator
+    finally:
+        _rng.reset(token)
+
+
+def current_rng() -> Optional[torch.Generator]:
+    """The generator :func:`use_rng` made current, or ``None``."""
+    return _rng.get()
 
 
 class AbstractModule(nn.Module):

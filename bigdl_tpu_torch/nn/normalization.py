@@ -1,6 +1,8 @@
 """Batch normalization (``bigdl_tpu/nn/normalization.py``):
 ``BatchNormalization`` (``:24``) over (N, D) and
-``SpatialBatchNormalization`` (``:128``) per channel over (N, C, H, W).
+``SpatialBatchNormalization`` (``:128``) per channel over (N, C, H, W);
+and ``SpatialCrossMapLRN`` (``:132``), the local response normalization
+across channels.
 
 The semantics of the JAX ``apply`` (``:78-125``), kept exactly (which is
 why ``F.batch_norm``, with its own variance and momentum conventions, is
@@ -25,6 +27,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.init_methods import InitializationMethod, Ones, Zeros
 from bigdl_tpu_torch.nn.module import TensorModule, new_param
@@ -120,3 +123,31 @@ class BatchNormalization(TensorModule):
 
 class SpatialBatchNormalization(BatchNormalization):
     """Per-channel BN over (N, C, H, W): the same math, channel axis 1."""
+
+
+class SpatialCrossMapLRN(TensorModule):
+    """``out = x / (k + alpha/size * window_sum(x²))^beta``, the window
+    ``size`` channels wide, padded (half, size - 1 - half) with half =
+    (size - 1) // 2 as JAX pads it. ``F.local_response_norm`` pads
+    (size // 2, (size - 1) // 2), which differs for an even ``size``, so
+    the window sum is written out: a zero pad and a box sum over the
+    channel axis."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+                 k: float = 1.0) -> None:
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+
+    def forward(self, x):
+        squeeze = x.dim() == 3
+        if squeeze:
+            x = x[None]
+        half = (self.size - 1) // 2
+        sq = F.pad(x * x, (0, 0, 0, 0, half, self.size - 1 - half))
+        # (N, C + size - 1, H, W) → sum of `size` consecutive channels
+        window_sum = sq.unfold(1, self.size, 1).sum(dim=-1)
+        out = x / (self.k + (self.alpha / self.size) * window_sum) ** self.beta
+        return out[0] if squeeze else out

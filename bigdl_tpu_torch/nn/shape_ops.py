@@ -1,5 +1,6 @@
 """Shape and table layers (``bigdl_tpu/nn/shape_ops.py``): ``Reshape``
-(``:32``) and ``CAddTable`` (``:177``)."""
+(``:32``), ``Select`` (``:69``), ``CAddTable`` (``:177``) and
+``FlattenTable`` (``:263``)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import Sequence
 
 import numpy as np
 
-from bigdl_tpu_torch.nn.module import TensorModule
+from bigdl_tpu_torch.nn.module import AbstractModule, TensorModule
 
 
 class Reshape(TensorModule):
@@ -29,6 +30,22 @@ class Reshape(TensorModule):
         return x.reshape(self.size)
 
 
+class Select(TensorModule):
+    """Index ``index`` of dimension ``dim``, both 1-based, the dimension
+    dropped; a negative ``index`` counts from the end (-1 the last), a
+    negative ``dim`` from the last dimension (JAX's ``_axis``)."""
+
+    def __init__(self, dim: int, index: int) -> None:
+        super().__init__()
+        self.dim = dim
+        self.index = index
+
+    def forward(self, x):
+        ax = x.dim() + self.dim if self.dim < 0 else self.dim - 1
+        idx = self.index - 1 if self.index > 0 else x.shape[ax] + self.index
+        return x.select(ax, idx)
+
+
 class CAddTable(TensorModule):
     """Sum a list of tensors (the residual join of ResNet graphs)."""
 
@@ -40,3 +57,21 @@ class CAddTable(TensorModule):
         for x in xs[1:]:
             out = out + x
         return out
+
+
+class FlattenTable(AbstractModule):
+    """A nested table (lists of lists of tensors) as one flat list, depth
+    first (``Inception_v1``'s ``[[main, aux2], aux1]`` → three heads)."""
+
+    def forward(self, xs):
+        flat = []
+
+        def rec(v):
+            if isinstance(v, (list, tuple)):
+                for u in v:
+                    rec(u)
+            else:
+                flat.append(v)
+
+        rec(xs)
+        return flat

@@ -8,7 +8,7 @@ from bigdl_tpu_torch.optim.evaluator import (
 )
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import (
-    SGD, Adam, Default, Exponential, LearningRateSchedule, MultiStep,
+    SGD, Adagrad, Adam, Default, Exponential, LearningRateSchedule, MultiStep,
     OptimMethod, Plateau, Poly, SequentialSchedule, Step, Warmup,
 )
 from bigdl_tpu_torch.optim.optimizer import (
@@ -23,7 +23,7 @@ from bigdl_tpu_torch.optim.validation import (
     ValidationMethod, ValidationResult,
 )
 
-__all__ = ["Adam", "Default", "Exponential", "LearningRateSchedule",
+__all__ = ["Adagrad", "Adam", "Default", "Exponential", "LearningRateSchedule",
            "MultiStep", "OptimMethod", "Plateau", "Poly",
            "SequentialSchedule", "SGD", "Step", "Warmup", "LocalOptimizer",
            "Optimizer", "TrainingPreempted", "Trigger", "Evaluator",

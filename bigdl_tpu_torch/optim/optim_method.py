@@ -2,7 +2,7 @@
 base with ``save``/``load``/``clear_history``, ``SGD`` with its
 learning-rate schedules (``Default``, ``Step``, ``MultiStep``,
 ``Exponential``, ``Poly``, ``Warmup``, ``SequentialSchedule``,
-``Plateau``; ``:53-190``), and ``Adam``.
+``Plateau``; ``:53-190``), ``Adam`` and ``Adagrad`` (``:419``).
 
 Each method keeps the JAX package's functional contract
 ``update(grads, state, params) -> (new_params, new_state)`` over dicts of
@@ -25,7 +25,8 @@ op-by-op value, and from the port's, by an ulp.) ``Plateau`` reads the
 scale that ``record_score`` (fed by validation) last set.
 
 Not ported yet (they raise ``NotImplementedError``): Adam's bf16 slot
-storage (``state_dtype``) and stochastic rounding, and the other methods.
+storage (``state_dtype``) and stochastic rounding; the other methods
+are not ported either.
 """
 
 from __future__ import annotations
@@ -330,6 +331,44 @@ class Adam(OptimMethod):
         torch._foreach_sub_(p, num)
         return params, {"neval": neval + 1, "m": state["m"],
                         "v": state["v"]}
+
+
+class Adagrad(OptimMethod):
+    """The JAX update (``:419-444``): weight decay into the gradient,
+    ``clr = lr / (1 + neval * decay)``, ``accum += g²``, then ``p - clr *
+    g / (sqrt(accum) + 1e-10)``."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_decay: float = 0.0,
+                 weight_decay: float = 0.0) -> None:
+        super().__init__()
+        self.learning_rate = learning_rate
+        self.learning_rate_decay = learning_rate_decay
+        self.weight_decay = weight_decay
+
+    def init_state(self, params: Tensors) -> Dict:
+        return {"neval": 0,
+                "accum": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        if self.weight_decay > 0:
+            g = torch._foreach_add(g, p, alpha=self.weight_decay)
+        neval = state["neval"]
+        clr = _f32(np.float32(self.learning_rate) / (
+            np.float32(1.0) + np.float32(neval)
+            * np.float32(self.learning_rate_decay)))
+        accum = [state["accum"][k] for k in names]
+        torch._foreach_addcmul_(accum, g, g)
+        den = torch._foreach_sqrt(accum)
+        torch._foreach_add_(den, 1e-10)
+        step = torch._foreach_mul(g, clr)
+        torch._foreach_div_(step, den)
+        torch._foreach_sub_(p, step)
+        return params, {"neval": neval + 1, "accum": state["accum"]}
 
 
 def load_jax_opt_state(model, state_np: Dict) -> Dict:

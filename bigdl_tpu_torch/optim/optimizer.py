@@ -24,6 +24,13 @@ instance counters that differ between builds), and replays the
 deterministic data stream up to the checkpointed record, since each epoch
 reshuffles by its index: the resumed run then equals an uninterrupted one.
 
+Each step draws its stochastic layers' masks (``Dropout``) from a
+``torch.Generator`` on the model's device seeded with
+:func:`~bigdl_tpu_torch.optim.train_step.step_seed` of the base seed
+(``set_seed``, default 0) and the iteration counter ``neval``, as JAX
+folds ``neval`` into its base key: a resumed run draws the masks of an
+uninterrupted one. The masks are not JAX's (another generator).
+
 ``set_train_summary``/``set_val_summary`` write TensorBoard scalars (and
 ``Parameters/...`` histograms on the summary's trigger) from values the
 loop already reads; ``set_profile`` opens a ``torch.profiler`` window over
@@ -56,7 +63,9 @@ from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.nn.tpu_fusion import FusedGraph
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
-from bigdl_tpu_torch.optim.train_step import make_eval_step, make_train_step
+from bigdl_tpu_torch.optim.train_step import (
+    make_eval_step, make_train_step, step_seed,
+)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.upload import PinnedUploader
 from bigdl_tpu_torch.optim.validation import ValidationMethod
@@ -153,11 +162,17 @@ class Optimizer:
         self._profile: Optional[Dict[str, Any]] = None
         self._handle_preemption = False
         self._preempt_flag = False
+        self.seed = 0
 
     # -- fluent config (reference names, snake_case) -----------------------
 
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_method = method
+        return self
+
+    def set_seed(self, seed: int) -> "Optimizer":
+        """The base seed of the steps' generators (default 0)."""
+        self.seed = int(seed)
         return self
 
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
@@ -475,6 +490,8 @@ class Optimizer:
             seen_this_epoch = state.get("seen", 0)
         next_ready = None            # (inp, tgt, bsz) placed ahead of time
         epoch_start = time.time()
+        # reseeded every iteration from (seed, neval)
+        gen = torch.Generator(device=next(iter(params.values())).device)
 
         while not self.end_when(state):
             if self._preempt_flag:
@@ -496,8 +513,9 @@ class Optimizer:
                 next_ready = (*place_batch(b), b.size())
             inp, tgt, bsz = next_ready
             t0 = time.time()
+            gen.manual_seed(step_seed(self.seed, state["neval"]))
             params, opt_state, model_state, loss = step(
-                params, opt_state, model_state, None, inp, tgt)
+                params, opt_state, model_state, gen, inp, tgt)
             # the next batch is fetched and placed while the step runs on
             # the card, but only when the loop will run again
             spec = dict(state)

@@ -22,18 +22,36 @@ else, before the compute-dtype cast (the u8-NHWC feed's
 ``DeviceImageNormalizer``: the host ships uint8 batches, a quarter of the
 f32 bytes, and the card normalizes them), in the train and the eval step.
 
+``rng`` is a ``torch.Generator`` on the step's device, or ``None``. The
+forward runs with it current (:func:`bigdl_tpu_torch.nn.module.use_rng`),
+so stochastic layers (``Dropout``, a recurrent cell's variational
+dropout) draw their masks from it and from nothing else; with ``None``
+they are the identity, as JAX's are with ``rng=None``.
+:class:`~bigdl_tpu_torch.optim.optimizer.Optimizer` seeds one from its
+base seed and the iteration counter, as JAX folds ``neval`` into its
+base key.
+
 Not ported yet: frozen layers (the step raises if a module asks for
-them), stochastic layers (``rng`` is accepted for the JAX signature and
-unused: no port layer draws noise), and the JAX step's
-``grad_transform`` hook.
+them) and the JAX step's ``grad_transform`` hook.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch.func import functional_call
+
+from bigdl_tpu_torch.nn.module import use_rng
+
+
+def step_seed(seed: int, neval: int) -> int:
+    """The seed of iteration ``neval``'s generator under the base
+    ``seed``, JAX's ``fold_in(base_key, neval)``: a 64-bit word of numpy's
+    ``SeedSequence`` of the pair, so nearby pairs give unrelated seeds."""
+    return int(np.random.SeedSequence([int(seed), int(neval)])
+               .generate_state(1, np.uint64)[0])
 
 
 def cast_floats(tree, dtype):
@@ -83,8 +101,11 @@ def clip_by_value(grads: Dict[str, torch.Tensor], min_v: float, max_v: float):
     return {k: g.clamp(min_v, max_v) for k, g in grads.items()}
 
 
-#: (regularizer attribute, the leaf it regularizes)
-_REGULARIZED = (("w_regularizer", "weight"), ("b_regularizer", "bias"))
+#: (regularizer attribute, the module's key-set attribute, the default
+#: keys): a recurrent cell's ``w_ih``/``w_hh``/``b_*`` take part too
+_REGULARIZED = (("w_regularizer", "_reg_w_keys", ("weight",)),
+                ("u_regularizer", "_reg_u_keys", ("w_hh",)),
+                ("b_regularizer", "_reg_b_keys", ("bias", "b_ih", "b_hh")))
 
 
 def module_regularizers(model):
@@ -94,11 +115,14 @@ def module_regularizers(model):
     own = dict(model.named_parameters())
     out = []
     for prefix, m in model.named_modules():
-        for reg_attr, key in _REGULARIZED:
+        for reg_attr, keys_attr, default_keys in _REGULARIZED:
             reg = getattr(m, reg_attr, None)
-            name = f"{prefix}.{key}" if prefix else key
-            if reg is not None and name in own:
-                out.append((name, reg))
+            if reg is None:
+                continue
+            for key in getattr(m, keys_attr, default_keys):
+                name = f"{prefix}.{key}" if prefix else key
+                if name in own:
+                    out.append((name, reg))
     return out
 
 
@@ -136,7 +160,10 @@ def make_train_step(model, criterion, optim_method,
     mode, so the returned ``model_state`` is the dict passed in, holding
     the new statistics. ``loss_scale`` multiplies the loss before the
     backward pass and divides the gradients after (fp16).
-    ``device_preprocess`` maps the raw input batch first."""
+    ``device_preprocess`` maps the raw input batch first. ``rng`` (a
+    ``torch.Generator`` or ``None``) feeds the stochastic layers. The
+    model's output may be a table (a list of tensors, ``Inception_v1``'s
+    three heads): the casts and the criterion take it as it is."""
     _refuse_unported(model)
     compute_dtype = resolve_dtype(compute_dtype)
     regs = module_regularizers(model)
@@ -150,7 +177,8 @@ def make_train_step(model, criterion, optim_method,
             if compute_dtype is not None:
                 p = cast_floats(p, compute_dtype)
                 x = cast_floats(x, compute_dtype)
-            out = functional_call(model, {**p, **model_state}, (x,))
+            with use_rng(rng):
+                out = functional_call(model, {**p, **model_state}, (x,))
             if compute_dtype is not None:
                 out = cast_floats(out, torch.float32)  # f32 stable softmax
             loss = criterion.apply(out, targets) * loss_scale

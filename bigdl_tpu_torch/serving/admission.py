@@ -76,12 +76,13 @@ class AdmissionController:
     :class:`ServingEngine`; reads the engine's pool, scheduler, metrics,
     params and prefill step."""
 
-    def __init__(self, engine,
-                 prefix_cache: Optional[PrefixCache] = None) -> None:
+    def __init__(self, engine, prefix_cache: Optional[PrefixCache] = None,
+                 prefill_rows: int = 0) -> None:
         self.engine = engine
         self.prefix_cache = prefix_cache
-        # an admission round never has more rows to fill than slots
-        self.prefill_rows = engine.pool.n_slots
+        # the fixed row count of every batch prefill; 0 means the slot
+        # count (an admission round never has more rows to fill)
+        self.prefill_rows = int(prefill_rows) or engine.pool.n_slots
         self._zero_carry_cache: Optional[dict] = None
         # (B, L) prefill shapes this controller has run: the bounded
         # shape set the buckets exist for

@@ -16,6 +16,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 N, BATCH = 60, 16          # 4 batches per epoch, the last one crosses it
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.ops import conv3x3 as tcv
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RTOL = {"f32": 2e-5, "bf16": 1e-2}

@@ -24,6 +24,7 @@ from bigdl_tpu.ops.decode_attention import (
     pooled_decode_attention as jax_kernel,
 )
 from bigdl_tpu_torch.ops import decode_attention as tda
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 TOL = {"fp32": 2e-5, "int8": 2e-5, "bf16": 2e-2}
 

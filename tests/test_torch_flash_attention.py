@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from bigdl_tpu_torch.ops import flash_attention as tfa
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 # the module (bigdl_tpu.ops re-exports a function of the same name)
 jfa = importlib.import_module("bigdl_tpu.ops.flash_attention")

@@ -34,7 +34,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import make_pair, top2_gaps
+from tests.torch_parity import (  # noqa: F401
+    make_pair, one_torch_thread, top2_gaps,
+)
 
 GAP = 1e-2
 

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import make_pair
+from tests.torch_parity import make_pair, one_torch_thread  # noqa: F401
 
 #: XLA on the CPU folds ``amax / 127 * 1.25`` into one multiply by
 #: ``1.25 / 127``, the port multiplies by f32(1 / 127) and then by 1.25 (the

@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
 BATCH = 128
 STEPS = 160
 LR = 0.1

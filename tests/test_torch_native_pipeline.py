@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 MEAN, STD = (125.3, 123.0, 113.9), (63.0, 62.1, 66.7)
 
@@ -63,6 +64,23 @@ def test_batches_are_bitwise_the_jax_feeds(output, pad, hflip):
     ev_j, ev_t = list(_jax_iter(jp, False)), list(tp.data(train=False))
     assert len(ev_t) == len(ev_j) == 3
     for a, b in zip(ev_j, ev_t):
+        np.testing.assert_array_equal(b.input, a.input)
+        np.testing.assert_array_equal(b.target, a.target)
+
+
+@pytest.mark.parametrize("output", ["u8_nhwc", "f32_nchw"])
+def test_queue_depth_and_n_workers_are_accepted_as_in_jax(output):
+    """The native loader's two knobs: taken and kept as JAX keeps them;
+    the numpy feeds do not use them (JAX's u8 feed does not either), so
+    the batches stay JAX's bitwise."""
+    jp, tp = _pipes(output, 1, queue_depth=2, n_workers=3)
+    assert (tp.queue_depth, tp.n_workers) == (jp.queue_depth,
+                                               jp.n_workers) == (2, 3)
+    _, default = _pipes(output, 1)
+    assert (default.queue_depth, default.n_workers) == (4, 4)
+    jt, tt = _jax_iter(jp, True), tp.data(train=True)
+    for _ in range(4):
+        a, b = next(jt), next(tt)
         np.testing.assert_array_equal(b.input, a.input)
         np.testing.assert_array_equal(b.target, a.target)
 

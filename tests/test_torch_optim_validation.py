@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 # --------------------------------------------------------------- schedules
 

@@ -35,6 +35,7 @@ from bigdl_tpu_torch import nn as tnn
 from bigdl_tpu_torch.models.resnet import ResNet, _Builder
 from bigdl_tpu_torch.nn.tpu_fusion import FusedGraph, maybe_fuse
 from bigdl_tpu_torch.utils.params_tree import load_jax_tree, named_leaves
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 
 def _close(got, want, rtol=2e-5, what=""):

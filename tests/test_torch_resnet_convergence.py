@@ -10,6 +10,7 @@ apart over 200 steps; the bar and the tolerance are the JAX test's)."""
 import jax
 import numpy as np
 import pytest
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.integration   # as the JAX test: a 10-epoch run
 

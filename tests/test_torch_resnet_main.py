@@ -27,6 +27,7 @@ from bigdl_tpu.utils.random_gen import RNG
 from bigdl_tpu_torch.dataset import cifar as tcifar
 from bigdl_tpu_torch.models import resnet as tres
 from bigdl_tpu_torch.utils.params_tree import load_jax_tree
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 
 # ------------------------------------------------------------ cifar files

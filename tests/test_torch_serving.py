@@ -25,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import make_pair, top2_gaps
+from tests.torch_parity import (  # noqa: F401
+    make_pair, one_torch_thread, top2_gaps,
+)
 
 LOGP_TOL = 1e-3
 GAP = 1e-2

@@ -4,7 +4,9 @@ package's, on the CPU at make_pair()'s size (V=29, hidden 32, 4 heads, 2
 layers, max_len 48):
 
 * ``make_prefill_step`` vs JAX's at fp32 and with int8 KV, and its
-  fresh-carry guard;
+  fresh-carry guard; ``get_prefill_step(kv_quant=True)`` its own cache
+  entry with JAX's int8 carry; ``AdmissionController(prefill_rows=)``'s
+  row count, shapes and streams against JAX's;
 * the per-request engine vs the JAX per-request engine (fp32 and int8
   KV), and vs the port's batched engine;
 * ``PrefixCache``'s hit, miss, truncation, refcount and LRU sequences,
@@ -28,7 +30,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import make_pair, np_tree, top2_gaps
+from tests.torch_parity import (  # noqa: F401
+    make_pair, np_tree, one_torch_thread, top2_gaps,
+)
 
 KV_TOL = 1e-5
 LOGP_TOL = 1e-3
@@ -95,6 +99,27 @@ def _jax(jlm, **kw):
 
 # -- make_prefill_step --------------------------------------------------------
 
+def _assert_prefilled(tlp, tc, jlp, jc, kvq, n):
+    """The port's prefill log-probs and carry against JAX's, under the
+    module's KV tolerances, ``n`` tokens in."""
+    np.testing.assert_allclose(tlp.numpy(), np.asarray(jlp), atol=KV_TOL,
+                               rtol=0)
+    jc, tc = np_tree(jc), np_tree(tc)
+    assert tc["pos"].tolist() == [n, n] and jc["pos"].tolist() == [n, n]
+    for i in range(2):
+        for kind in ("k", "v"):
+            key = f"{kind}{i}"
+            if kvq:
+                np.testing.assert_allclose(tc[f"{key}_scale"],
+                                           jc[f"{key}_scale"], rtol=1e-6)
+                diff = np.abs(tc[key].astype(np.int32)
+                              - jc[key].astype(np.int32))
+                assert diff.max() <= 1, key
+            else:
+                np.testing.assert_allclose(tc[key], jc[key], atol=KV_TOL,
+                                           rtol=0)
+
+
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
 def test_prefill_step_matches_jax(pair, kv_dtype):
     import jax.numpy as jnp
@@ -112,27 +137,57 @@ def test_prefill_step_matches_jax(pair, kv_dtype):
     zero = tinit(2)
     prefill = tm.make_prefill_step(tlm, kv_quant=kvq)
     tlp, tc = prefill(tm.serving_params(tlm), torch.from_numpy(toks), zero)
-    np.testing.assert_allclose(tlp.numpy(), np.asarray(jlp), atol=KV_TOL,
-                               rtol=0)
-    jc, tc = np_tree(jc), np_tree(tc)
-    assert tc["pos"].tolist() == [9, 9] and jc["pos"].tolist() == [9, 9]
-    for i in range(2):
-        for kind in ("k", "v"):
-            key = f"{kind}{i}"
-            if kvq:
-                np.testing.assert_allclose(tc[f"{key}_scale"],
-                                           jc[f"{key}_scale"], rtol=1e-6)
-                diff = np.abs(tc[key].astype(np.int32)
-                              - jc[key].astype(np.int32))
-                assert diff.max() <= 1, key
-            else:
-                np.testing.assert_allclose(tc[key], jc[key], atol=KV_TOL,
-                                           rtol=0)
+    _assert_prefilled(tlp, tc, jlp, jc, kvq, 9)
     # the input carry is never written
     assert all(float(v.abs().sum()) == 0 for v in zero.values())
     zero["pos"][1] = 3
     with pytest.raises(ValueError, match="fresh carry"):
         prefill(tm.serving_params(tlm), torch.from_numpy(toks), zero)
+
+
+def test_get_prefill_step_kv_quant_is_its_own_cache_entry(pair):
+    """``get_prefill_step(kv_quant=True)``: a cache entry apart from the
+    float one, as JAX keys it, and JAX's int8 carry."""
+    import jax.numpy as jnp
+
+    from bigdl_tpu.models import transformer as jtm
+    from bigdl_tpu_torch.models import transformer as tm
+
+    jlm, tlm = pair
+    f32, i8 = tm.get_prefill_step(tlm), tm.get_prefill_step(tlm,
+                                                            kv_quant=True)
+    assert i8 is not f32
+    assert i8 is tm.get_prefill_step(tlm, kv_quant=True)
+    assert f32 is tm.get_prefill_step(tlm)
+    jf = jtm.get_prefill_step(jlm, kv_quant=True)
+    assert jf is not jtm.get_prefill_step(jlm)
+    toks = np.random.RandomState(8).randint(0, 29, size=(2, 7))
+    _, jinit = jtm.make_batch_decode_step(jlm, kv_quant=True)
+    jlp, jc = jf(None, jnp.asarray(toks, jnp.int32), jinit(2))
+    _, tinit = tm.make_batch_decode_step(tlm, kv_quant=True)
+    tlp, tc = i8(tm.serving_params(tlm), torch.from_numpy(toks), tinit(2))
+    assert tc["k0"].dtype == torch.int8
+    _assert_prefilled(tlp, tc, jlp, jc, True, 7)
+
+
+def test_prefill_rows_sets_the_batch_prefill_row_count(pair):
+    """``AdmissionController(prefill_rows=2)`` on 3 slots: every batch
+    prefill has 2 rows, the (B, L) shapes JAX's controller runs, and the
+    streams JAX's; 0 (the default) means the slot count."""
+    from bigdl_tpu.serving.admission import AdmissionController as JA
+    from bigdl_tpu_torch.serving.admission import AdmissionController as TA
+
+    jlm, tlm = pair
+    reqs = _reqs(n=7, seed=21)
+    jeng, teng = _jax(jlm), _port(tlm)
+    jeng.admitter = JA(jeng, prefill_rows=2)
+    teng.admitter = TA(teng, prefill_rows=2)
+    want, got = _drive(jeng, reqs), _drive(teng, reqs)
+    shapes = teng.admitter.traced_shapes
+    assert shapes and {b for b, _ in shapes} == {2}
+    assert shapes == jeng.admitter.traced_shapes
+    _assert_streams(jlm, reqs, want, got)
+    assert TA(_port(tlm)).prefill_rows == JA(_jax(jlm)).prefill_rows == 3
 
 
 # -- per-request admission ----------------------------------------------------

@@ -27,7 +27,7 @@ differ)."""
 
 import pytest
 
-from tests.torch_parity import make_pair
+from tests.torch_parity import make_pair, one_torch_thread  # noqa: F401
 
 GREEDY = (0, 2)             # the trace's greedy requests
 

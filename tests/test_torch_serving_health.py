@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import make_pair
+from tests.torch_parity import make_pair, one_torch_thread  # noqa: F401
 
 GEOMETRY_TOL = 1e-5
 

@@ -36,7 +36,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import make_pair, np_tree
+from tests.torch_parity import (  # noqa: F401
+    make_pair, np_tree, one_torch_thread,
+)
 
 LOGP_TOL = 1e-4
 F32_TOL = 1e-5

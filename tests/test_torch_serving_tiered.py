@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import make_pair
+from tests.torch_parity import make_pair, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 WALL = 1_700_000_000.25
 

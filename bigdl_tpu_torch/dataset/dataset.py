@@ -3,8 +3,13 @@
 infinite and shuffled for training, one pass for evaluation. The
 training shuffle is ``np.random.RandomState(seed).permutation``, one
 draw per epoch, exactly as the JAX package draws it, so both packages
-see the same batches in the same order. Distributed datasets come with
-the data-parallel slice."""
+see the same batches in the same order.
+
+``DataSet.distributed`` (alias ``DataSet.rdd``) holds this process's
+shard of the global data, ``data[rank::world]`` over the
+``torch.distributed`` group (the JAX package's ``[process_index ::
+process_count]``), as a :class:`DistributedDataSet`; the ``Optimizer``
+factory returns a ``DistriOptimizer`` for that type."""
 
 from __future__ import annotations
 
@@ -60,12 +65,43 @@ class LocalDataSet(AbstractDataSet):
         return it
 
 
+class DistributedDataSet(LocalDataSet):
+    """This process's shard of the global data. ``partition_num`` is the
+    reference's RDD partition count, here the number of processes, and
+    ``partition_index`` this process's rank."""
+
+    def __init__(self, data: Sequence[Any], transformers=None, seed: int = 0,
+                 partition_num: int = 1, partition_index: int = 0) -> None:
+        super().__init__(data, transformers, seed)
+        self.partition_num = partition_num
+        self.partition_index = partition_index
+
+    def transform(self, transformer: Transformer) -> "DistributedDataSet":
+        return DistributedDataSet(
+            self._data, self._transformers + [transformer], self._seed,
+            self.partition_num, self.partition_index)
+
+    __rshift__ = transform
+
+
 class _DataSetFactory:
-    """``DataSet.array`` (reference ``object DataSet``)."""
+    """``DataSet.array`` / ``DataSet.distributed`` (reference ``object
+    DataSet``)."""
 
     @staticmethod
     def array(data: Sequence[Any], seed: int = 0) -> LocalDataSet:
         return LocalDataSet(data, seed=seed)
+
+    @staticmethod
+    def distributed(data: Sequence[Any], seed: int = 0) -> DistributedDataSet:
+        """The global data → this rank's shard, ``data[rank::world]``."""
+        from bigdl_tpu_torch.utils.engine import world_and_rank
+
+        n, idx = world_and_rank()
+        return DistributedDataSet(list(data)[idx::n], seed=seed,
+                                  partition_num=n, partition_index=idx)
+
+    rdd = distributed       # reference name: DataSet.rdd(...)
 
 
 DataSet = _DataSetFactory()

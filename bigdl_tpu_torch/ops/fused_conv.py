@@ -45,7 +45,10 @@ Dispatch: a CUDA tensor launches the hand-written kernels of
 ``bigdl_tpu_torch/csrc/fused_conv.cu`` (built with nvcc at first use,
 bound through ctypes) or raises; a CPU tensor takes the plain version.
 There is no fallback between the two. :data:`fwd_launches`,
-:data:`dgrad_launches` and :data:`wgrad_launches` count kernel launches.
+:data:`dgrad_launches` and :data:`wgrad_launches` count kernel launches;
+:data:`aligned_clones` counts the operands a wrapper copied because they
+did not start on a 16-byte boundary (a view into a flat parameter
+buffer, say).
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from bigdl_tpu_torch.ops.flash_attention import max_row_rel_err  # noqa: F401
 fwd_launches = 0
 dgrad_launches = 0
 wgrad_launches = 0
+aligned_clones = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -130,6 +134,7 @@ def fused_wgrad_reference(x, scale, shift, dz, residual=None,
 def _card(*tensors):
     """Device, dtype, alignment checks shared by the wrappers; returns the
     operands contiguous and 16-byte aligned (None passes through)."""
+    global aligned_clones
     real = [t for t in tensors if t is not None]
     dev = real[0].device
     if dev.type != "cuda" or any(t.device != dev for t in real):
@@ -142,6 +147,7 @@ def _card(*tensors):
             t = t.contiguous()
             if t.data_ptr() % 16:
                 t = t.clone()
+                aligned_clones += 1
         out.append(t)
     return out
 
@@ -149,10 +155,14 @@ def _card(*tensors):
 def _f32_vec(v, c, dev):
     """A (C,) f32 vector on ``dev``, contiguous and 16-byte aligned (the
     wgmma kernels read it 16 bytes at a time)."""
+    global aligned_clones
     v = v.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     if v.numel() != c:
         raise ValueError(f"per-channel vector of {v.numel()} for C={c}")
-    return v.clone() if v.data_ptr() % 16 else v
+    if v.data_ptr() % 16:
+        aligned_clones += 1
+        return v.clone()
+    return v
 
 
 def _dtype_code(x, *others):

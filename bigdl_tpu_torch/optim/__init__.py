@@ -1,8 +1,10 @@
 """Optimization side of the port (``bigdl_tpu.optim`` counterparts): the
 optim methods and SGD's schedules, the train step, triggers, the local
-optimizer (with ``TrainingPreempted``), the pinned batch upload,
-validation methods, the evaluator and the regularizers."""
+and the data-parallel optimizers (with ``TrainingPreempted``), the
+pinned batch upload, validation methods, the evaluator and the
+regularizers."""
 
+from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
 from bigdl_tpu_torch.optim.evaluator import (
     Evaluator, LocalPredictor, Predictor, Validator,
 )
@@ -24,7 +26,7 @@ from bigdl_tpu_torch.optim.validation import (
 )
 
 __all__ = ["Adagrad", "Adam", "Default", "Exponential", "LearningRateSchedule",
-           "MultiStep", "OptimMethod", "Plateau", "Poly",
+           "MultiStep", "OptimMethod", "DistriOptimizer", "Plateau", "Poly",
            "SequentialSchedule", "SGD", "Step", "Warmup", "LocalOptimizer",
            "Optimizer", "TrainingPreempted", "Trigger", "Evaluator",
            "LocalPredictor",

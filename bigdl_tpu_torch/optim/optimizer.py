@@ -1,8 +1,10 @@
 """Optimizer — the fluent trainer config, its factory and LocalOptimizer
 (``bigdl_tpu/optim/optimizer.py``).
 
-``Optimizer(model, dataset, criterion, batch_size, end_trigger)`` returns
-a :class:`LocalOptimizer` (the only kind ported so far); ``optimize()``
+``Optimizer(model, dataset, criterion, batch_size, end_trigger, **kw)``
+returns a ``DistriOptimizer`` (``optim/distri_optimizer.py``) for a
+``DistributedDataSet`` or ``distributed=True``, else a
+:class:`LocalOptimizer`, as the JAX factory dispatches; ``optimize()``
 drives a thin host loop: fetch the next host batch, stage it onto the
 card (:class:`bigdl_tpu_torch.optim.upload.PinnedUploader`: pinned
 staging, a side stream and an event, so the upload of the next batch
@@ -38,9 +40,22 @@ a range of iterations; ``set_device_preprocess`` maps each raw batch on
 the card (the u8-NHWC feed); ``handle_preemption`` turns a SIGTERM into a
 checkpoint and :class:`TrainingPreempted` at the next iteration boundary.
 
-Not ported yet: the orbax checkpoint backends, the pod rank directories
-and ``LATEST`` markers, and the JAX factory's ``DistriOptimizer`` branch.
-The JAX loop retries a failed attempt from its last checkpoint; the port
+The loop calls the JAX loop's layout hooks where it calls them:
+``_ckpt_params_to_host``/``_ckpt_opt_state_to_host`` before a checkpoint,
+a summary histogram or a restore, ``_host_params_to_device``/
+``_opt_state_to_device`` after a restore, ``_eval_forward`` for each
+validation batch and ``_teardown`` when ``optimize()`` ends. They are
+identities for :class:`LocalOptimizer`; ``DistriOptimizer`` maps its
+partitioned or flat layout to the per-parameter one there, so every
+checkpoint holds ``{parameter name: tensor}`` trees. At world size > 1
+(``torch.distributed``) each rank writes under ``<path>/proc_<rank>`` with
+a ``LATEST`` marker of its newest iteration, and a resume rolls back to
+the iteration every rank holds (``_pod_common_neval``,
+``_pod_rollback``) or refuses to start one rank fresh beside peers with
+snapshots (``_assert_pod_peers_not_ahead``); validation results merge
+across the ranks.
+
+Not ported yet: the orbax checkpoint backends. The JAX loop retries a failed attempt from its last checkpoint; the port
 raises on the first failure (``TrainingPreempted`` included), so a failing
 kernel is never retried or hidden: resuming is the caller's explicit
 ``optimize(resume=True)``.
@@ -57,7 +72,9 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, DataSet
+from bigdl_tpu_torch.dataset.dataset import (
+    AbstractDataSet, DataSet, DistributedDataSet,
+)
 from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.nn.tpu_fusion import FusedGraph
@@ -133,14 +150,29 @@ def _match_by_index(live: Dict[str, Any], restored: Dict[str, Any],
 
 
 class Optimizer:
-    """Fluent training config; ``Optimizer(...)`` returns a
-    :class:`LocalOptimizer` (reference factory semantics)."""
+    """Fluent training config; ``Optimizer(...)`` returns a Local or
+    Distri optimizer by the dataset's type (reference factory
+    semantics)."""
 
-    def __new__(cls, *args, **kwargs):
-        return object.__new__(LocalOptimizer if cls is Optimizer else cls)
+    def __new__(cls, model=None, dataset=None, criterion=None,
+                batch_size: Optional[int] = None, end_trigger=None, **kw):
+        if cls is Optimizer:
+            if isinstance(dataset, DistributedDataSet) or \
+                    kw.get("distributed", False):
+                from bigdl_tpu_torch.optim.distri_optimizer import (
+                    DistriOptimizer,
+                )
+
+                return object.__new__(DistriOptimizer)
+            return object.__new__(LocalOptimizer)
+        return object.__new__(cls)
 
     def __init__(self, model=None, dataset=None, criterion=None,
-                 batch_size: Optional[int] = None, end_trigger=None) -> None:
+                 batch_size: Optional[int] = None, end_trigger=None,
+                 **kw) -> None:
+        kw.pop("distributed", None)
+        if kw:
+            logger.warning("%s ignores %s", type(self).__name__, sorted(kw))
         self.model = model
         self.dataset = _ensure_dataset(dataset, batch_size)
         self.criterion = criterion
@@ -304,14 +336,138 @@ class Optimizer:
         self._handle_preemption = bool(enabled)
         return self
 
+    # -- layout hooks (identities here; DistriOptimizer maps its layout) --
+
+    def _ckpt_params_to_host(self, params):
+        return params
+
+    def _host_params_to_device(self, params):
+        return params
+
+    def _ckpt_opt_state_to_host(self, opt_state):
+        return opt_state
+
+    def _opt_state_to_device(self, opt_state):
+        return opt_state
+
+    def _eval_forward(self, params, model_state, inp):
+        """One validation batch through the eval step on ``params``."""
+        if not hasattr(self, "_eval_step"):
+            self._eval_step = make_eval_step(self.model,
+                                             self._device_preprocess)
+        (inp,) = self._upload(inp)
+        return self._eval_step(params, model_state, inp)
+
+    def _teardown(self) -> None:
+        """Run when ``optimize()`` returns or raises."""
+
+    def _step_seed(self, neval: int) -> int:
+        """The seed of iteration ``neval``'s generator."""
+        return step_seed(self.seed, neval)
+
     # -- checkpoints -------------------------------------------------------
+
+    @staticmethod
+    def _pod_rank():
+        """(world size, rank) of the ``torch.distributed`` group; (1, 0)
+        without one."""
+        from bigdl_tpu_torch.utils.engine import world_and_rank
+
+        return world_and_rank()
+
+    def _ckpt_dir(self) -> Optional[str]:
+        """The checkpoint directory: ``<path>/proc_<rank>`` at world size >
+        1, so ranks given one shared path never write or restore each
+        other's snapshots."""
+        if not self.checkpoint_path:
+            return self.checkpoint_path
+        n, rank = self._pod_rank()
+        if n > 1:
+            return os.path.join(self.checkpoint_path, f"proc_{rank}")
+        return self.checkpoint_path
+
+    def _write_latest_marker(self, ckpt_dir: str, neval: int) -> None:
+        """The newest snapshot's iteration, for peers to read at resume
+        (written at world size > 1 only; atomic rename)."""
+        tmp = os.path.join(ckpt_dir, f".LATEST.tmp.{os.getpid()}")
+        with open(tmp, "w") as f:
+            f.write(str(int(neval)))
+        os.replace(tmp, os.path.join(ckpt_dir, "LATEST"))
+
+    def _peer_latest_markers(self, exclude_rank=None) -> Dict[str, int]:
+        """{``proc_<r>``: its LATEST iteration} under the shared path."""
+        out = {}
+        try:
+            siblings = os.listdir(self.checkpoint_path)
+        except OSError:
+            return out
+        for d in sorted(siblings):
+            if not d.startswith("proc_") or d == f"proc_{exclude_rank}":
+                continue
+            try:
+                with open(os.path.join(self.checkpoint_path, d,
+                                       "LATEST")) as f:
+                    out[d] = int(f.read().strip())
+            except (OSError, ValueError):
+                continue
+        return out
+
+    def _pod_common_neval(self, own_neval: int) -> int:
+        """The iteration every rank can resume from: the least of the
+        ranks' LATEST markers (ranks checkpoint on their own, so a kill can
+        leave them at different iterations)."""
+        if self._pod_rank()[0] <= 1:
+            return own_neval
+        markers = self._peer_latest_markers()
+        if not markers:
+            return own_neval
+        return min([own_neval] + list(markers.values()))
+
+    def _pod_rollback(self, own_neval: int, exists_fn, load_fn):
+        """``load_fn(common)`` when this rank must roll back to the
+        pod-wide common iteration, ``None`` when its own snapshot stands;
+        raises when the ranks are skewed and the common snapshot is gone."""
+        common = self._pod_common_neval(own_neval)
+        if common == own_neval:
+            return None
+        if self.overwrite_checkpoint or not exists_fn(common):
+            raise RuntimeError(
+                f"pod resume: this rank's newest checkpoint is at "
+                f"iteration {own_neval} but the pod-wide common iteration "
+                f"is {common}, and no snapshot for it is retained "
+                "(overwrite mode keeps one). Use overwrite_checkpoint=False "
+                "on pods, or align the per-rank checkpoints manually.")
+        try:
+            result = load_fn(common)
+        except Exception as e:
+            raise RuntimeError(
+                f"pod resume: the pod-common snapshot at iteration {common} "
+                f"exists but is not restorable ({e!r}): align the per-rank "
+                "checkpoints manually") from e
+        logger.warning("pod resume: rolled back to the pod-common snapshot "
+                       "at iteration %d", common)
+        return result
+
+    def _assert_pod_peers_not_ahead(self) -> None:
+        """A rank with nothing to restore must not start fresh while its
+        peers resume from snapshots."""
+        n, rank = self._pod_rank()
+        if n <= 1 or not self.checkpoint_path:
+            return
+        peers = self._peer_latest_markers(exclude_rank=rank)
+        if peers:
+            raise RuntimeError(
+                f"pod resume: this rank (proc_{rank}) has no restorable "
+                f"checkpoint but pod peers do ({peers}): starting fresh "
+                "would skew the pod. Restore this rank's snapshot or clear "
+                "every rank's checkpoints.")
 
     def _checkpoint(self, state, params, model_state, opt_state) -> None:
         """The JAX pickle pair; the ``model`` blob has ``Module.save``'s
         keys, so ``Module.load`` opens a checkpoint directly."""
         from bigdl_tpu_torch.utils.file_io import File
 
-        ckpt_dir = self.checkpoint_path
+        ckpt_dir = self._ckpt_dir()
         tag = "" if self.overwrite_checkpoint else f".{state['neval']}"
         os.makedirs(ckpt_dir, exist_ok=True)
         File.save({"params": params, "state": model_state,
@@ -322,14 +478,17 @@ class Optimizer:
                    "seen": state.get("seen", 0)},
                   os.path.join(ckpt_dir, f"optimMethod{tag}"),
                   over_write=True)
+        if self._pod_rank()[0] > 1:
+            self._write_latest_marker(ckpt_dir, state["neval"])
 
     def _latest_checkpoint(self):
         """(model blob, optimMethod blob) of the newest readable pair, or
         None."""
         from bigdl_tpu_torch.utils.file_io import File
 
-        ckpt_dir = self.checkpoint_path
+        ckpt_dir = self._ckpt_dir()
         if not ckpt_dir or not os.path.isdir(ckpt_dir):
+            self._assert_pod_peers_not_ahead()
             return None
 
         def snap_iter(f):
@@ -339,67 +498,88 @@ class Optimizer:
             except ValueError:
                 return -1.0
 
+        def load(tag):
+            return (File.load(os.path.join(ckpt_dir, f"model{tag}")),
+                    File.load(os.path.join(ckpt_dir, f"optimMethod{tag}")))
+
         models = sorted((f for f in os.listdir(ckpt_dir)
                          if f.startswith("model")), key=snap_iter)
         for f in reversed(models):         # newest first; skip torn ones
             tag = f[len("model"):]
             try:
-                return (File.load(os.path.join(ckpt_dir, f"model{tag}")),
-                        File.load(os.path.join(ckpt_dir,
-                                               f"optimMethod{tag}")))
+                snap = load(tag)
             except (OSError, EOFError, pickle.UnpicklingError):
                 logger.warning(
                     "resume: snapshot model%s is torn — trying older", tag)
+                continue
+            rolled = self._pod_rollback(
+                int(snap[1]["neval"]),
+                lambda c: os.path.exists(os.path.join(ckpt_dir,
+                                                      f"model.{c}")),
+                lambda c: load(f".{c}"))
+            return snap if rolled is None else rolled
+        self._assert_pod_peers_not_ahead()
         return None
 
-    def _restore(self, snap, params, model_state, opt_state, state) -> None:
-        """Copy a checkpoint into the step's tensors, in place."""
+    def _restore(self, snap, params, model_state, opt_state, state):
+        """Copy a checkpoint into the step's tensors (through the layout
+        hooks); returns the step's (params, opt_state)."""
         mblob, oblob = snap
+        host_params = self._ckpt_params_to_host(params)
+        host_opt = self._ckpt_opt_state_to_host(opt_state)
         with torch.no_grad():
             for live, restored, what in (
-                    (params, mblob["params"], "params"),
+                    (host_params, mblob["params"], "params"),
                     (model_state, mblob["state"], "model_state")):
                 for k, v in _match_by_index(live, restored, what).items():
                     live[k].copy_(v)
-            for key, live in opt_state.items():
+            for key, live in host_opt.items():
                 restored = oblob["opt_state"][key]
                 if isinstance(live, dict):
                     for k, v in _match_by_index(
                             live, restored, f"opt_state[{key!r}]").items():
                         live[k].copy_(v)
                 else:
-                    opt_state[key] = restored
+                    host_opt[key] = restored
         state["epoch"] = oblob["epoch"]
         state["neval"] = oblob["neval"]
         state["seen"] = oblob.get("seen", 0)
         logger.info("resumed from checkpoint at iteration %d", state["neval"])
+        return (self._host_params_to_device(host_params),
+                self._opt_state_to_device(host_opt))
 
     # -- validation --------------------------------------------------------
 
     def _run_validation(self, params, model_state, state) -> Optional[float]:
         """Score the validation set with the step's parameters in eval
-        mode; returns the first method's value (fed to ``Plateau``)."""
+        mode; returns the first method's value (fed to ``Plateau``). At
+        world size > 1 each rank scores its own validation data and the
+        results merge across the ranks (a collective: every rank joins,
+        with an empty result where its shard gave no batch)."""
         if not (self.validation_dataset and self.validation_methods):
             return None
-        if not hasattr(self, "_eval_step"):
-            self._eval_step = make_eval_step(self.model,
-                                             self._device_preprocess)
         totals = [None] * len(self.validation_methods)
         self.model.eval()
         try:
             for batch in self.validation_dataset.data(train=False):
-                (inp,) = self._upload(batch.get_input())
-                out = self._eval_step(params, model_state, inp)
+                out = self._eval_forward(params, model_state,
+                                         batch.get_input())
                 for i, m in enumerate(self.validation_methods):
                     r = m.apply(out, batch.get_target())
                     totals[i] = r if totals[i] is None else totals[i] + r
         finally:
             self.model.train()
+        multi = self._pod_rank()[0] > 1
         score = None
         for m, r in zip(self.validation_methods, totals):
             if r is None:
+                if not multi:
+                    continue
+                r = m.empty_result()
+            r = r.merge_across_processes()
+            val, n_scored = r.result()
+            if multi and n_scored == 0:
                 continue
-            val, _ = r.result()
             logger.info("validation [%s] epoch %d iter %d: %s",
                         m.name, state["epoch"], state["neval"], r)
             if self.validation_summary is not None:
@@ -453,6 +633,7 @@ class Optimizer:
             if installed:
                 signal.signal(signal.SIGTERM, prev_sigterm)
             self._stop_profile()     # the loop ended inside the window
+            self._teardown()
 
     def _prepare(self):
         """Returns (step, place_batch, params, opt_state, model_state)."""
@@ -467,7 +648,8 @@ class Optimizer:
         if resume:
             snap = self._latest_checkpoint()
             if snap is not None:
-                self._restore(snap, params, model_state, opt_state, state)
+                params, opt_state = self._restore(snap, params, model_state,
+                                                  opt_state, state)
         data_iter = self.dataset.data(train=True)
         epoch_size = self.dataset.size()
         seen_this_epoch = 0
@@ -491,17 +673,19 @@ class Optimizer:
         next_ready = None            # (inp, tgt, bsz) placed ahead of time
         epoch_start = time.time()
         # reseeded every iteration from (seed, neval)
-        gen = torch.Generator(device=next(iter(params.values())).device)
+        gen = torch.Generator(device=self._device)
 
         while not self.end_when(state):
             if self._preempt_flag:
-                self._checkpoint(state, params, model_state, opt_state)
+                self._checkpoint(state, self._ckpt_params_to_host(params),
+                                 model_state,
+                                 self._ckpt_opt_state_to_host(opt_state))
                 raise TrainingPreempted(
                     f"evicted at iteration {state['neval']}; checkpoint "
                     f"written to {self.checkpoint_path}")
             state["epoch_finished"] = False
             if self._profile is not None:
-                self._profile_window(state["neval"], params)
+                self._profile_window(state["neval"])
             if next_ready is None:
                 try:
                     b = next(data_iter)
@@ -513,7 +697,7 @@ class Optimizer:
                 next_ready = (*place_batch(b), b.size())
             inp, tgt, bsz = next_ready
             t0 = time.time()
-            gen.manual_seed(step_seed(self.seed, state["neval"]))
+            gen.manual_seed(self._step_seed(state["neval"]))
             params, opt_state, model_state, loss = step(
                 params, opt_state, model_state, gen, inp, tgt)
             # the next batch is fetched and placed while the step runs on
@@ -561,7 +745,9 @@ class Optimizer:
                     state["score"] = score
             if self.checkpoint_trigger is not None and \
                     self.checkpoint_trigger(state):
-                self._checkpoint(state, params, model_state, opt_state)
+                self._checkpoint(state, self._ckpt_params_to_host(params),
+                                 model_state,
+                                 self._ckpt_opt_state_to_host(opt_state))
 
         self._writeback(params, opt_state, model_state)
         return self.model
@@ -583,19 +769,19 @@ class Optimizer:
         if ts.should_record("Parameters", state):
             # a FusedGraph shares its graph's tree in JAX: no "graph" level
             strip = "graph." if isinstance(self.model, FusedGraph) else ""
-            for name, p in params.items():
+            for name, p in self._ckpt_params_to_host(params).items():
                 tag = name[len(strip):] if name.startswith(strip) else name
                 ts.add_histogram("Parameters/" + tag.replace(".", "/"), p,
                                  it)
 
-    def _profile_window(self, neval: int, params) -> None:
+    def _profile_window(self, neval: int) -> None:
         """Open the profile at the window's first iteration, close it at
         the first one after."""
         if neval == self._profile["start"]:
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU]
-            if next(iter(params.values())).device.type == "cuda":
+            if self._device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
             self._profile["active"] = profile(activities=acts)
             self._profile["active"].start()
@@ -621,7 +807,7 @@ class LocalOptimizer(Optimizer):
     function (reference ``LocalOptimizer``)."""
 
     def _prepare(self):
-        device = next(self.model.parameters()).device
+        device = self._device = next(self.model.parameters()).device
         # fresh buffers: the step updates them in place, and the module's
         # own parameters change only at the write-back
         params = {k: p.detach().clone()

@@ -31,8 +31,11 @@ they are the identity, as JAX's are with ``rng=None``.
 base seed and the iteration counter, as JAX folds ``neval`` into its
 base key.
 
+``grad_transform`` maps the gradient dict after the regularizers and
+before clipping, where the JAX step applies it.
+
 Not ported yet: frozen layers (the step raises if a module asks for
-them) and the JAX step's ``grad_transform`` hook.
+them).
 """
 
 from __future__ import annotations
@@ -46,12 +49,15 @@ from torch.func import functional_call
 from bigdl_tpu_torch.nn.module import use_rng
 
 
-def step_seed(seed: int, neval: int) -> int:
+def step_seed(seed: int, neval: int, rank: Optional[int] = None) -> int:
     """The seed of iteration ``neval``'s generator under the base
     ``seed``, JAX's ``fold_in(base_key, neval)``: a 64-bit word of numpy's
-    ``SeedSequence`` of the pair, so nearby pairs give unrelated seeds."""
-    return int(np.random.SeedSequence([int(seed), int(neval)])
-               .generate_state(1, np.uint64)[0])
+    ``SeedSequence`` of the pair, so nearby pairs give unrelated seeds.
+    With ``rank`` (a data-parallel rank) the triple is hashed instead, as
+    JAX folds the mesh's ``axis_index`` in, so the ranks draw unrelated
+    masks."""
+    words = [int(seed), int(neval)] + ([] if rank is None else [int(rank)])
+    return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
 
 
 def cast_floats(tree, dtype):
@@ -137,6 +143,16 @@ def apply_module_regularizers(regs, params, grads):
     return out
 
 
+def regularizer_loss(regs, params) -> Any:
+    """The regularizers' penalty on ``params`` (``regs`` from
+    :func:`module_regularizers`): the loss term whose gradient
+    :func:`apply_module_regularizers` adds."""
+    total = 0.0
+    for name, reg in regs:
+        total = total + reg.loss_term(params[name])
+    return total
+
+
 def _refuse_unported(model) -> None:
     for m in model.modules():
         if getattr(m, "frozen", None):
@@ -146,6 +162,7 @@ def _refuse_unported(model) -> None:
 
 def make_train_step(model, criterion, optim_method,
                     grad_clip: Optional[dict] = None,
+                    grad_transform: Optional[Callable] = None,
                     loss_scale: float = 1.0,
                     compute_dtype: Optional[Any] = None,
                     device_preprocess: Optional[Callable] = None):
@@ -160,7 +177,8 @@ def make_train_step(model, criterion, optim_method,
     mode, so the returned ``model_state`` is the dict passed in, holding
     the new statistics. ``loss_scale`` multiplies the loss before the
     backward pass and divides the gradients after (fp16).
-    ``device_preprocess`` maps the raw input batch first. ``rng`` (a
+    ``grad_transform(grads) -> grads`` runs between the regularizers and
+    the clipping. ``device_preprocess`` maps the raw input batch first. ``rng`` (a
     ``torch.Generator`` or ``None``) feeds the stochastic layers. The
     model's output may be a table (a list of tensors, ``Inception_v1``'s
     three heads): the casts and the criterion take it as it is."""
@@ -189,6 +207,8 @@ def make_train_step(model, criterion, optim_method,
             loss = loss / loss_scale
             grads = {k: g / loss_scale for k, g in grads.items()}
         grads = apply_module_regularizers(regs, params, grads)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
         if grad_clip:
             if grad_clip.get("l2_norm") is not None:
                 grads = clip_by_global_norm(grads, grad_clip["l2_norm"])

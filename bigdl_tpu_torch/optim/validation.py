@@ -7,8 +7,12 @@ A method takes the model's output as a tensor (on the card or the CPU)
 and the batch's target as the host array the data pipeline made. The
 accuracies rank on the host with numpy, as the JAX methods do, so ties
 break the same way; ``Loss`` runs its criterion where the output lies.
-One process drives the card, so ``merge_across_processes`` returns the
-result unchanged (the pod merge comes with the data-parallel slice).
+``merge_across_processes`` sums a result's accumulators over every rank
+of the ``torch.distributed`` group in float64, one ``all_reduce`` (the
+reduce of the reference's ``ValidationResult.merge``;
+JAX's ``process_allgather`` and sum); with one rank, or no group, it
+returns the result unchanged. A rank whose validation shard gave no batch
+joins the merge with its method's ``empty_result()``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ def to_host(x) -> np.ndarray:
 
 
 class ValidationResult:
+    #: the numeric accumulators, in constructor order: the fields the
+    #: cross-process merge sums
+    _fields = ()
+
     def result(self):
         raise NotImplementedError
 
@@ -35,11 +43,23 @@ class ValidationResult:
         raise NotImplementedError
 
     def merge_across_processes(self) -> "ValidationResult":
-        """The sum over every process of a pod; one process here."""
-        return self
+        """The sum of this result over every rank of the process group."""
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or \
+                dist.get_world_size() == 1 or not self._fields:
+            return self
+        from bigdl_tpu_torch.parallel.all_reduce import all_reduce_sum
+
+        dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        acc = torch.tensor([float(getattr(self, f)) for f in self._fields],
+                           dtype=torch.float64, device=dev)
+        return type(self)(*all_reduce_sum(acc).tolist())
 
 
 class AccuracyResult(ValidationResult):
+    _fields = ("correct", "count")
+
     def __init__(self, correct: int, count: int) -> None:
         self.correct = int(correct)
         self.count = int(count)
@@ -59,6 +79,8 @@ class AccuracyResult(ValidationResult):
 
 
 class LossResult(ValidationResult):
+    _fields = ("loss", "count")
+
     def __init__(self, loss: float, count: int) -> None:
         self.loss = float(loss)
         self.count = int(count)
@@ -77,6 +99,15 @@ class LossResult(ValidationResult):
 
 class ValidationMethod:
     name = "ValidationMethod"
+    #: the result type, whose (0, 0) is the zero a rank with no batch
+    #: brings to the cross-process merge
+    _result_cls = None
+
+    def empty_result(self) -> ValidationResult:
+        if self._result_cls is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} needs _result_cls for pod merges")
+        return self._result_cls(0, 0)
 
     def apply(self, output, target) -> ValidationResult:
         raise NotImplementedError
@@ -89,6 +120,7 @@ class ValidationMethod:
 
 class Top1Accuracy(ValidationMethod):
     name = "Top1Accuracy"
+    _result_cls = AccuracyResult
 
     def apply(self, output, target) -> AccuracyResult:
         out = to_host(output)
@@ -101,6 +133,7 @@ class Top1Accuracy(ValidationMethod):
 
 class Top5Accuracy(ValidationMethod):
     name = "Top5Accuracy"
+    _result_cls = AccuracyResult
 
     def apply(self, output, target) -> AccuracyResult:
         out = to_host(output)
@@ -114,6 +147,7 @@ class Top5Accuracy(ValidationMethod):
 
 class Loss(ValidationMethod):
     name = "Loss"
+    _result_cls = LossResult
 
     def __init__(self, criterion=None) -> None:
         if criterion is None:
@@ -129,6 +163,7 @@ class Loss(ValidationMethod):
 
 class MAE(ValidationMethod):
     name = "MAE"
+    _result_cls = LossResult
 
     def apply(self, output, target) -> LossResult:
         out = to_host(output)

@@ -1,11 +1,21 @@
-"""bigdl_tpu_torch.parallel — the host-side block stores of the port
-(``bigdl_tpu/parallel/``): the self-describing array codec and the
-in-process and shared-directory stores the serving plane's handoff wire
-and host KV tier ride (``block_store.py``)."""
+"""bigdl_tpu_torch.parallel — the distributed parameter and communication
+plane of the port (``bigdl_tpu/parallel/``): the partitioned parameter
+vector and its collectives (``all_reduce.py``), the model broadcast
+(``broadcast.py``), and the block stores with their array codec and the
+block-store gradient exchange with the straggler drop
+(``block_store.py``)."""
 
-from bigdl_tpu_torch.parallel.block_store import (
-    BlockStore, FsBlockStore, MemBlockStore, decode_array, encode_array,
+from bigdl_tpu_torch.parallel.all_reduce import (
+    AllReduceParameter, flatten_params,
 )
+from bigdl_tpu_torch.parallel.block_store import (
+    BlockStore, BlockStoreParameter, CoordServiceBlockStore, FsBlockStore,
+    GradientDropPolicy, MemBlockStore, decode_array, default_block_store,
+    encode_array,
+)
+from bigdl_tpu_torch.parallel.broadcast import ModelBroadcast
 
-__all__ = ["BlockStore", "MemBlockStore", "FsBlockStore", "encode_array",
-           "decode_array"]
+__all__ = ["AllReduceParameter", "flatten_params", "ModelBroadcast",
+           "BlockStore", "BlockStoreParameter", "CoordServiceBlockStore",
+           "FsBlockStore", "GradientDropPolicy", "MemBlockStore",
+           "default_block_store", "encode_array", "decode_array"]

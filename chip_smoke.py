@@ -235,7 +235,44 @@ any failure raises, so the exit code is non-zero and no result prints:
               float64 (losses and parameters). No port
               kernel runs on these three paths (cuDNN convolutions, plain
               LRN and recurrence ops, cuBLAS products);
-27. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
+27. distri_vgg — BASELINE config #2 through ``DistriOptimizer`` on a
+              one-rank NCCL group (``Engine.init_distributed`` at a
+              ``file://`` rendezvous, its first collective warmed, the
+              group destroyed after): ``Optimizer(VggForCifar10(10),
+              DataSet.distributed(1024 synthetic CIFAR images),
+              ClassNLLCriterion(), batch_size=128)``, SGD 0.01 / 0.9,
+              f32, 8 iterations, ``LocalOptimizer``, the
+              ``partitioned``, ``partitioned`` with ``compress="bf16"``,
+              ``allreduce`` and ``blockstore`` modes, and
+              ``LocalOptimizer`` again: step p50, images/s,
+              collective calls and bytes per step, host bytes and the
+              block store's milliseconds per step (blockstore), peak
+              memory, and launches per step by ``torch.profiler`` over 4
+              iterations of a fresh model; the bf16 run keeps f32
+              parameters and slots, moves 2 bytes per element of the
+              padded vector fewer per step than the f32 run (its
+              reduce-scatter is bf16) and parts from the f32 run's losses
+              by more than ``BF16_EXCHANGE_FLOOR`` and at most
+              ``BF16_EXCHANGE_TOL``; then ``partitioned`` and ``allreduce`` against
+              ``LocalOptimizer`` from the same weights (3 f32 steps,
+              dropout off, ``cudnn.deterministic``): losses and
+              parameters bitwise (``DISTRI_CARD_TOL``);
+28. distri_resnet — the resnet_train recipe (ResNet-50, batch 256, 224²,
+              bf16, SGD 0.1 / 0.9 / 1e-4, ``maybe_fuse`` with
+              ``BIGDL_PALLAS_MIN_C=128``, 2 warm + 5 timed steps) through
+              ``LocalOptimizer`` and ``DistriOptimizer(
+              parameter_mode="partitioned")`` on a one-rank NCCL group,
+              in turns (local, partitioned, partitioned, local):
+              the same figures, the fused kernels 28 times per step each,
+              and the operands their wrappers copied for alignment;
+29. distri_pod — ``examples/distributed_pod.main`` on the card (LeNet-5,
+              batch 64, partitioned): 10 iterations with a checkpoint,
+              then 5 and a ``--resume`` to 10, whose parameters must
+              equal the uninterrupted run's bitwise under
+              ``cudnn.deterministic``; step p50; collective calls and
+              bytes per step and launches per step over a 4-iteration run
+              (no checkpoint, no validation);
+30. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
               64 to 7² x 512, bf16) plus a ragged and a one-pixel f32 case,
@@ -254,9 +291,10 @@ step in generate, which launches no kv_requant (float KV); in serve_spec
 kv_requant once per target layer per verify step and no decode
 attention; each
 flash kernel once per layer per step, each
-fused-conv kernel exactly 28 times per ResNet-50 step (resnet_train and
-both resnet_u8 runs; the forward also 28 times per eval batch of
-resnet_u8's validations), the conv3x3 kernel
+fused-conv kernel exactly 28 times per ResNet-50 step (resnet_train,
+both resnet_u8 runs and distri_resnet's distributed run; the forward
+also 28 times per eval batch of resnet_u8's validations), the conv3x3
+kernel
 once per checked case and 33 times per timed shape).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
@@ -4203,6 +4241,428 @@ def textclassifier_phase():
             "textclassifier_top1": top1}
 
 
+# -- data-parallel training through DistriOptimizer (world size 1, NCCL) ---
+
+#: distri_vgg's partitioned and allreduce runs against LocalOptimizer from
+#: the same weights, 3 f32 steps, dropout off, ``cudnn.deterministic``:
+#: the same convolutions and the same elementwise SGD on the same values,
+#: so the parameters and losses are held bitwise (a tolerance of 0). At
+#: world size 1 the reduce-scatter, all-gather and all-reduce copy their
+#: input and the division by n is by 1.
+DISTRI_CARD_TOL = 0.0
+#: distri_vgg's bf16-compressed run against the f32 partitioned run from
+#: the same weights and masks: each of the 8 losses within 2e-2 relative
+#: (bf16 keeps 8 bits of each gradient, and 8 steps compound it: two
+#: card runs measured 3.7e-3 and 6.2e-3). Neither run's loss falls in 8
+#: steps of this recipe (2.39 to 2.46-2.48), so the f32 run is the check.
+BF16_EXCHANGE_TOL = 2e-2
+#: ... and apart from it by more than 1e-4 relative in some loss: an f32
+#: exchange would part from the f32 run by cuDNN's run-to-run noise only
+#: (the two card runs above measured 3.7e-3 and 6.2e-3 for bf16).
+BF16_EXCHANGE_FLOOR = 1e-4
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A one-rank NCCL group (``Engine.init_distributed`` at a ``file://``
+    rendezvous in a temp dir), its first collective warmed outside any
+    timed window, destroyed on exit so later phases see no group."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.parallel import all_reduce as ar
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    work = tempfile.mkdtemp(prefix="rdv_")
+    Engine.init_distributed(
+        coordinator_address="file://" + os.path.join(work, "rdv"),
+        num_processes=1, process_id=0, device="cuda", timeout_s=300)
+    try:
+        ar.all_reduce_sum(torch.ones(8, device="cuda"))   # NCCL starts lazily
+        torch.cuda.synchronize()
+        yield
+    finally:
+        Engine.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+class TimedStore:
+    """A block store whose every call adds its wall time to ``seconds``
+    (a call the store makes to itself counts once, in its caller)."""
+
+    def __init__(self, inner) -> None:
+        self.inner, self.seconds = inner, 0.0
+
+    def __getattr__(self, name):
+        fn = getattr(self.inner, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        return timed
+
+
+def distri_run(build, samples, batch, steps, method, mode, compress=None,
+               compute=None, warm=1, store=None):
+    """``build()``'s (model, criterion) trained through ``optimize()`` for
+    ``steps`` iterations: ``LocalOptimizer`` for ``mode="local"``, else
+    ``DistriOptimizer(parameter_mode=mode)`` on ``DataSet.distributed``
+    (``block_store=store``, a :class:`TimedStore`, where given). Returns
+    (model, optimizer, the figures every distri phase prints)."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import all_reduce as ar
+
+    model, crit = build()
+    losses, comm, store_s = [], {}, []
+
+    def record_then_stop(state):       # the trigger reads every step's loss
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        if state["neval"] == 1:        # the steps' collectives, not the
+            ar.comm["calls"] = ar.comm["bytes"] = 0   # start's broadcast
+            if store is not None:
+                store.seconds = 0.0
+        elif state["neval"] == steps + 1:             # or the write-back
+            comm.update(ar.comm)
+            if store is not None:
+                store_s.append(store.seconds)
+        return state["neval"] > steps
+
+    local = mode == "local"
+    kw = {} if local else {"parameter_mode": mode, "compress": compress}
+    if store is not None:
+        kw["block_store"] = store
+    opt = Optimizer(model, (DataSet.array if local else DataSet.distributed)(
+        samples), crit, batch_size=batch, end_trigger=Trigger(
+            record_then_stop, Trigger.max_iteration(steps).peek), **kw)
+    opt.set_optim_method(method)
+    if compute is not None:
+        opt.set_compute_dtype(compute)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise AssertionError(f"distri {mode} losses {losses}")
+    step_s = opt.metrics.values("computing time")
+    p50 = float(np.median(step_s[warm:]))
+    figures = {"mode": mode + (f"+{compress}" if compress else ""),
+               "steps": steps, "warm": warm, "wall_s": wall,
+               "step_ms": [s * 1e3 for s in step_s],
+               "step_ms_p50": p50 * 1e3, "images_per_s": batch / p50,
+               "nccl_calls_per_step": comm["calls"] / steps,
+               "nccl_bytes_per_step": comm["bytes"] / steps,
+               "host_bytes_per_step": getattr(opt, "host_bytes", 0) / steps,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "losses": losses}
+    if store is not None:
+        figures["store_ms_per_step"] = store_s[0] * 1e3 / steps
+    return model, opt, figures
+
+
+def distri_window(build, samples, batch, method, mode, compress=None,
+                  compute=None, steps=4):
+    """A closure running ``steps`` iterations of a fresh model and a copy
+    of ``method`` (a method carries its iteration count; what
+    ``window_counts`` profiles for launches per step)."""
+    def run():
+        import copy
+
+        from bigdl_tpu_torch.dataset import DataSet
+        from bigdl_tpu_torch.optim import Optimizer, Trigger
+
+        model, crit = build()
+        local = mode == "local"
+        kw = {} if local else {"parameter_mode": mode, "compress": compress}
+        o = Optimizer(model, (DataSet.array if local
+                              else DataSet.distributed)(samples), crit,
+                      batch_size=batch, end_trigger=Trigger.max_iteration(
+                          steps), **kw)
+        o.set_optim_method(copy.deepcopy(method))
+        if compute is not None:
+            o.set_compute_dtype(compute)
+        o.optimize()
+        if o.optim_method.state["neval"] != steps + 1:
+            raise AssertionError(f"window ran to {o.optim_method.state}")
+
+    return run
+
+
+def distri_vgg_phase(batch: int = 128, steps: int = 8,
+                     n_samples: int = 1024):
+    """BASELINE config #2 through ``DistriOptimizer`` at world size 1 on
+    NCCL (see the phase list)."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.dataset.cifar import load_samples
+    from bigdl_tpu_torch.models.vgg import VggForCifar10
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import default_block_store
+
+    samples = load_samples("/nonexistent", "train",
+                           synthetic_count=n_samples)
+    card = nvidia_smi()
+    sgd = SGD(0.01, momentum=0.9)
+
+    def build(dropout=True, seed=3):
+        return (VggForCifar10(10, has_dropout=dropout,
+                              generator=torch.Generator(device="cuda")
+                              .manual_seed(seed)), ClassNLLCriterion())
+
+    runs, finals = {}, {}
+    with nccl_world_of_one():
+        for mode, compress in (("local", None), ("partitioned", None),
+                               ("partitioned", "bf16"), ("allreduce", None),
+                               ("blockstore", None), ("local", None)):
+            store = TimedStore(default_block_store()) \
+                if mode == "blockstore" else None
+            model, opt, fig = distri_run(build, samples, batch, steps,
+                                         copy.deepcopy(sgd), mode, compress,
+                                         store=store)
+            if mode == "partitioned":
+                fig["padded_size"] = opt._arp.padded_size
+            slots = opt._final_opt_state["velocity"]
+            fig["dtypes"] = {"parameters": str(next(model.parameters()).dtype),
+                             "slots": str(next(iter(slots.values())).dtype)}
+            del model, opt
+            torch.cuda.empty_cache()
+            window = distri_window(build, samples[:4 * batch], batch,
+                                   copy.deepcopy(sgd), mode, compress)
+            window()                                   # warm
+            counts = window_counts(window, f"distri_vgg_{fig['mode']}", 4)
+            fig["launches_per_step"] = counts["device_launches"]
+            fig["host_waits_per_step"] = counts["host_waits"]
+            if fig["mode"] in runs:             # the closing local run
+                fig["mode"] += " (again)"
+            runs[fig["mode"]] = fig
+            emit("distri_vgg", card=card, batch=batch, **fig)
+        # bf16 on the gradient exchange only: f32 masters and slots, each
+        # step's reduce-scatter sent in 2 bytes an element (the run's
+        # collectives move 2 x the padded size fewer bytes per step), and
+        # the losses apart from the f32 run's by more than
+        # BF16_EXCHANGE_FLOOR and less than BF16_EXCHANGE_TOL
+        bf16, f32 = runs["partitioned+bf16"], runs["partitioned"]
+        bf16["loss_rel_err_vs_f32"] = max(
+            abs(a - b) / abs(b) for a, b in zip(bf16["losses"],
+                                                 f32["losses"]))
+        bf16["bytes_saved_per_step"] = (f32["nccl_bytes_per_step"]
+                                        - bf16["nccl_bytes_per_step"])
+        if set(bf16["dtypes"].values()) != {"torch.float32"} or \
+                bf16["bytes_saved_per_step"] != 2 * f32["padded_size"] or \
+                not BF16_EXCHANGE_FLOOR < bf16["loss_rel_err_vs_f32"] \
+                <= BF16_EXCHANGE_TOL:
+            raise AssertionError(f"bf16-compressed gradients: {bf16}")
+        emit("distri_vgg", what="partitioned+bf16 against partitioned (f32 "
+             "exchange)", card=card, padded_size=f32["padded_size"],
+             bytes_saved_per_step=bf16["bytes_saved_per_step"],
+             loss_rel_err_vs_f32=bf16["loss_rel_err_vs_f32"],
+             floor=BF16_EXCHANGE_FLOOR, tol=BF16_EXCHANGE_TOL)
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for mode in ("local", "partitioned", "allreduce"):
+                model, opt, fig = distri_run(
+                    lambda: build(False, 4), samples[:3 * batch], batch, 3,
+                    copy.deepcopy(sgd), mode)
+                finals[mode] = ([p.detach().clone() for _, p in
+                                 model._jax_ordered()], fig["losses"])
+                del model, opt
+        finally:
+            torch.backends.cudnn.deterministic = det
+    parity = {}
+    for mode in ("partitioned", "allreduce"):
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(finals[mode][0], finals["local"][0]))
+        parity[mode] = {"param_max_abs_diff": diff,
+                        "losses": finals[mode][1],
+                        "local_losses": finals["local"][1]}
+    emit("distri_vgg", what="partitioned and allreduce against "
+         "LocalOptimizer from the same weights: 3 f32 steps, batch 128, "
+         "dropout off, cudnn.deterministic", card=card, tol=DISTRI_CARD_TOL,
+         **parity)
+    for mode, p in parity.items():
+        if p["param_max_abs_diff"] > DISTRI_CARD_TOL or \
+                p["losses"] != p["local_losses"]:
+            raise AssertionError(f"distri_vgg {mode} against local: {p}")
+    return runs
+
+
+def distri_resnet_phase(warm: int = 2, timed: int = 5, batch: int = 256):
+    """ResNet-50 on the bench.py recipe through ``DistriOptimizer``
+    (partitioned) at world size 1 on NCCL, paired with the same recipe
+    through ``LocalOptimizer`` (see the phase list); returns the fused
+    kernels' launch counts over the distributed run."""
+    import copy
+    import os
+
+    import torch
+
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.tpu_fusion import maybe_fuse
+    from bigdl_tpu_torch.ops import fused_conv as fc
+    from bigdl_tpu_torch.optim import SGD
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((batch, 3, 224, 224), dtype=np.float32)
+    y = rng.integers(1, 1001, size=batch).astype(np.int32)
+    samples = [Sample(x[i], y[i]) for i in range(batch)]
+    sgd = SGD(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
+    steps, card = warm + timed, nvidia_smi()
+
+    def build():
+        return (maybe_fuse(ResNet(1000, {"depth": 50, "shortcutType": "B"},
+                                  seed=0)), CrossEntropyCriterion())
+
+    saved = os.environ.get("BIGDL_PALLAS_MIN_C")
+    os.environ["BIGDL_PALLAS_MIN_C"] = "128"
+    figs = {}
+    launches = {"fwd": 0, "dgrad": 0, "wgrad": 0}
+    try:
+        with nccl_world_of_one():
+            # in turns, so a drift of the host shows on both sides
+            for mode, turn in (("local", 1), ("partitioned", 1),
+                               ("partitioned", 2), ("local", 2)):
+                fc.fwd_launches = fc.dgrad_launches = fc.wgrad_launches = 0
+                fc.aligned_clones = 0
+                model, opt, fig = distri_run(build, samples, batch, steps,
+                                             copy.deepcopy(sgd), mode,
+                                             compute="bf16", warm=warm)
+                fig["fused_launches"] = {"fwd": fc.fwd_launches,
+                                         "dgrad": fc.dgrad_launches,
+                                         "wgrad": fc.wgrad_launches}
+                fig["aligned_clones_per_step"] = fc.aligned_clones / steps
+                fig["turn"] = turn
+                del model, opt
+                torch.cuda.empty_cache()
+                if turn == 1:
+                    window = distri_window(build, samples, batch,
+                                           copy.deepcopy(sgd), mode,
+                                           compute="bf16", steps=2)
+                    counts = window_counts(window, f"distri_resnet_{mode}",
+                                           2)
+                    fig["launches_per_step"] = counts["device_launches"]
+                    fig["host_waits_per_step"] = counts["host_waits"]
+                    torch.cuda.empty_cache()
+                figs[mode, turn] = fig
+                emit("distri_resnet", card=card, batch=batch, image=224,
+                     compute="bf16", optim="SGD(0.1, momentum 0.9, weight "
+                     "decay 1e-4)", fused="maybe_fuse, "
+                     "BIGDL_PALLAS_MIN_C=128", **fig)
+                if mode == "partitioned":
+                    for name, n in fig["fused_launches"].items():
+                        if n != 28 * steps:
+                            raise AssertionError(
+                                f"distri_resnet: fused {name} launched {n} "
+                                f"times, expected 28 edges x {steps} steps")
+                        launches[name] += n
+    finally:
+        if saved is None:
+            os.environ.pop("BIGDL_PALLAS_MIN_C")
+        else:
+            os.environ["BIGDL_PALLAS_MIN_C"] = saved
+    print(json.dumps({
+        "distri_resnet50_step_ms_p50": [figs["partitioned", t]["step_ms_p50"]
+                                        for t in (1, 2)],
+        "local_resnet50_step_ms_p50": [figs["local", t]["step_ms_p50"]
+                                       for t in (1, 2)],
+        "distri_images_per_s": [figs["partitioned", t]["images_per_s"]
+                                for t in (1, 2)]}))
+    return launches
+
+
+def distri_pod_phase():
+    """``examples/distributed_pod.main`` on the card (see the phase list):
+    an uninterrupted run to iteration 10, a run to 5 with a checkpoint and
+    its ``--resume`` to 10, bitwise equal under ``cudnn.deterministic``."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.examples import distributed_pod as pod
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.optim import distri_optimizer as dmod
+    from bigdl_tpu_torch.parallel import all_reduce as ar
+
+    work = tempfile.mkdtemp(prefix="pod_")
+    seen, step_comm = [], []
+    prepare = dmod.DistriOptimizer._prepare
+
+    def keep(self):                       # the runs' optimizers, for figures
+        seen.append(self)
+        end = self.end_when
+
+        def count(state):   # the collectives of steps 1 to the last only
+            done = end(state)
+            if state["neval"] == 1:
+                ar.comm["calls"] = ar.comm["bytes"] = 0
+            elif done:
+                step_comm.append((state["neval"] - 1, dict(ar.comm)))
+            return done
+
+        self.end_when = Trigger(count, end.peek)
+        return prepare(self)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dmod.DistriOptimizer._prepare = keep
+    try:
+        base = ["-b", "64", "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole = pod.main(base + ["--maxIteration", "10", "--checkpoint",
+                                 os.path.join(work, "a")])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_s = seen[-1].metrics.values("computing time")
+        pod.main(base + ["--maxIteration", "5", "--checkpoint",
+                         os.path.join(work, "b")])
+        resumed = pod.main(base + ["--maxIteration", "10", "--checkpoint",
+                                   os.path.join(work, "b"), "--resume"])
+        window = lambda: pod.main(base + ["--maxIteration", "4"])  # noqa
+        window()     # no checkpoint, no validation (every 10): steps only
+        steps, comm = step_comm[-1]
+        counts = window_counts(window, "distri_pod", 4)
+    finally:
+        dmod.DistriOptimizer._prepare = prepare
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(work, ignore_errors=True)
+    unequal = [k for (k, a), (_, b) in zip(whole.named_parameters(),
+                                           resumed.named_parameters())
+               if not torch.equal(a, b)]
+    p50 = float(np.median(step_s[1:]))
+    emit("distri_pod", what="examples/distributed_pod.main: LeNet-5, batch "
+         "64, partitioned, 10 iterations; 5 + --resume 5 against 10",
+         card=nvidia_smi(), wall_s=wall, step_ms=[s * 1e3 for s in step_s],
+         step_ms_p50=p50 * 1e3, images_per_s=64 / p50,
+         nccl_calls_per_step=comm["calls"] / steps,
+         nccl_bytes_per_step=comm["bytes"] / steps,
+         launches_per_step=counts["device_launches"],
+         host_waits_per_step=counts["host_waits"], peak_mem_gib=peak,
+         resumed_parameters_unequal=unequal)
+    if unequal:
+        raise AssertionError(f"distri_pod: the resumed run's {unequal} part "
+                             "from the uninterrupted run's")
+
+
 def main() -> int:
     import torch
 
@@ -4266,6 +4726,10 @@ def main() -> int:
     vgg_phase()
     inception_phase()
     textclassifier_phase()
+    distri_vgg_phase()
+    for name, n in distri_resnet_phase().items():
+        fused[name]["launches"] += n
+    distri_pod_phase()
     conv = conv3x3_phase()
     emit("timing_guard", guard_ms=guard_ms(),
          host_enqueue_ms_max=HOST_ENQUEUE["max_ms"],

@@ -3,8 +3,9 @@
 //
 // Replaces the three Pallas TPU kernels of bigdl_tpu/ops/fused_conv.py:
 //   _fwd_kernel   (:141) -> fwd_wgmma (bf16, C and K multiples of 8) and
-//                            fwd_kernel (f32, and bf16 rows TMA cannot
-//                            read): z = relu(x*scale + shift [+ r]) @ W,
+//                            fwd_kernel (f32, bf16 rows TMA cannot read,
+//                            and z in another dtype than x, the JAX
+//                            out_dtype): z = relu(x*scale + shift [+ r]) @ W,
 //                            zstats = [sum z, sum z^2] per output channel
 //                            (from the f32 accumulator), optional y
 //   _dgrad_kernel (:281) -> dgrad_wgmma / dgrad_kernel, split the same way:
@@ -90,11 +91,13 @@ __device__ __forceinline__ float pre_act(float x, float s, float b, float r) {
 
 // ---------------------------------------------------------------- forward
 
-template <typename T>
+// Z: z's type, T's unless the caller asks for another (a bf16 forward
+// storing an f32 z, the JAX wrapper's out_dtype)
+template <typename T, typename Z = T>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
                const float* __restrict__ scale, const float* __restrict__ shift,
-               const T* __restrict__ w, T* __restrict__ z, T* __restrict__ y,
+               const T* __restrict__ w, Z* __restrict__ z, T* __restrict__ y,
                float* __restrict__ part, int M, int C, int K) {
   __shared__ __align__(16) unsigned char smem_a[kTM * kLdA * sizeof(T)];
   __shared__ __align__(16) unsigned char smem_b[kBSize * sizeof(T)];
@@ -162,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
         const int row = half * (kTM / 2) + i, m = m0 + row;
         if (m >= M) break;
         const float v = sO[row * kLdO + col];
-        z[static_cast<size_t>(m) * K + n] = from_f<T>(v);
+        z[static_cast<size_t>(m) * K + n] = from_f<Z>(v);
         s1 += v;
         s2 = fmaf(v, v, s2);
       }
@@ -1640,15 +1643,15 @@ cudaError_t launch_wgrad_wgmma(const void* x, const void* r,
                                       K, out_dtype, st);
 }
 
-template <typename T>
+template <typename T, typename Z = T>
 cudaError_t launch_fwd(const void* x, const void* r, const float* scale,
                        const float* shift, const void* w, void* z, void* y,
                        float* zstats, float* part, int M, int C, int K,
                        cudaStream_t st) {
   const dim3 grid(row_blocks(M), (K + kTN - 1) / kTN);
-  fwd_kernel<T><<<grid, kThreads, 0, st>>>(
+  fwd_kernel<T, Z><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(r), scale, shift,
-      static_cast<const T*>(w), static_cast<T*>(z), static_cast<T*>(y), part,
+      static_cast<const T*>(w), static_cast<Z*>(z), static_cast<T*>(y), part,
       M, C, K);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -1694,10 +1697,12 @@ bool bad_dims(int M, int C, int K) { return M <= 0 || C <= 0 || K <= 0; }
 }  // namespace
 
 // f32 elements of scratch a call needs: which = 0 forward, 1 dgrad,
-// 2 wgrad, sized for the kernel that the call's dtype, C and K take
+// 2 wgrad, 3 the forward with another z dtype (fwd_kernel), sized for the
+// kernel that the call's dtype, C and K take
 extern "C" long long bigdl_fused_conv_scratch(int which, int M, int C, int K,
                                               int dtype) {
   if (bad_dims(M, C, K)) return 0;
+  if (which == 3) return static_cast<long long>(row_blocks(M)) * 2 * K;
   const bool tma = on_wgmma(dtype, C, K);
   if (which == 0) {  // the panel forward's rows cover fwd_wgmma's too
     const int rows = !tma                 ? row_blocks(M)
@@ -1732,6 +1737,27 @@ extern "C" int bigdl_fused_fwd(const void* x, const void* r,
                              K, st)
           : launch_fwd<float>(x, r, scale, shift, w, z, y, zstats, part, M, C,
                               K, st));
+}
+
+// The forward with z stored in z_dtype (0 = float32, 1 = bfloat16) where
+// it differs from x's dtype: the mma.sync / scalar kernel fwd_kernel with
+// z's type as a parameter (the wgmma forwards store z in the data dtype).
+// Its scratch is bigdl_fused_conv_scratch(3, ...).
+extern "C" int bigdl_fused_fwd_zcast(const void* x, const void* r,
+                                     const float* scale, const float* shift,
+                                     const void* w, void* z, void* y,
+                                     float* zstats, float* part, int M, int C,
+                                     int K, int dtype, int z_dtype,
+                                     void* stream) {
+  if (bad_dims(M, C, K) || dtype == z_dtype)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 1
+          ? launch_fwd<bf16, float>(x, r, scale, shift, w, z, y, zstats, part,
+                                    M, C, K, st)
+          : launch_fwd<float, bf16>(x, r, scale, shift, w, z, y, zstats, part,
+                                    M, C, K, st));
 }
 
 extern "C" int bigdl_fused_dgrad(const void* dz, const void* w, const void* x,

@@ -9,7 +9,13 @@ see the same batches in the same order.
 shard of the global data, ``data[rank::world]`` over the
 ``torch.distributed`` group (the JAX package's ``[process_index ::
 process_count]``), as a :class:`DistributedDataSet`; the ``Optimizer``
-factory returns a ``DistriOptimizer`` for that type."""
+factory returns a ``DistriOptimizer`` for that type.
+
+``DataSet.image_folder`` loads a class-per-subdirectory image folder
+(``dataset/image.py``); ``DataSet.seq_file_folder`` reads record shards,
+RECS (``dataset/seqfile.py``) or Hadoop SequenceFiles
+(``dataset/hadoop_seqfile.py``), each rank taking its round-robin share
+of the files."""
 
 from __future__ import annotations
 
@@ -102,6 +108,42 @@ class _DataSetFactory:
                                   partition_num=n, partition_index=idx)
 
     rdd = distributed       # reference name: DataSet.rdd(...)
+
+    @staticmethod
+    def image_folder(path: str, **kwargs) -> LocalDataSet:
+        """``image_folder_samples(path, **kwargs)`` as a local dataset."""
+        from bigdl_tpu_torch.dataset.image import image_folder_samples
+
+        return _DataSetFactory.array(image_folder_samples(path, **kwargs))
+
+    @staticmethod
+    def seq_file_folder(path: str, decoder=None, seed: int = 0,
+                        format: str = "recs"):
+        """Record-shard ingestion (reference ``DataSet.SeqFileFolder``):
+        ``format="recs"`` reads RECS shards, ``"hadoop"`` Hadoop
+        SequenceFiles (convert once with ``hadoop_seqfile.convert_to_recs``
+        for the native indexer). ``decoder(label, payload)`` has the same
+        signature for both (Hadoop's label comes from its Text, Int or
+        Long key, its payload out of the BytesWritable). The files are
+        split round-robin across the ``torch.distributed`` ranks."""
+        from bigdl_tpu_torch.utils.engine import world_and_rank
+
+        if format not in ("recs", "hadoop"):
+            raise ValueError(
+                f"unknown seq_file_folder format {format!r} — expected "
+                "'recs' (native shards) or 'hadoop' (SequenceFiles)")
+        world, rank = world_and_rank()
+        if format == "hadoop":
+            from bigdl_tpu_torch.dataset.hadoop_seqfile import (
+                HadoopSeqFileDataSet,
+            )
+
+            return HadoopSeqFileDataSet(path, decoder=decoder, seed=seed,
+                                        shard_index=rank, num_shards=world)
+        from bigdl_tpu_torch.dataset.seqfile import SeqFileDataSet
+
+        return SeqFileDataSet(path, decoder=decoder, seed=seed,
+                              shard_index=rank, num_shards=world)
 
 
 DataSet = _DataSetFactory()

@@ -12,15 +12,27 @@ the same batches:
   passed to ``Optimizer.set_device_preprocess`` through
   :meth:`NativeImagePipeline.device_normalizer`), so each upload carries
   a quarter of the f32 bytes;
-- ``output="f32_nchw"``: the host normalizes and transposes, the JAX
-  package's numpy iterator. The JAX package's C++ loader
-  (``bigdl_tpu/native``), which its tests hold equal to that iterator,
-  comes with the host data plane; until then the port's f32 feed is the
-  numpy iterator.
+- ``output="f32_nchw"``: the host crops, flips, normalizes and
+  transposes in the C++ prefetch executor
+  (:class:`bigdl_tpu_torch.native.NativeLoader`, JAX's ``_native_iter``):
+  a producer thread draws the shuffles, crops and flips and pushes raw
+  uint8 batches; the library's worker threads, off the GIL, write the
+  f32 CHW batches that ``data()`` pops. The native normalize is
+  ``(x - m) * (1 / s)``, JAX's native arithmetic, within an ulp of the
+  numpy iterator's ``(x - m) / s``.
+
+``data()`` takes no numpy loop for the f32 feed and has no fallback: a
+host without g++ raises ``OSError``. The numpy loop stays as
+:meth:`NativeImagePipeline.plain_iter` (the u8 feed's iterator, and the
+f32 feed's plain version that the tests and ``chip_smoke.py`` compare
+against). The native iterator stops and frees its loader when it is
+closed or abandoned.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -63,8 +75,8 @@ class NativeImagePipeline(AbstractDataSet):
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
         self.hflip = hflip
-        # the native loader's prefetch depth and worker count; the numpy
-        # feeds here do not use them, as JAX's u8 feed does not
+        # the native loader's prefetch depth and worker count (the u8
+        # feed does not use them, as JAX's does not)
         self.queue_depth = queue_depth
         self.n_workers = n_workers
         self.seed = seed
@@ -87,16 +99,27 @@ class NativeImagePipeline(AbstractDataSet):
             fl = np.zeros(k, np.uint8)
         return oy, ox, fl
 
+    def _epoch_indices(self, rng: np.random.RandomState, train: bool):
+        idx = np.arange(self.n)
+        if train:
+            rng.shuffle(idx)
+        return idx
+
     def data(self, train: bool) -> Iterator[MiniBatch]:
-        """One epoch, shuffle, crop and flip loop for both feeds: only the
-        finishing of each image differs (uint8 copy, or normalize and
-        transpose to CHW)."""
+        """The u8 feed's host crops, or the f32 feed through the native
+        loader."""
+        if self.output == "u8_nhwc":
+            return self.plain_iter(train)
+        return self._native_iter(train)
+
+    def plain_iter(self, train: bool) -> Iterator[MiniBatch]:
+        """One epoch, shuffle, crop and flip loop in numpy for both
+        outputs: only the finishing of each image differs (uint8 copy,
+        or ``(x - m) / s`` and transpose to CHW)."""
         u8 = self.output == "u8_nhwc"
         rng = np.random.RandomState(self.seed)
         while True:
-            idx = np.arange(self.n)
-            if train:
-                rng.shuffle(idx)
+            idx = self._epoch_indices(rng, train)
             for i in range(0, self.n - self.batch + 1, self.batch):
                 sel = idx[i:i + self.batch]
                 oy, ox, fl = self._params(rng, train, len(sel))
@@ -119,6 +142,61 @@ class NativeImagePipeline(AbstractDataSet):
                 yield MiniBatch(out, self.labels[sel].astype(np.float32))
             if not train:
                 return
+
+    def _native_iter(self, train: bool) -> Iterator[MiniBatch]:
+        """The f32 feed (JAX's ``_native_iter``): the producer thread
+        draws from the same RandomState in the same order as
+        :meth:`plain_iter` and pushes uint8 batches; this generator pops
+        the finished f32 batches in push order. On close (or when
+        abandoned) it stops the loader, joins the producer, then frees
+        the loader."""
+        from bigdl_tpu_torch.native import NativeLoader
+
+        loader = NativeLoader(
+            self.batch, self.h, self.w, self.c, self.crop_h, self.crop_w,
+            self.mean, self.std, queue_depth=self.queue_depth,
+            n_workers=self.n_workers)
+        rng = np.random.RandomState(self.seed)
+        per_epoch = self.n // self.batch
+        stop = threading.Event()
+        failed = []
+
+        def producer():
+            try:
+                while not stop.is_set():
+                    idx = self._epoch_indices(rng, train)
+                    for i in range(per_epoch):
+                        if stop.is_set():
+                            return
+                        sel = idx[i * self.batch:(i + 1) * self.batch]
+                        oy, ox, fl = self._params(rng, train, len(sel))
+                        loader.push(self.images[sel], self.labels[sel],
+                                    oy, ox, fl)
+                    if not train:
+                        return
+            except RuntimeError:
+                pass            # the loader stopped under us: we are done
+            except Exception as e:       # raised again by the consumer
+                failed.append(e)
+                loader.stop()
+
+        t = threading.Thread(target=producer, daemon=True,
+                             name="NativeImagePipeline-producer")
+        t.start()
+        try:
+            for _ in itertools.count() if train else range(per_epoch):
+                try:
+                    out, lab = loader.pop()
+                except RuntimeError:
+                    if failed:
+                        raise failed[0] from None
+                    raise
+                yield MiniBatch(out, lab.astype(np.float32))
+        finally:
+            stop.set()
+            loader.stop()       # wakes a producer blocked in push()
+            t.join()
+            loader.close()      # frees only once no thread can touch it
 
     def device_normalizer(self) -> "DeviceImageNormalizer":
         """The on-device preprocess of ``output="u8_nhwc"`` batches."""

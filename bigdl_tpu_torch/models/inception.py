@@ -19,8 +19,8 @@ kernel is on this path.
 
 ``train_main`` is the reference's TrainInceptionV1 main (SGD with
 ``Poly(0.5, 62000)``) over ``models/utils.py``, on synthetic ImageNet
-samples; ``-f`` reads an image folder, which comes with the host data
-plane (``ROADMAP.md`` A.6) and raises until then.
+samples or, with ``-f``, a class-per-subdirectory image folder
+(``dataset/image.py::image_folder_samples`` at 224²).
 """
 
 from __future__ import annotations
@@ -273,7 +273,8 @@ def Inception_v2(class_num: int = 1000, device=None,
 
 def train_main(argv=None):
     """Reference ``models/inception/TrainInceptionV1.scala`` main
-    (BASELINE target #4): ``Inception_v1_NoAuxClassifier(1000)`` on
+    (BASELINE target #4): ``Inception_v1_NoAuxClassifier(1000)`` on the
+    image folder under ``-f`` (``image_folder_samples`` at 224²) or
     ``synthetic_imagenet_samples``, SGD with ``Poly(0.5, 62000)``;
     ``--device`` (default ``cuda``). Returns the trained model."""
     from bigdl_tpu_torch.models.utils import (
@@ -285,11 +286,11 @@ def train_main(argv=None):
     args = train_parser("Inception-v1 on ImageNet", batch_size=64,
                         learning_rate=0.01, max_epoch=2).parse_args(argv)
     if args.folder:
-        raise NotImplementedError(
-            "-f reads an image folder (image_folder_samples), which comes "
-            "with the host data plane (ROADMAP.md A.6); omit -f for "
-            "synthetic data")
-    samples = synthetic_imagenet_samples(args.synthetic)
+        from bigdl_tpu_torch.dataset.image import image_folder_samples
+
+        samples = image_folder_samples(args.folder, image_size=224)
+    else:
+        samples = synthetic_imagenet_samples(args.synthetic)
     method = SGD(learning_rate=args.learningRate, momentum=args.momentum,
                  weight_decay=args.weightDecay,
                  learning_rate_schedule=Poly(0.5, 62000))

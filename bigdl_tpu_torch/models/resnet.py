@@ -185,7 +185,8 @@ def train_main(argv=None):
     """Reference ``models/resnet/TrainImageNet.scala`` /
     ``TrainCIFAR10.scala`` mains: ``--dataset cifar10`` trains ResNet-20
     (shortcut A) on the CIFAR pickle batches under ``-f`` or the synthetic
-    set, ``--dataset imagenet`` ResNet-50 (shortcut B) on
+    set, ``--dataset imagenet`` ResNet-50 (shortcut B) on the image folder
+    under ``-f`` (``image_folder_samples`` at 224²) or
     ``synthetic_imagenet_samples``, both with nesterov SGD; ``--device``
     (default ``cuda``). Returns the trained model."""
     from bigdl_tpu_torch.models.utils import run_training, train_parser
@@ -212,11 +213,11 @@ def train_main(argv=None):
         from bigdl_tpu_torch.models.utils import synthetic_imagenet_samples
 
         if args.folder:
-            raise NotImplementedError(
-                "-f with --dataset imagenet reads an image folder "
-                "(image_folder_samples), which comes with the host data "
-                "plane (ROADMAP.md A.6); omit -f for synthetic data")
-        samples = synthetic_imagenet_samples(args.synthetic)
+            from bigdl_tpu_torch.dataset.image import image_folder_samples
+
+            samples = image_folder_samples(args.folder, image_size=224)
+        else:
+            samples = synthetic_imagenet_samples(args.synthetic)
         model = ResNet(1000, {"depth": args.depth or 50, "shortcutType": "B"},
                        device=args.device)
     method = SGD(learning_rate=args.learningRate, momentum=args.momentum,

@@ -18,9 +18,11 @@ synthetic class-dependent token sequences, or ``-f`` a news20-style
 folder (one subdirectory per class of text files) through
 ``simple_tokenize`` and ``Dictionary``; ``--device`` (default ``cuda``).
 Its default compute dtype is f32: under bf16 the float word ids above
-256 would round. ``--news20`` (the news20 archive and GloVe vectors)
-comes with the host data plane (``ROADMAP.md`` A.6) and raises until
-then.
+256 would round. ``--news20`` is the reference pyspark pipeline: the
+20-Newsgroups corpus under ``-f`` (its tree or archive; the synthetic
+corpus when neither is there, ``dataset/news20.py``), tokenized and
+embedded with GloVe vectors on the host into ``(seqLen, embeddingDim)``
+features, then ``TextClassifier(embedding_input=True)``.
 """
 
 from __future__ import annotations
@@ -124,6 +126,39 @@ def folder_samples(folder: str, seq_len: int):
     return samples, d.vocab_size(), len(classes)
 
 
+def news20_samples(folder, seq_len: int, embedding_dim: int):
+    """(samples, class count) of the ``--news20`` pipeline: each text of
+    ``get_news20(folder)`` tokenized, its first ``seq_len`` tokens
+    embedded by ``glove_dict(folder/glove.6B, embedding_dim)`` (zero for
+    an unknown word), zero-padded to ``(seq_len, embedding_dim)`` f32,
+    with its 1-based label; the class count is the largest label."""
+    import os
+
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.news20 import (
+        DEFAULT_DIR, get_news20, glove_dict,
+    )
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.dataset.text import simple_tokenize
+
+    data_dir = folder or DEFAULT_DIR
+    texts = get_news20(data_dir)
+    w2v = glove_dict(source_dir=os.path.join(data_dir, "glove.6B"),
+                     dim=embedding_dim)
+    zero = np.zeros((embedding_dim,), np.float32)
+    samples = []
+    for text, label in texts:
+        toks = simple_tokenize(text)[:seq_len]
+        mat = (np.stack([w2v.get(t, zero) for t in toks]) if toks
+               else np.zeros((1, embedding_dim), np.float32))
+        if mat.shape[0] < seq_len:
+            mat = np.concatenate([mat, np.zeros(
+                (seq_len - mat.shape[0], embedding_dim), np.float32)])
+        samples.append(Sample(mat.astype(np.float32), np.int32(label)))
+    return samples, max(lab for _, lab in texts)
+
+
 def train_main(argv=None):
     """Reference ``example/textclassification/TextClassifier.scala`` /
     pyspark ``textclassifier.py`` main (BASELINE target #5); returns the
@@ -142,10 +177,13 @@ def train_main(argv=None):
                    help="the news20 + GloVe pipeline (pre-embedded input)")
     args = p.parse_args(argv)
     if args.news20:
-        raise NotImplementedError(
-            "--news20 reads the news20 archive and GloVe vectors, which "
-            "come with the host data plane (ROADMAP.md A.6); use -f with "
-            "a class-per-subdirectory text folder, or synthetic data")
+        samples, class_num = news20_samples(
+            args.folder, args.seqLen, args.embeddingDim)
+        model = TextClassifier(class_num, embedding_dim=args.embeddingDim,
+                               embedding_input=True, device=args.device)
+        return run_training(
+            model, samples, ClassNLLCriterion(), args,
+            optim_method=Adagrad(learning_rate=args.learningRate))
     if args.folder:
         samples, vocab, class_num = folder_samples(args.folder, args.seqLen)
     else:

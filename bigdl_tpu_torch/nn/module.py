@@ -251,6 +251,40 @@ class AbstractModule(nn.Module):
             if was_training:
                 self.train()
 
+    def predict_image(self, image_frame, output_layer=None,
+                      share_buffer: bool = False,
+                      batch_per_partition: int = 4,
+                      predict_key: str = "predict",
+                      feature_key: str = "floats"):
+        """Reference pyspark ``model.predict_image`` (``Predictor.
+        predictImage``): every ImageFeature's tensor under ``feature_key``
+        (``MatToTensor``'s output) through :meth:`predict` in batches of
+        ``batch_per_partition``, each output attached to its feature under
+        ``predict_key`` (a list per feature for a multi-output model).
+        Returns the same frame. ``share_buffer`` is accepted and ignored;
+        ``output_layer`` is refused (build a graph ending at that node)."""
+        if output_layer is not None:
+            raise NotImplementedError(
+                "predict_image(output_layer=...) is not supported — build "
+                "a Graph ending at that node and predict with it")
+        feats = image_frame.features
+        missing = [i for i, f in enumerate(feats) if feature_key not in f]
+        if missing:
+            raise ValueError(
+                f"predict_image: features {missing[:5]} have no "
+                f"{feature_key!r} tensor — run MatToTensor (or pass "
+                "feature_key=) first")
+        x = np.stack([np.asarray(f[feature_key], np.float32) for f in feats])
+        out = self.predict(x, batch_size=max(1, int(batch_per_partition)))
+        if isinstance(out, (list, tuple)):   # a multi-output graph
+            for j, f in enumerate(feats):
+                f[predict_key] = [np.asarray(o)[j] for o in out]
+        else:
+            out = np.asarray(out)
+            for j, f in enumerate(feats):
+                f[predict_key] = out[j]
+        return image_frame
+
     def predict_class(self, inputs, batch_size: int = 32) -> np.ndarray:
         """1-based predicted classes (``Predictor.predict_class``)."""
         from bigdl_tpu_torch.optim.evaluator import Predictor

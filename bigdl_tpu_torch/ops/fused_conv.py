@@ -7,10 +7,12 @@ M = N·H·W rows of a channels-last activation, with an elementwise
 prologue: with x̂ = (x − μ)/σ, p = x̂·γ + β (+ r), y = relu(p), z = y·W,
 
 * forward (:func:`fused_scale_relu_matmul`, TPU ``_fwd_kernel`` ``:141``):
-  ``z = relu(x·scale + shift (+ r)) @ W`` with the per-output-channel
-  ``zstats = [Σz, Σz²]`` over all M rows, taken from the f32 accumulator
-  before z is rounded (the next BN's batch statistics, so no pass re-reads
-  z), and the post-ReLU ``y`` when ``want_y`` (a second consumer needs it);
+  ``z = relu(x·scale + shift (+ r)) @ W`` (z in x's dtype, or in
+  ``out_dtype`` through ``fwd_kernel``'s z-type variant) with the
+  per-output-channel ``zstats = [Σz, Σz²]`` over all M rows, taken from
+  the f32 accumulator before z is rounded (the next BN's batch
+  statistics, so no pass re-reads z), and the post-ReLU ``y`` when
+  ``want_y`` (a second consumer needs it);
   in bf16 with C and K multiples of 8 on Hopper's ``wgmma`` with x, r and
   W streamed by TMA and y built once per tile in shared memory
   (``fwd_wgmma``);
@@ -95,14 +97,15 @@ def _prologue(x, scale, shift, residual):
 
 
 def fused_fwd_reference(x, scale, shift, w, residual=None,
-                        want_y: bool = False):
+                        want_y: bool = False, out_dtype=None):
     """Plain forward over (M, C) rows: ``(z, zstats[, y])``. y is rounded
     to x's dtype before the product (the kernels' A operand), the product
-    accumulates in f32, and zstats come from the f32 product."""
+    accumulates in f32, zstats come from the f32 product, and z is the
+    f32 product rounded once to ``out_dtype`` (default x's dtype)."""
     y = torch.relu(_prologue(x, scale, shift, residual)).to(x.dtype)
     z32 = y.float() @ w.float()
     zstats = torch.stack([z32.sum(0), (z32 * z32).sum(0)])
-    z = z32.to(x.dtype)
+    z = z32.to(out_dtype or x.dtype)
     return (z, zstats, y) if want_y else (z, zstats)
 
 
@@ -193,12 +196,19 @@ def _scratch(which: int, m: int, c: int, k: int, code: int, dev):
     return torch.empty(max(n, 1), dtype=torch.float32, device=dev)
 
 
-def fused_fwd_cuda(x, scale, shift, w, residual=None, want_y: bool = False):
+def fused_fwd_cuda(x, scale, shift, w, residual=None, want_y: bool = False,
+                   out_dtype=None):
     """The forward kernel: :func:`fused_fwd_reference`'s contract on card
-    tensors (2-D rows)."""
+    tensors (2-D rows). A z dtype other than x's takes the
+    ``bigdl_fused_fwd_zcast`` entry (``fwd_kernel`` with z's type as a
+    parameter)."""
     global fwd_launches
     x, w, residual = _card(x, w, residual)
     code = _dtype_code(x, w, residual)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"z dtype {out_dtype} unsupported")
+    zcast = out_dtype != x.dtype
     m, c = x.shape
     k = w.shape[1]
     if w.shape[0] != c or (residual is not None
@@ -206,18 +216,22 @@ def fused_fwd_cuda(x, scale, shift, w, residual=None, want_y: bool = False):
         raise ValueError(f"forward shapes: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}")
     scale, shift = _f32_vec(scale, c, x.device), _f32_vec(shift, c, x.device)
-    z = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    z = torch.empty((m, k), dtype=out_dtype, device=x.device)
     zstats = torch.zeros((2, k), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x) if want_y else None
     if m == 0:
         return (z, zstats, y) if want_y else (z, zstats)
     with torch.cuda.device(x.device):  # the scratch depends on its SMs
-        scratch = _scratch(0, m, c, k, code, x.device)
-        err = _library().bigdl_fused_fwd(
-            x.data_ptr(), _ptr(residual), scale.data_ptr(), shift.data_ptr(),
-            w.data_ptr(), z.data_ptr(), _ptr(y), zstats.data_ptr(),
-            scratch.data_ptr(), m, c, k, code,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        scratch = _scratch(3 if zcast else 0, m, c, k, code, x.device)
+        args = (x.data_ptr(), _ptr(residual), scale.data_ptr(),
+                shift.data_ptr(), w.data_ptr(), z.data_ptr(), _ptr(y),
+                zstats.data_ptr(), scratch.data_ptr(), m, c, k, code)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if zcast:
+            err = _library().bigdl_fused_fwd_zcast(
+                *args, _DTYPE_CODES[out_dtype], stream)
+        else:
+            err = _library().bigdl_fused_fwd(*args, stream)
     _check(err, "forward")
     fwd_launches += 1
     return (z, zstats, y) if want_y else (z, zstats)
@@ -289,13 +303,16 @@ def fused_wgrad_cuda(x, scale, shift, dz, residual=None,
 
 
 def fused_scale_relu_matmul(x, scale, shift, w, residual=None,
-                            want_y: bool = False):
+                            want_y: bool = False, out_dtype=None):
     """``z = relu(x·scale + shift (+ residual)) @ w`` in one pass over x.
-    Returns ``(z, zstats[, y])``: z ``(..., K)`` and y shaped like x in x's
-    dtype, zstats ``(2, K)`` f32 = ``[Σz, Σz²]`` over all rows."""
+    Returns ``(z, zstats[, y])``: z ``(..., K)`` in ``out_dtype`` (default
+    x's dtype), y shaped like x in x's dtype, zstats ``(2, K)`` f32 =
+    ``[Σz, Σz²]`` over all rows. JAX's ``bk`` (a TPU block size) and
+    ``interpret`` have no counterpart here."""
     c, k = x.shape[-1], w.shape[1]
     fn = fused_fwd_cuda if x.device.type == "cuda" else fused_fwd_reference
-    out = fn(x.reshape(-1, c), scale, shift, w, _rows(residual, c), want_y)
+    out = fn(x.reshape(-1, c), scale, shift, w, _rows(residual, c), want_y,
+             out_dtype)
     z = out[0].reshape(*x.shape[:-1], k)
     if want_y:
         return z, out[1], out[2].reshape(x.shape)
@@ -393,10 +410,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bigdl_fused_conv_scratch.argtypes = [i] * 5
     lib.bigdl_fused_conv_scratch.restype = ctypes.c_longlong
     lib.bigdl_fused_fwd.argtypes = [vp] * 9 + [i] * 4 + [vp]
+    lib.bigdl_fused_fwd_zcast.argtypes = [vp] * 9 + [i] * 5 + [vp]
     lib.bigdl_fused_dgrad.argtypes = [vp] * 12 + [i] * 4 + [vp]
     lib.bigdl_fused_wgrad.argtypes = [vp] * 7 + [i] * 5 + [vp]
-    for fn in (lib.bigdl_fused_fwd, lib.bigdl_fused_dgrad,
-               lib.bigdl_fused_wgrad):
+    for fn in (lib.bigdl_fused_fwd, lib.bigdl_fused_fwd_zcast,
+               lib.bigdl_fused_dgrad, lib.bigdl_fused_wgrad):
         fn.restype = ctypes.c_int
     return lib
 

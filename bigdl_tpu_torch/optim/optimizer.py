@@ -97,6 +97,14 @@ class TrainingPreempted(RuntimeError):
     ``optimize(resume=True)``."""
 
 
+def close_iterator(it) -> None:
+    """Close a data iterator that can be closed (a generator): a native
+    feed stops its loader and joins its producer when closed."""
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
+
+
 def _ensure_dataset(dataset, batch_size: Optional[int],
                     drop_remainder: bool = True) -> AbstractDataSet:
     if dataset is None:
@@ -110,7 +118,11 @@ def _ensure_dataset(dataset, batch_size: Optional[int],
     if batch_size is not None:
         # a Sample dataset is batched here; one that already yields
         # MiniBatches passes through
-        probe = next(iter(dataset.data(train=False)), None)
+        probe_iter = iter(dataset.data(train=False))
+        try:
+            probe = next(probe_iter, None)
+        finally:
+            close_iterator(probe_iter)
         if isinstance(probe, Sample):
             dataset = dataset.transform(
                 SampleToMiniBatch(batch_size, drop_remainder=drop_remainder))
@@ -560,14 +572,16 @@ class Optimizer:
             return None
         totals = [None] * len(self.validation_methods)
         self.model.eval()
+        batches = self.validation_dataset.data(train=False)
         try:
-            for batch in self.validation_dataset.data(train=False):
+            for batch in batches:
                 out = self._eval_forward(params, model_state,
                                          batch.get_input())
                 for i, m in enumerate(self.validation_methods):
                     r = m.apply(out, batch.get_target())
                     totals[i] = r if totals[i] is None else totals[i] + r
         finally:
+            close_iterator(batches)
             self.model.train()
         multi = self._pod_rank()[0] > 1
         score = None
@@ -630,6 +644,7 @@ class Optimizer:
         try:
             return self._optimize_loop(resume)
         finally:
+            close_iterator(self.__dict__.pop("_data_iter", None))
             if installed:
                 signal.signal(signal.SIGTERM, prev_sigterm)
             self._stop_profile()     # the loop ended inside the window
@@ -650,7 +665,9 @@ class Optimizer:
             if snap is not None:
                 params, opt_state = self._restore(snap, params, model_state,
                                                   opt_state, state)
-        data_iter = self.dataset.data(train=True)
+        # closed by optimize(): a native feed's worker pool and producer
+        # thread end with the call
+        data_iter = self._data_iter = self.dataset.data(train=True)
         epoch_size = self.dataset.size()
         seen_this_epoch = 0
         if resume and state["neval"] > 1:

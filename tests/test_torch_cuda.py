@@ -438,6 +438,33 @@ def test_fused_conv_kernels_match_plain_versions(card, case, dtype):
                                            d["dz"], r, out_dtype=dtype), dw)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,z_dtype", [(torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_forward_out_dtype_matches_plain_version(card, case, dtype,
+                                                       z_dtype):
+    """z in another dtype than x (JAX's ``out_dtype``): the zcast kernel
+    against the plain version, z at z's tolerance, y at x's."""
+    from bigdl_tpu_torch.ops import fused_conv as fc
+
+    m, c, k, res, extra = case
+    d = _fused_inputs(m, c, k, dtype, seed=2 * m + c)
+    args = (d["x"], d["scale"], d["shift"], d["w"], d["r"] if res else None,
+            extra)
+    before = fc.fwd_launches
+    got = fc.fused_fwd_cuda(*args, out_dtype=z_dtype)
+    want = fc.fused_fwd_reference(*args, out_dtype=z_dtype)
+    torch.cuda.synchronize()
+    assert fc.fwd_launches == before + 1
+    assert got[0].dtype == want[0].dtype == z_dtype
+    assert fc.max_row_rel_err(got[0], want[0]) <= fc.ROW_RTOL[z_dtype]
+    assert fc.max_row_rel_err(got[1], want[1]) <= 1e-4
+    if extra:
+        assert got[2].dtype == dtype
+        assert fc.max_row_rel_err(got[2], want[2]) <= fc.ROW_RTOL[dtype]
+
+
 # ResNet-50's 10 (C, K) pairs of the fused edges, run at a small ragged M
 # (several 128-row tiles), and whether the edge reads the residual (those
 # also want y and take an extra dy). In bf16 they cover every tile shape

@@ -94,6 +94,33 @@ def test_forward_plain_version_matches_jax(c, k, layout, res, extra):
 
 
 @pytest.mark.parametrize("c,k,layout,res,extra", CASES)
+def test_forward_out_dtype_f32_from_bf16_matches_jax(c, k, layout, res,
+                                                     extra):
+    """``out_dtype=float32`` on bf16 rows (JAX's ``out_dtype=``): z is the
+    f32 product, held at the f32 tolerance; y stays bf16 (a bf16 ulp)."""
+    d = _inputs(M, c, k, seed=5 * c + k)
+    x, r = _view(d["x"], layout), _view(d["r"], layout) if res else None
+    j = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    want = jfc.fused_scale_relu_matmul(
+        j(x), jnp.asarray(d["scale"]), jnp.asarray(d["shift"]), j(d["w"]),
+        None if r is None else j(r), want_y=extra, out_dtype=jnp.float32)
+    got = tfc.fused_scale_relu_matmul(
+        t(x), torch.from_numpy(d["scale"]), torch.from_numpy(d["shift"]),
+        t(d["w"]), None if r is None else t(r), want_y=extra,
+        out_dtype=torch.float32)
+    assert want[0].dtype == jnp.float32 and got[0].dtype == torch.float32
+    assert got[0].shape == (*x.shape[:-1], k)
+    _close(got[0], want[0])
+    z = got[0].reshape(-1, k).double().numpy()
+    _close_sums(got[1][0], want[1][0], np.abs(z).sum(0))
+    _close_sums(got[1][1], want[1][1], (z * z).sum(0))
+    if extra:
+        assert got[2].dtype == torch.bfloat16
+        _close(got[2].float(), np.asarray(want[2], np.float32), 2 ** -7)
+
+
+@pytest.mark.parametrize("c,k,layout,res,extra", CASES)
 def test_dgrad_plain_version_matches_jax(c, k, layout, res, extra):
     d = _inputs(M, c, k, seed=3 * c + k)
     v = lambda a: _view(a, layout)  # noqa: E731

@@ -11,7 +11,8 @@ layers it needs against the JAX package on the CPU:
   1, 224², the JAX reference's trees drawn with numpy (``numpy_trees``)
   and its forward jitted, once per model;
 * ``Inception_v1``'s train step through ``ParallelCriterion``, and
-  ``train_main`` (SGD with ``Poly(0.5, 62000)``) at two iterations.
+  ``train_main`` (SGD with ``Poly(0.5, 62000)``) at two iterations, and
+  its ``-f`` branch's samples (bitwise JAX's ``image_folder_samples``).
 
 Tolerances, with their reasons:
 
@@ -339,7 +340,8 @@ def test_train_main_trains_noaux_with_poly_sgd(monkeypatch, tmp_path):
     run = tutils.run_training
 
     def spy(model, samples, criterion, args, optim_method=None):
-        seen.update(model=model, method=optim_method, n=len(samples))
+        seen.update(model=model, method=optim_method, n=len(samples),
+                    samples=samples)
         return run(model, samples, criterion, args, optim_method)
 
     monkeypatch.setattr(tutils, "run_training", spy)
@@ -351,5 +353,21 @@ def test_train_main_trains_noaux_with_poly_sgd(monkeypatch, tmp_path):
     assert type(sched).__name__ == "Poly"
     assert (sched.power, sched.max_iteration) == (0.5, 62000)
     assert sum(p.numel() for p in model.parameters()) == 6998552
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tinc.train_main(["-f", str(tmp_path), "--device", "cpu"])
+    # -f: the image folder at 224², JAX's samples (PNG: bitwise PIL's)
+    from PIL import Image
+
+    from bigdl_tpu.dataset.image import image_folder_samples
+
+    rng = np.random.RandomState(1)
+    for c in ("a", "b"):
+        (tmp_path / c).mkdir()
+        Image.fromarray(rng.randint(0, 256, (31, 45, 3)).astype(
+            np.uint8)).save(tmp_path / c / "0.png")
+    model = tinc.train_main(["-f", str(tmp_path), "-b", "2",
+                             "--maxIteration", "1", "--device", "cpu"])
+    assert seen["n"] == 2
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    want = image_folder_samples(str(tmp_path), image_size=224)
+    for a, b in zip(seen["samples"], want):
+        np.testing.assert_array_equal(a.feature(), b.feature())
+        np.testing.assert_array_equal(a.label(), b.label())

@@ -93,11 +93,20 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.visualization.summary",
               "bigdl_tpu_torch.optim.upload",
               "bigdl_tpu_torch.dataset.native_pipeline",
-              "bigdl_tpu_torch.dataset.cifar"):
+              "bigdl_tpu_torch.dataset.cifar",
+              "bigdl_tpu_torch.native", "bigdl_tpu_torch.native.build",
+              "bigdl_tpu_torch.native.decode",
+              "bigdl_tpu_torch.dataset.seqfile",
+              "bigdl_tpu_torch.dataset.hadoop_seqfile",
+              "bigdl_tpu_torch.dataset.news20",
+              "bigdl_tpu_torch.dataset.text",
+              "bigdl_tpu_torch.transform.vision.image"):
         assert m in mods
     for src in ("decode_attention.cu", "flash_attention.cu", "fused_conv.cu",
                 "conv3x3.cu", "kv_requant.cu"):
         assert (PKG / "csrc" / src).exists()
+    for src in ("bigdl_native.cpp", "bigdl_native.h", "image_decode.cpp"):
+        assert (PKG / "native" / "src" / src).exists()
 
 
 def test_fresh_interpreter_imports_no_jax_and_no_jax_package():
@@ -122,7 +131,8 @@ def test_fresh_interpreter_imports_no_jax_and_no_jax_package():
     + ["chip_smoke.py", "tools/torch_serving_profile.py",
        "tools/torch_training_profile.py",
        "tools/torch_flash_fault_check.py", "tools/torch_resnet_profile.py",
-       "tools/torch_kernel_times.py", "tools/torch_serving_zoo.py"]))
+       "tools/torch_kernel_times.py", "tools/torch_serving_zoo.py",
+       "tools/torch_lenet_card_vs_cpu.py"]))
 def test_no_source_file_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     hits = []

@@ -5,8 +5,9 @@ package on the CPU.
 Tolerances, with their reasons:
 
 * batches: bitwise (the same RandomState draws, the same uint8 copies and
-  the same f32 normalize; JAX's f32 feed is its numpy iterator, which its
-  own tests hold equal to its C++ loader);
+  the same f32 normalize: the port's f32 feed runs through its native
+  loader, held to JAX's C++ loader, ``(x - m) * (1 / s)`` on both sides;
+  the numpy iterators' ``(x - m) / s`` differs from it by up to an ulp);
 * ``DeviceImageNormalizer``: within 1e-6 absolute (one f32 subtract and
   divide on each side; XLA may fold the divide into a multiply);
 * three LeNet SGD steps fed uint8: parameters within 2e-6 absolute, the
@@ -41,9 +42,14 @@ def _pipes(output, pad, **kw):
 
 
 def _jax_iter(pipe, train):
-    """The JAX feed's host iterator (its numpy one for f32)."""
-    return (pipe._u8_iter(train) if pipe.output == "u8_nhwc"
-            else pipe._numpy_iter(train))
+    """The JAX feed: its host iterator for u8, its C++ loader for f32
+    (built here: this box has g++)."""
+    import bigdl_tpu.native as jax_native
+
+    if pipe.output == "u8_nhwc":
+        return pipe._u8_iter(train)
+    assert jax_native.is_available(), jax_native.unavailable_reason()
+    return pipe._native_iter(train)
 
 
 @pytest.mark.parametrize("output", ["u8_nhwc", "f32_nchw"])
@@ -71,8 +77,8 @@ def test_batches_are_bitwise_the_jax_feeds(output, pad, hflip):
 @pytest.mark.parametrize("output", ["u8_nhwc", "f32_nchw"])
 def test_queue_depth_and_n_workers_are_accepted_as_in_jax(output):
     """The native loader's two knobs: taken and kept as JAX keeps them;
-    the numpy feeds do not use them (JAX's u8 feed does not either), so
-    the batches stay JAX's bitwise."""
+    the f32 feed's loader runs with them (the u8 feed does not use them,
+    nor does JAX's), and the batches stay JAX's bitwise."""
     jp, tp = _pipes(output, 1, queue_depth=2, n_workers=3)
     assert (tp.queue_depth, tp.n_workers) == (jp.queue_depth,
                                                jp.n_workers) == (2, 3)

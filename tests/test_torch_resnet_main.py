@@ -5,9 +5,12 @@ basic-block ResNets' forward, against the JAX package on the CPU.
 
 Tolerances, with their reasons:
 
-* ``train_main`` on cifar10: the ``Loss`` scalars within 1e-4 relative
-  (ResNet-20 in f32; two steps, each through 21 conv-BN layers summed in
+* ``train_main`` on cifar10, and on an image folder (``--dataset
+  imagenet -f``, ResNet-18 at 224²): the ``Loss`` scalars within 1e-4
+  relative (f32; two steps, each through 21 conv-BN layers summed in
   other orders; the second step's loss reads the first step's update);
+* the image folder's samples: bitwise JAX's ``image_folder_samples``
+  (the port's decoder is bitwise PIL on PNG files);
 * the synthetic data and the CIFAR files: bitwise (the same numpy draws);
 * forwards: 1e-5 relative to the output's largest magnitude (f32, about
   20 layers with sums in other orders).
@@ -197,6 +200,41 @@ def test_cifar10_train_main_matches_jax(monkeypatch, tmp_path):
                    .read_scalar(tag)) == 2
 
 
+def _png_folder(root):
+    """Two classes of two PNG images at odd sizes."""
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    for c in ("ant", "bee"):
+        os.makedirs(os.path.join(root, "folder", c))
+        for i in range(2):
+            Image.fromarray(rng.randint(0, 256, (40 + 7 * i, 51, 3)).astype(
+                np.uint8)).save(os.path.join(root, "folder", c, f"{i}.png"))
+    return os.path.join(root, "folder")
+
+
+def test_imagenet_folder_train_main_matches_jax(monkeypatch, tmp_path):
+    """``--dataset imagenet -f`` (ResNet-18 B on a 4-image folder at 224²,
+    batch 2, two iterations) from the same weights: the ``Loss``
+    scalars."""
+    from bigdl_tpu.visualization.summary import TrainSummary as JSummary
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    _capture_jax_init(monkeypatch)
+    argv = ["--dataset", "imagenet", "-f", _png_folder(tmp_path), "--depth",
+            "18", "-b", "2", "--maxIteration", "2"]
+    RNG.set_seed(13)
+    jres.train_main(argv + ["--summary", str(tmp_path / "jax")])
+    model = tres.train_main(argv + ["--summary", str(tmp_path / "port"),
+                                    "--device", "cpu"])
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    want = JSummary(str(tmp_path / "jax"), "train").read_scalar("Loss")
+    got = TrainSummary(str(tmp_path / "port"), "train").read_scalar("Loss")
+    assert [s for s, _ in got] == [s for s, _ in want] == [1, 2]
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               rtol=1e-4)
+
+
 def test_imagenet_branch_builds_resnet50_b_with_nesterov_sgd(monkeypatch,
                                                              tmp_path):
     """The branch's model, data and optim method, handed to the shared
@@ -227,9 +265,18 @@ def test_imagenet_branch_builds_resnet50_b_with_nesterov_sgd(monkeypatch,
     assert len(seen["samples"]) == 2
     np.testing.assert_array_equal(seen["samples"][1].feature(),
                                   want[1].feature())
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tres.train_main(["--dataset", "imagenet", "-f", str(tmp_path),
-                         "--device", "cpu"])
+    # -f: the image folder, decoded and resized to 224² as JAX's loader
+    from bigdl_tpu.dataset.image import image_folder_samples
+
+    folder = _png_folder(tmp_path)
+    tres.train_main(["--dataset", "imagenet", "-f", folder, "--device",
+                     "cpu"])
+    want = image_folder_samples(folder, image_size=224)
+    assert len(seen["samples"]) == len(want) == 4
+    for a, b in zip(seen["samples"], want):
+        assert a.feature().shape == (3, 224, 224)
+        np.testing.assert_array_equal(a.feature(), b.feature())
+        np.testing.assert_array_equal(a.label(), b.label())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tres.train_main(["--synthetic", "16", "-b", "16",

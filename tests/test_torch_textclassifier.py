@@ -4,8 +4,8 @@ on the CPU: ``LSTM``, ``Recurrent`` (forward and reverse) and
 H <= 16; the LSTM's regularizers in the train step; its variational
 dropout within the port; ``Adagrad``; ``simple_tokenize`` and
 ``Dictionary``; ``TextClassifier`` (both fronts, one and two directions)
-over three Adagrad steps; and ``train_main``'s synthetic and folder
-branches at two iterations.
+over three Adagrad steps; and ``train_main``'s synthetic, folder and
+``--news20`` branches at two iterations.
 
 Tolerances, with their reasons: 1e-5 relative to the largest magnitude
 for forwards, gradients and parameters (f32; eight time steps of small
@@ -338,19 +338,22 @@ def _capture_jax_init(monkeypatch):
     monkeypatch.setattr(ttc, "TextClassifier", port_tc)
 
 
-@pytest.mark.parametrize("branch", ["synthetic", "folder"])
+@pytest.mark.parametrize("branch", ["synthetic", "folder", "news20"])
 def test_train_main_matches_jax(monkeypatch, tmp_path, corpus_dir, branch):
     """Both mains on one data branch, two iterations from the same
     weights: the ``Loss`` scalars of ``--summary`` agree (the LSTM's
-    dropout is 0, so nothing draws); ``--news20`` raises."""
+    dropout is 0, so nothing draws). ``--news20`` reads the synthetic
+    corpus and vectors (no archive in ``-f``) and embeds on the host."""
     from bigdl_tpu.visualization.summary import TrainSummary as JSummary
     from bigdl_tpu_torch.visualization import TrainSummary
 
     _capture_jax_init(monkeypatch)
     argv = ["-b", "4", "--maxIteration", "2", "--seqLen", "12",
             "--embeddingDim", "8"]
-    argv += (["--synthetic", "16", "--vocab", "40", "--classNum", "4"]
-             if branch == "synthetic" else ["-f", corpus_dir])
+    argv += {"synthetic": ["--synthetic", "16", "--vocab", "40",
+                           "--classNum", "4"],
+             "folder": ["-f", corpus_dir],
+             "news20": ["--news20", "-f", str(tmp_path / "news20")]}[branch]
     RNG.set_seed(12)
     jtc.train_main(argv + ["--summary", str(tmp_path / "jax")])
     model = ttc.train_main(argv + ["--summary", str(tmp_path / "port"),
@@ -361,9 +364,10 @@ def test_train_main_matches_jax(monkeypatch, tmp_path, corpus_dir, branch):
     assert [s for s, _ in got] == [s for s, _ in want] == [1, 2]
     np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
                                rtol=1e-5)
-    if branch == "folder":
-        with pytest.raises(NotImplementedError, match="A.6"):
-            ttc.train_main(["--news20", "--device", "cpu"])
+    if branch == "news20":       # pre-embedded input, 20 classes
+        layers = model.layers()
+        assert type(layers[0]).__name__ == "BiRecurrent"   # no LookupTable
+        assert layers[-2].weight.shape[0] == 20
 
 
 def test_synthetic_samples_are_jax_draws():

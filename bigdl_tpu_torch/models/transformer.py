@@ -52,15 +52,16 @@ default).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from bigdl_tpu_torch.nn.activations import LogSoftMax
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
-from bigdl_tpu_torch.nn.containers import Container, Sequential
+from bigdl_tpu_torch.nn.containers import Container, Remat, Sequential
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.misc import LookupTable
 from bigdl_tpu_torch.nn.module import AbstractModule, new_param
@@ -101,19 +102,33 @@ class LayerNorm(AbstractModule):
 
 class PositionEmbedding(AbstractModule):
     """Learned absolute positions added to the token embeddings
-    (``transformer.py:53``; sequence parallelism waits)."""
+    (``transformer.py:53``). With ``sp_axis`` the input is this rank's
+    sequence shard of a mesh axis, and its positions start at ``index *
+    T_local`` so they stay global (ring attention's causal offsets count
+    the same way)."""
 
-    def __init__(self, max_len: int, hidden_size: int, device=None,
+    def __init__(self, max_len: int, hidden_size: int,
+                 sp_axis: Optional[str] = None, device=None,
                  generator: torch.Generator = None) -> None:
         super().__init__()
         self.max_len = max_len
         self.hidden_size = hidden_size
+        self.sp_axis = sp_axis
         self.pos = new_param((max_len, hidden_size), device,
                              lambda t: t.normal_(std=0.02,
                                                  generator=generator))
 
     def forward(self, x):
-        return x + self.pos[:x.shape[1]]
+        T = x.shape[1]
+        if self.sp_axis is None:
+            return x + self.pos[:T]
+        from bigdl_tpu_torch.parallel.axis import axis
+
+        ax = axis(self.sp_axis)
+        if ax.size * T > self.max_len:
+            raise ValueError(f"global sequence {ax.size * T} exceeds max_len "
+                             f"{self.max_len}")
+        return x + self.pos[ax.index * T:(ax.index + 1) * T]
 
 
 class TransformerBlock(Container):
@@ -122,12 +137,16 @@ class TransformerBlock(Container):
     fc1, fc2."""
 
     def __init__(self, hidden_size: int, n_heads: int, mlp_ratio: int = 4,
-                 causal: bool = True, use_flash: str = "auto", device=None,
+                 causal: bool = True, sequence_parallel: Optional[str] = None,
+                 sp_axis: str = "seq", use_flash: str = "auto",
+                 flash_block: Optional[int] = None, device=None,
                  generator: torch.Generator = None) -> None:
         super().__init__()
         self.add(LayerNorm(hidden_size, device=device))
         self.add(MultiHeadAttention(hidden_size, n_heads, causal=causal,
-                                    use_flash=use_flash, device=device,
+                                    sequence_parallel=sequence_parallel,
+                                    sp_axis=sp_axis, use_flash=use_flash,
+                                    flash_block=flash_block, device=device,
                                     generator=generator))
         self.add(LayerNorm(hidden_size, device=device))
         self.add(Linear(hidden_size, mlp_ratio * hidden_size,
@@ -147,23 +166,99 @@ class TransformerBlock(Container):
         return x + self.fc2(gelu(self.fc1(self.ln2(x))))
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class ScanBlocks(Container):
+    """``n_layers`` applications of one block over stacked parameters
+    (``transformer.py:123``, JAX's ``lax.scan``): the template block's
+    every parameter has a leading ``(n_layers,)`` axis, under JAX's child
+    key, and layer i runs the template through
+    ``torch.func.functional_call`` on slice i of each.
+
+    ``layers`` (modules shaped like ``block``, one per layer) gives the
+    per-layer values to stack; :func:`TransformerLM` draws them in the
+    unrolled stack's generator order, so a ``layer_scan`` model holds the
+    unrolled model's weights of the same seed, stacked. Without
+    ``layers`` every layer starts at the template's values."""
+
+    def __init__(self, block: AbstractModule, n_layers: int,
+                 layers=None) -> None:
+        super().__init__()
+        if n_layers <= 0:
+            raise ValueError(f"n_layers must be positive, got {n_layers}")
+        self.n_layers = int(n_layers)
+        layers = list(layers) if layers is not None else [block] * n_layers
+        if len(layers) != self.n_layers:
+            raise ValueError(f"{len(layers)} layers for n_layers "
+                             f"{self.n_layers}")
+        per_layer = [list(m.parameters()) for m in layers]
+        with torch.no_grad():
+            for j, (name, _) in enumerate(list(block.named_parameters())):
+                owner, _, leaf = name.rpartition(".")
+                mod = block.get_submodule(owner) if owner else block
+                setattr(mod, leaf, torch.nn.Parameter(torch.stack(
+                    [ps[j].detach() for ps in per_layer])))
+        self.add(block)
+
+    def unstacked_params(self, params: Optional[Dict] = None):
+        """Per-layer views of a stacked params tree (this module's tree
+        when ``params`` is None): the inverse of the stacking."""
+        if params is None:
+            params = _params_tree(self)
+        stacked = params[self._child_key(0)]
+        return [_tree_map(lambda a, i=i: a[i], stacked)
+                for i in range(self.n_layers)]
+
+    def forward(self, x):
+        block = self[0]
+        stacked = list(block.named_parameters())
+        buffers = dict(block.named_buffers())
+        for i in range(self.n_layers):
+            x = functional_call(
+                block, {**{k: t[i] for k, t in stacked}, **buffers}, (x,))
+        return x
+
+
 def TransformerLM(vocab_size: int, hidden_size: int = 256, n_heads: int = 8,
                   n_layers: int = 4, max_len: int = 1024,
                   mlp_ratio: int = 4, causal: bool = True,
-                  output: str = "logprobs", use_flash: str = "auto",
+                  remat: bool = False,
+                  sequence_parallel: Optional[str] = None,
+                  sp_axis: str = "seq",
+                  output: str = "logprobs",
+                  embed_grad_matmul: bool = False,
+                  use_flash: str = "auto",
+                  flash_block: Optional[int] = None,
+                  layer_scan: bool = False,
                   device=None, seed: int = 0) -> Sequential:
     """GPT-style decoder LM over 1-based token ids ``(B, T)`` →
-    per-position log-probs ``(B, T, vocab)`` (``transformer.py:181``;
-    remat, sequence parallelism and ``layer_scan`` wait).
+    per-position log-probs ``(B, T, vocab)`` (``transformer.py:181``).
 
     ``use_flash`` goes to every block's attention (``"auto"``: the flash
     kernels on the card, dense attention on the CPU; see
-    :class:`bigdl_tpu_torch.nn.attention.MultiHeadAttention`). The
-    serving steps compute attention themselves and do not read it.
+    :class:`bigdl_tpu_torch.nn.attention.MultiHeadAttention`), and so do
+    ``sequence_parallel`` / ``sp_axis`` (the input is then this rank's
+    sequence shard of the mesh axis ``sp_axis``, and the positions
+    offset by its index) and ``flash_block`` (the TPU tile length:
+    validated, stored, no effect on the card). The serving steps compute
+    attention themselves and read none of these.
+
+    ``remat=True`` wraps each block in :class:`~bigdl_tpu_torch.nn.
+    containers.Remat` (activations recomputed in the backward);
+    ``layer_scan=True`` applies one template block over stacked
+    per-layer parameters (:class:`ScanBlocks`); both compose, as in JAX
+    (``ScanBlocks(Remat(block))``). ``embed_grad_matmul`` computes the
+    token embedding's gradient as a one-hot product
+    (``LookupTable(grad_via_matmul=True)``).
 
     Weights are f32, made on ``device`` (default ``cuda``; raises without
     a card unless ``device="cpu"``) from a ``torch.Generator`` seeded
-    with ``seed``, with the reference's init distributions."""
+    with ``seed``, with the reference's init distributions, in one draw
+    order whatever the knobs: the same seed gives the same weights."""
     if output not in ("logprobs", "logits"):
         raise ValueError(f"unknown output {output!r}")
     if use_flash not in ("auto", "always", "never"):
@@ -172,18 +267,86 @@ def TransformerLM(vocab_size: int, hidden_size: int = 256, n_heads: int = 8,
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     model = Sequential()
     model.add(LookupTable(vocab_size, hidden_size, device=dev,
-                          generator=gen))
-    model.add(PositionEmbedding(max_len, hidden_size, device=dev,
-                                generator=gen))
-    for _ in range(n_layers):
-        model.add(TransformerBlock(hidden_size, n_heads, mlp_ratio, causal,
-                                   use_flash=use_flash, device=dev,
-                                   generator=gen))
+                          generator=gen, grad_via_matmul=embed_grad_matmul))
+    model.add(PositionEmbedding(
+        max_len, hidden_size, sp_axis=sp_axis if sequence_parallel else None,
+        device=dev, generator=gen))
+
+    def make_block():
+        return TransformerBlock(hidden_size, n_heads, mlp_ratio, causal,
+                                sequence_parallel, sp_axis,
+                                use_flash=use_flash, flash_block=flash_block,
+                                device=dev, generator=gen)
+
+    blocks = [make_block() for _ in range(n_layers)]
+    if layer_scan:
+        tmpl = blocks[0]
+        model.add(ScanBlocks(Remat(tmpl) if remat else tmpl, n_layers,
+                             layers=blocks))
+    else:
+        for block in blocks:
+            model.add(Remat(block) if remat else block)
     model.add(LayerNorm(hidden_size, device=dev))
     model.add(Linear(hidden_size, vocab_size, device=dev, generator=gen))
     if output == "logprobs":
         model.add(LogSoftMax())
     return model
+
+
+def train_main(argv=None):
+    """Train a TransformerLM on a synthetic (or ``-f`` text) corpus
+    (``transformer.py:262``): the JAX main's corpus, model and
+    ``TimeDistributedCriterion(ClassNLLCriterion())`` with Adam, through
+    the shared ``run_training``. Returns the trained model."""
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.models.utils import run_training, train_parser
+    from bigdl_tpu_torch.nn.criterion import (
+        ClassNLLCriterion, TimeDistributedCriterion,
+    )
+    from bigdl_tpu_torch.optim.optim_method import Adam
+
+    p = train_parser("Transformer language model", batch_size=16,
+                     learning_rate=3e-3, max_epoch=2)
+    p.add_argument("--vocab", type=int, default=100)
+    p.add_argument("--seqLen", type=int, default=32)
+    p.add_argument("--hidden", type=int, default=64)
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--remat", action="store_true")
+    args = p.parse_args(argv)
+
+    rng = np.random.default_rng(0)
+    samples = []
+    if args.folder:
+        from bigdl_tpu_torch.dataset.text import (
+            Dictionary, SequenceWindower, simple_tokenize,
+        )
+
+        with open(args.folder) as f:
+            tokens = simple_tokenize(f.read())
+        d = Dictionary([tokens])
+        vocab = d.vocab_size()
+        ids = [d.get_index(t) + 1 for t in tokens]
+        for ls in SequenceWindower(args.seqLen)(iter([ids])):
+            samples.append(Sample(np.asarray(ls.data, np.float32),
+                                  np.asarray(ls.labels, np.float32)))
+        if not samples:
+            raise ValueError(f"{args.folder}: corpus shorter than --seqLen")
+    else:
+        vocab = args.vocab
+        for _ in range(args.synthetic):
+            toks = [int(rng.integers(1, vocab + 1))]
+            for _ in range(args.seqLen):
+                toks.append(1 + (toks[-1] + int(rng.integers(0, 3))) % vocab)
+            arr = np.asarray(toks, np.float32)
+            samples.append(Sample(arr[:-1], arr[1:]))
+
+    model = TransformerLM(vocab, hidden_size=args.hidden, n_heads=args.heads,
+                          n_layers=args.layers, max_len=args.seqLen,
+                          remat=args.remat, device=args.device)
+    crit = TimeDistributedCriterion(ClassNLLCriterion())
+    return run_training(model, samples, crit, args,
+                        optim_method=Adam(learning_rate=args.learningRate))
 
 
 # -- carrying JAX weights across -------------------------------------------
@@ -236,13 +399,36 @@ def _decode_head_offset(model: Sequential) -> int:
     return 1 if isinstance(model[len(model) - 1], LogSoftMax) else 0
 
 
+def _layer_views(model: Sequential, Pt: Dict):
+    """``[(block module, block params)]`` per layer from a params tree
+    (``:355-383``): a ``Remat`` is unwrapped to its child, a
+    ``ScanBlocks`` unstacked into per-layer slices of its tree."""
+    keys = list(model._modules)
+    out = []
+    for i, m in enumerate(model.layers()):
+        inner, bp = m, Pt[keys[i]]
+        if isinstance(inner, Remat):
+            inner, bp = inner[0], bp[inner._child_key(0)]
+        if isinstance(inner, ScanBlocks):
+            tmpl = inner[0]
+            for lp in inner.unstacked_params(bp):
+                t2, p2 = tmpl, lp
+                if isinstance(t2, Remat):
+                    t2, p2 = t2[0], p2[t2._child_key(0)]
+                out.append((t2, p2))
+            continue
+        if isinstance(inner, TransformerBlock):
+            out.append((inner, bp))
+    return out
+
+
 def _resolve_decode_views(model: Sequential, off: int, Pt: Dict):
     """``(lookup_w, pos_w, [(block, block_params)], lnf_p, lin_p)`` from
-    a serving params tree."""
+    a serving params tree; ``layer_scan`` and ``remat`` models resolve to
+    per-layer views like the unrolled stack's."""
     keys = list(model._modules)
-    blocks = [(m, Pt[keys[i]]) for i, m in enumerate(model.layers())
-              if isinstance(m, TransformerBlock)]
-    return (Pt[keys[0]]["weight"], Pt[keys[1]]["pos"], blocks,
+    return (Pt[keys[0]]["weight"], Pt[keys[1]]["pos"],
+            _layer_views(model, Pt),
             Pt[keys[len(keys) - 2 - off]], Pt[keys[len(keys) - 1 - off]])
 
 
@@ -369,7 +555,7 @@ def _model_geometry(model: Sequential):
     mods = model.layers()
     if not isinstance(mods[0], LookupTable):
         raise TypeError("expected a TransformerLM-shaped model")
-    blocks = [m for m in mods if isinstance(m, TransformerBlock)]
+    blocks = [blk for blk, _ in _layer_views(model, _params_tree(model))]
     attn = blocks[0].attn
     off = _decode_head_offset(model)
     return dict(max_len=mods[1].max_len, vocab=mods[0].n_index, off=off,
@@ -1177,3 +1363,7 @@ def beam_generate(model: Sequential, prompt_ids, beam_size: int = 4,
             alpha=alpha, padding_value=-1)
     return (seqs[0].cpu().numpy().astype(np.int32) + 1,
             scores[0].cpu().numpy())
+
+
+if __name__ == "__main__":
+    train_main()

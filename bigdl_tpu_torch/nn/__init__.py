@@ -4,7 +4,7 @@ from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU, Tanh
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch, beam_search
 from bigdl_tpu_torch.nn.containers import (
-    Concat, ConcatTable, Container, Sequential,
+    Concat, ConcatTable, Container, Remat, Sequential,
 )
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.criterion import (
@@ -32,7 +32,7 @@ from bigdl_tpu_torch.nn.shape_ops import (
 )
 
 __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
-           "Sequential", "Concat", "ConcatTable", "Graph", "Input",
+           "Sequential", "Concat", "ConcatTable", "Remat", "Graph", "Input",
            "ModuleNode", "Linear", "LookupTable", "Dropout", "LogSoftMax",
            "ReLU", "Tanh", "MultiHeadAttention", "SpatialConvolution",
            "BatchNormalization", "SpatialBatchNormalization",

@@ -1,6 +1,6 @@
-"""Containers — ``Container``, ``Sequential``, ``Concat`` and
-``ConcatTable`` (``bigdl_tpu/nn/containers.py:21``, ``:61``, ``:82``,
-``:108``).
+"""Containers — ``Container``, ``Sequential``, ``Concat``,
+``ConcatTable`` and ``Remat`` (``bigdl_tpu/nn/containers.py:21``,
+``:61``, ``:82``, ``:108``, ``:195``).
 
 Children are registered under ``f"{i}:{child.name}"`` exactly as the
 JAX container keys its params tree (``containers.py:33``), so the two
@@ -14,11 +14,14 @@ later rename).
 
 from __future__ import annotations
 
+import contextlib
 from typing import List
 
 import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
-from bigdl_tpu_torch.nn.module import AbstractModule
+from bigdl_tpu_torch.nn.module import AbstractModule, current_rng, use_rng
 
 
 class Container(AbstractModule):
@@ -71,3 +74,45 @@ class ConcatTable(Container):
 
     def forward(self, x):
         return [m(x) for m in self._modules.values()]
+
+
+class Remat(Container):
+    """Gradient checkpointing (``containers.py:195``): the child's
+    activations are not kept for the backward pass but recomputed, through
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``. The child
+    sits under JAX's child key, so a JAX params tree loads unchanged.
+
+    The child runs through ``functional_call`` on the tensors its
+    parameters and buffers hold when the forward runs, and the recompute
+    is handed the same tensors, so it differentiates the weights a train
+    step's own ``functional_call`` swapped in. A generator made current by
+    :func:`~bigdl_tpu_torch.nn.module.use_rng` is current in the recompute
+    too, rewound to its state at the forward, so a dropout mask is drawn
+    again bit for bit. A child's running statistics (BatchNorm) would be
+    updated again by the recompute; the transformer blocks have none."""
+
+    def __init__(self, module: AbstractModule) -> None:
+        super().__init__()
+        self.add(module)
+
+    def forward(self, x):
+        child = self[0]
+        named = list(child.named_parameters()) + list(child.named_buffers())
+        names = [n for n, _ in named]
+        gen = current_rng()
+        gen_state = None if gen is None else gen.get_state()
+        calls = [0]
+
+        def run(inp, *tensors):
+            calls[0] += 1
+            with contextlib.ExitStack() as stack:
+                if gen is not None and calls[0] > 1:   # the recompute
+                    now = gen.get_state()
+                    gen.set_state(gen_state)
+                    stack.callback(gen.set_state, now)
+                stack.enter_context(use_rng(gen))
+                return functional_call(child, dict(zip(names, tensors)),
+                                       (inp,))
+
+        return checkpoint(run, x, *[t for _, t in named],
+                          use_reentrant=False)

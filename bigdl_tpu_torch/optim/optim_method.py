@@ -24,9 +24,16 @@ constant as a multiply; the rate it applies can then differ from the
 op-by-op value, and from the port's, by an ulp.) ``Plateau`` reads the
 scale that ``record_score`` (fed by validation) last set.
 
-Not ported yet (they raise ``NotImplementedError``): Adam's bf16 slot
-storage (``state_dtype``) and stochastic rounding; the other methods
-are not ported either.
+``Adam(state_dtype="bf16")`` stores its slots in bf16 and
+``Adam(stochastic_rounding=True)`` writes bf16 parameters back through
+:func:`stochastic_round`, whose noise comes from a ``torch.Generator``
+seeded from ``neval + 1`` (Philox on the card), one draw over the bf16
+leaves laid end to end, so a leaf's bits are fixed by the step and its
+place in the parameter order. JAX draws
+its noise with threefry, so the two packages round the same value with
+other bits; the rounding given the bits is :func:`_round_with_noise`,
+bitwise JAX's. The other OptimMethods (Adadelta, Adamax, RMSprop, Ftrl,
+LarsSGD, L-BFGS) are not ported.
 """
 
 from __future__ import annotations
@@ -267,10 +274,72 @@ class SGD(OptimMethod):
         return params, new_state
 
 
+def _round_with_noise(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """f32 → bf16 by adding ``noise`` (integers in [0, 2^16), one per
+    element) to the f32 bit pattern below the kept mantissa and truncating
+    with ``0xFFFF0000`` (``optim_method.py:323``); non-finite values take
+    the deterministic cast. Bitwise JAX's ``stochastic_round`` given the
+    same noise bits."""
+    xf = x.float()
+    finite = torch.isfinite(xf)
+    # finite values only: a NaN or inf pattern plus noise could overflow
+    # the signed add (their result is replaced below anyway)
+    bits = torch.where(finite, xf, 0.0).view(torch.int32)
+    kept = (bits + noise.to(torch.int32)) & -65536     # & 0xFFFF0000
+    return torch.where(finite, kept.view(torch.float32), xf).to(
+        torch.bfloat16)
+
+
+def stochastic_round(x: torch.Tensor, dtype=torch.bfloat16,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Unbiased f32 → bf16 cast (``optim_method.py:302``): uniform 16-bit
+    noise below the kept mantissa, then truncation, so ``E[result] = x``;
+    non-finite values pass through the deterministic cast. The noise is
+    drawn from ``generator`` (a ``torch.Generator`` on ``x``'s device; JAX
+    takes a PRNG key here)."""
+    if dtype not in (torch.bfloat16, "bf16", "bfloat16"):
+        raise ValueError("stochastic_round targets bfloat16 storage")
+    noise = torch.randint(0, 1 << 16, x.shape, generator=generator,
+                          device=x.device, dtype=torch.int32)
+    return _round_with_noise(x, noise)
+
+
+def rounding_generator(device, neval_plus_1: int) -> torch.Generator:
+    """The generator of the rounding noise of update ``t = neval + 1``:
+    seeded from ``t``, as JAX folds ``t`` into its key, so an update is a
+    pure function of (grads, state, params)."""
+    seed = int(np.random.SeedSequence([int(neval_plus_1)])
+               .generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _write_rounded(dsts, vals, neval_plus_1: int) -> None:
+    """Writes each f32 ``vals[i]`` into the bf16 ``dsts[i]`` through
+    :func:`stochastic_round`, all leaves in one pass: one draw of the
+    update's generator covers the leaves laid end to end (JAX folds each
+    leaf's index into the key instead), so a leaf's noise is fixed by
+    ``neval + 1`` and its place in the order."""
+    flat = torch.cat([v.reshape(-1) for v in vals])
+    out = stochastic_round(flat, torch.bfloat16,
+                           rounding_generator(flat.device, neval_plus_1))
+    for dst, part in zip(dsts, out.split([d.numel() for d in dsts])):
+        dst.copy_(part.view_as(dst))
+
+
 class Adam(OptimMethod):
     """Torch-convention Adam, the JAX update order (``:373-416``): f32
     slot math, ``bc1``/``bc2`` from ``neval + 1``, ``clr = lr / (1 +
-    neval * decay)``, then ``p - clr * (m / bc1) / (sqrt(v / bc2) + eps)``."""
+    neval * decay)``, then ``p - clr * (m / bc1) / (sqrt(v / bc2) + eps)``.
+
+    ``state_dtype="bf16"`` stores the m/v slots in bf16; the slot math
+    still runs in f32 (cast in, cast out), and the step reads the f32
+    slots before they are rounded, as in JAX. Parameters of any float
+    dtype are updated in f32 and written back in their own dtype; with
+    ``stochastic_rounding=True`` a bf16 parameter is written back through
+    :func:`stochastic_round` (f32 parameters ignore it). Slots of a bf16
+    parameter are bf16 whatever ``state_dtype`` says (JAX's slots take
+    the leaf's dtype)."""
 
     def __init__(self, learning_rate: float = 1e-3,
                  learning_rate_decay: float = 0.0, beta1: float = 0.9,
@@ -278,57 +347,87 @@ class Adam(OptimMethod):
                  state_dtype: Optional[str] = None,
                  stochastic_rounding: bool = False) -> None:
         super().__init__()
-        if state_dtype is not None:
-            raise NotImplementedError(
-                "Adam(state_dtype=...) (bf16 slots) is not ported yet")
-        if stochastic_rounding:
-            raise NotImplementedError(
-                "Adam(stochastic_rounding=True) (bf16 masters) is not ported "
-                "yet")
+        if state_dtype not in (None, "bf16", "bfloat16"):
+            raise ValueError(
+                f"state_dtype must be None or 'bf16', got {state_dtype!r}")
         self.learning_rate = learning_rate
         self.learning_rate_decay = learning_rate_decay
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
+        self.state_dtype = state_dtype
+        self.stochastic_rounding = bool(stochastic_rounding)
+
+    def _slot_dtype(self, leaf_dtype):
+        return torch.bfloat16 if self.state_dtype else leaf_dtype
 
     def init_state(self, params: Tensors) -> Dict:
-        return {"neval": 0,
-                "m": {k: torch.zeros_like(p) for k, p in params.items()},
-                "v": {k: torch.zeros_like(p) for k, p in params.items()}}
+        def zeros(p):
+            return torch.zeros_like(p, dtype=self._slot_dtype(p.dtype))
 
-    @torch.no_grad()
-    def update(self, grads, state, params):
-        for k, p in params.items():
-            if p.dtype != torch.float32:
-                raise NotImplementedError(
-                    f"Adam on {p.dtype} params ({k}) is not ported yet: the "
-                    "masters are f32")
-        names = list(params)
-        p = [params[k] for k in names]
-        g = [grads[k].float() for k in names]
-        m = [state["m"][k] for k in names]
-        v = [state["v"][k] for k in names]
-        neval = state["neval"]
+        return {"neval": 0,
+                "m": {k: zeros(p) for k, p in params.items()},
+                "v": {k: zeros(p) for k, p in params.items()}}
+
+    def _scalars(self, neval: int):
         t = np.float32(neval + 1)
         clr = _f32(np.float32(self.learning_rate) / (
             np.float32(1.0) + np.float32(neval)
             * np.float32(self.learning_rate_decay)))
         bc1 = _f32(np.float32(1.0) - np.float32(self.beta1) ** t)
         bc2 = _f32(np.float32(1.0) - np.float32(self.beta2) ** t)
-        # m = b1 * m + (1 - b1) * g;  v = b2 * v + (1 - b2) * g^2
+        return clr, bc1, bc2
+
+    def _moments(self, m, v, g):
+        """m = b1 * m + (1 - b1) * g;  v = b2 * v + (1 - b2) * g^2, in
+        place on the f32 lists."""
         torch._foreach_mul_(m, self.beta1)
         torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - self.beta1))
         torch._foreach_mul_(v, self.beta2)
         torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g),
                                                   1.0 - self.beta2))
-        # p - clr * (m / bc1) / (sqrt(v / bc2) + eps)
+
+    def _step(self, m, v, clr, bc1, bc2):
+        """``clr * (m / bc1) / (sqrt(v / bc2) + eps)`` per leaf."""
         num = torch._foreach_div(m, bc1)
         torch._foreach_mul_(num, clr)
         den = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.epsilon)
         torch._foreach_div_(num, den)
-        torch._foreach_sub_(p, num)
+        return num
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k].float() for k in names]
+        m = [state["m"][k] for k in names]
+        v = [state["v"][k] for k in names]
+        neval = state["neval"]
+        clr, bc1, bc2 = self._scalars(neval)
+        plain = all(t.dtype == torch.float32 for t in p + m + v)
+        if plain:
+            # f32 masters and slots: everything in place
+            self._moments(m, v, g)
+            torch._foreach_sub_(p, self._step(m, v, clr, bc1, bc2))
+            return params, {"neval": neval + 1, "m": state["m"],
+                            "v": state["v"]}
+        m32 = [t.float() for t in m]
+        v32 = [t.float() for t in v]
+        self._moments(m32, v32, g)
+        new32 = torch._foreach_sub([t.float() for t in p],
+                                   self._step(m32, v32, clr, bc1, bc2))
+        sr = [self.stochastic_rounding and dst.dtype == torch.bfloat16
+              for dst in p]
+        if any(sr):
+            _write_rounded([d for d, r in zip(p, sr) if r],
+                           [v for v, r in zip(new32, sr) if r], neval + 1)
+        for dst, val, r in zip(p, new32, sr):
+            if not r:
+                dst.copy_(val)
+        for dst, val in zip(m + v, m32 + v32):
+            dst.copy_(val)
         return params, {"neval": neval + 1, "m": state["m"],
                         "v": state["v"]}
 

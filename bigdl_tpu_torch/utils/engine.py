@@ -21,11 +21,16 @@ count becomes the ``torch.distributed`` world size and a JAX mesh axis a
   ``BIGDL_*`` environment variables or the live group.
 * :meth:`Engine.mesh` returns a ``DeviceMesh`` over the world with the
   given dimension names (``("data",)`` by default); it raises when no
-  process group is up.
+  process group is up. :meth:`Engine.hybrid_mesh` builds the two-level
+  mesh, a leading ``dcn`` dimension over slices and the ICI dimensions
+  inside each. The last mesh either built is ``Engine.current_mesh()``:
+  the mesh whose dimensions the parallel planes' axis names
+  (``sp_axis``, ``"model"``, ``"pipe"``, ``"expert"``) resolve against
+  (:mod:`bigdl_tpu_torch.parallel.axis`), where JAX binds them with a
+  ``shard_map``.
 
-Not ported: ``hybrid_mesh`` (multi-slice meshes, with tensor and pipeline
-parallelism: ROADMAP.md A.8) and ``default_pool`` (the host thread pool,
-``utils/thread_pool.py``: A.7); both raise.
+Not ported: ``default_pool`` (the host thread pool,
+``utils/thread_pool.py``: A.7); it raises.
 """
 
 from __future__ import annotations
@@ -62,6 +67,19 @@ def _dist():
     return dist
 
 
+def _prod(sizes) -> int:
+    out = 1
+    for v in sizes:
+        out *= int(v)
+    return out
+
+
+def _check_devices(devices) -> None:
+    if devices is not None:
+        raise ValueError("the port's meshes cover every process of the "
+                         "group, one device each: devices must be None")
+
+
 def world_and_rank():
     """(world size, rank) of the default process group; (1, 0) without
     one."""
@@ -91,6 +109,7 @@ class _EngineSingleton:
         self._engine_type = EngineType.TPU
         self._local_mode = True
         self._seed: Optional[int] = None
+        self._mesh = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -193,6 +212,7 @@ class _EngineSingleton:
         if self._distributed_initialized and dist.is_initialized():
             dist.destroy_process_group()
         self._distributed_initialized = False
+        self._mesh = None
         self.reset()
 
     def reset(self) -> None:
@@ -233,11 +253,7 @@ class _EngineSingleton:
             return [torch.device("cuda", torch.cuda.current_device())]
         return [torch.device("cpu")]
 
-    def mesh(self, axis_names: Sequence[str] = ("data",),
-             axis_sizes: Optional[Sequence[int]] = None):
-        """A ``DeviceMesh`` over every process, one device each: the
-        default is 1-D data parallelism over the world. The process group
-        must be up (:meth:`init_distributed`)."""
+    def _device_mesh(self, shape, names):
         from torch.distributed.device_mesh import init_device_mesh
 
         if not _dist().is_initialized():
@@ -245,20 +261,56 @@ class _EngineSingleton:
                 "Engine.mesh() needs a process group: call "
                 "Engine.init_distributed() first (one process needs no "
                 "rendezvous)")
-        device_type = group_device_type()
+        self._mesh = init_device_mesh(group_device_type(), tuple(shape),
+                                      mesh_dim_names=tuple(names))
+        return self._mesh
+
+    def mesh(self, axis_names: Sequence[str] = ("data",),
+             axis_sizes: Optional[Sequence[int]] = None, devices=None):
+        """A ``DeviceMesh`` over every process, one device each: the
+        default is 1-D data parallelism over the world. The process group
+        must be up (:meth:`init_distributed`). ``devices`` must be
+        ``None``, as for :meth:`hybrid_mesh`."""
+        _check_devices(devices)
         n = world_and_rank()[0]
         if axis_sizes is None:
             axis_sizes = [n] + [1] * (len(axis_names) - 1)
-        if int(torch.tensor(list(axis_sizes)).prod()) != n:
+        if _prod(axis_sizes) != n:
             raise ValueError(
                 f"axis_sizes {tuple(axis_sizes)} do not cover {n} devices")
-        return init_device_mesh(device_type, tuple(axis_sizes),
-                                mesh_dim_names=tuple(axis_names))
+        return self._device_mesh(axis_sizes, axis_names)
 
-    def hybrid_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Engine.hybrid_mesh (multi-slice meshes for tensor and pipeline "
-            "parallelism) is not ported yet: ROADMAP.md A.8")
+    def hybrid_mesh(self, ici_axis_names: Sequence[str] = ("data",),
+                    ici_axis_sizes: Optional[Sequence[int]] = None,
+                    dcn_axis_name: str = "dcn",
+                    num_slices: Optional[int] = None, devices=None):
+        """The two-level mesh (``engine.py:239``): a leading
+        ``dcn_axis_name`` dimension across slices and ``ici_axis_names``
+        inside each. ``num_slices`` partitions the flat rank list into
+        that many consecutive slices, as JAX's CPU simulation does; by
+        default there is one slice (the card machines expose no slice
+        index). ``devices`` is accepted and must be ``None``: the mesh
+        covers every process of the group, one device each."""
+        _check_devices(devices)
+        n = world_and_rank()[0]
+        num_slices = 1 if num_slices is None else int(num_slices)
+        if num_slices < 1 or n % num_slices:
+            raise ValueError(
+                f"{n} devices do not split into {num_slices} slices")
+        per_slice = n // num_slices
+        if ici_axis_sizes is None:
+            ici_axis_sizes = [per_slice] + [1] * (len(ici_axis_names) - 1)
+        if _prod(ici_axis_sizes) != per_slice:
+            raise ValueError(
+                f"ici_axis_sizes {tuple(ici_axis_sizes)} do not cover the "
+                f"{per_slice} devices of one slice")
+        return self._device_mesh([num_slices] + list(ici_axis_sizes),
+                                 (dcn_axis_name, *ici_axis_names))
+
+    def current_mesh(self):
+        """The mesh :meth:`mesh` or :meth:`hybrid_mesh` built last (``None``
+        before either, and after :meth:`shutdown`)."""
+        return self._mesh
 
     def default_pool(self):
         raise NotImplementedError(

@@ -149,6 +149,45 @@ any failure raises, so the exit code is non-zero and no result prints:
               ``MaskedSoftmaxCECriterion(0)``, ``Adam(1e-4)``, bf16 compute,
               batch 8, 2 warm + 5 timed steps on one seeded batch: step ms
               p50, tokens/s, MFU, peak memory, first and last loss;
+15a. lm_knobs — the same recipe through ``make_train_step``: three f32
+              steps from one seed of ``remat``, ``layer_scan``, both, and
+              ``embed_grad_matmul`` against the unrolled run (parameters
+              within 1e-5 or the spread of two unrolled runs, the first
+              step's gradients per leaf within 1e-5 of the leaf's largest,
+              losses 1e-5 relative); then bf16 compute on one batch repeated (2 warm
+              + 3 timed steps) for the plain run, ``remat``, ``layer_scan``,
+              bf16 Adam slots and bf16 parameters without and with
+              stochastic rounding (the difference of their p50s its cost):
+              step p50, peak memory, optimizer-state bytes, flash launches
+              (12 per step of each kernel, the forward twice under remat);
+              remat's peak below the plain run's, the bf16 slots half the
+              f32 slots' bytes, the bf16-parameter loss falling;
+15b. lm_main — ``models.transformer.train_main`` at that width through
+              argv (``--synthetic 64 --maxIteration 6 --computeDtype
+              bf16``), plain and ``--remat``: step p50, peak, losses;
+15c. seq_parallel — on a one-rank NCCL group (``Engine.mesh(("seq",))``)
+              the LM with ``sequence_parallel`` ring, striped_ring and
+              ulysses, three bf16 steps bitwise the LM without it (same
+              seed and batches): losses, parameters, step p50, flash
+              launches per step;
+15d. ring_replay — the ring's 4-rank schedule on one card at the LM's
+              attention shape (B 8, T 2048, 512 per rank, 12 heads, D 64,
+              bf16): contiguous causal, striped causal and non-causal,
+              each rank's blocks (``ring_step_spec``), each held against
+              the plain version on its inputs, merged by ``merge_block``
+              against ``flash_attention_with_lse`` over the whole
+              sequence, and the summed block grads against
+              ``flash_attention_block_grads`` over it and against the
+              plain block grads summed in the ring's order, every row
+              within ``ROW_RTOL`` (``RING_REPLAY_TOL``); the block
+              variants (offset 0, offset -1, non-causal at Tq = Tk = 512)
+              against the plain version: kernel, plain and masked-SDPA
+              times, bound, row errors;
+15e. parallel_ext — on a one-rank NCCL group: ``moe_layer`` (d 768, 8
+              experts, top-2, capacity factor 1.25, 16,384 tokens,
+              ``mlp_expert`` at 3072) against a dense per-expert loop in
+              f32 and its time; ``gpipe`` over one stage and ``tp_mlp``
+              over one rank, bitwise their plain functions;
 16. fused_conv — the fused BN → ReLU → 1×1-conv forward, dgrad and wgrad
               kernels against their plain versions: the stage-1 block join
               (M 802,816, C 256, K 64, residual, y and extra dy, bf16), the
@@ -5117,6 +5156,651 @@ def distri_pod_phase():
                              "from the uninterrupted run's")
 
 
+# -- the transformer LM's knobs and main, sequence parallelism, the parallel planes
+
+#: the 137M LM recipe of ``train_phase`` (``benchmarks/llm_mfu_bench.py``)
+LM137 = dict(V=32768, hidden=768, layers=12, heads=12, T=2048, B=8)
+#: f32 parameters of a knob run against the unrolled run after 3 steps:
+#: 1e-5 absolute, or the spread of two unrolled runs if that is larger
+#: (cuBLAS and the kernels sum in a fixed order, so the spread is 0 unless
+#: an op reduces with atomics); losses within 1e-5 relative. Adam's step
+#: normalises the gradient, so the parameters cannot show a gradient off
+#: by a constant factor: the first step's gradients are held too, each
+#: leaf's largest error within 1e-5 of its largest gradient, or of a
+#: hundredth of the model's largest where the leaf's is smaller (the key
+#: bias's gradient is zero in exact arithmetic, rounding noise in f32), or
+#: within the two unrolled runs' spread by that measure if it is larger
+LM_KNOB_TOL = {"param_abs": 1e-5, "loss_rel": 1e-5, "grad_rel": 1e-5,
+               "grad_floor": 1e-2}
+#: ``ring_replay``: every row within the kernels' own bf16 tolerance
+#: against their plain versions (``ROW_RTOL``, a few bf16 ulps of the row's
+#: scale). Each block the schedule runs: against the plain version on the
+#: same inputs, as the kernel phase holds them. The merged forward: against
+#: the whole-sequence kernel, each row relative to its largest value (the
+#: ring rounds each block's O to bf16 before the merge, the kernel once).
+#: The summed backward: against the whole-sequence kernel on the ring's
+#: own merged O and LSE, each row relative to its largest value (on the
+#: whole-sequence forward's O, delta = dO.O differs by O's bf16 ulps: 24%
+#: of an early striped row, measured on an H100); and against the plain
+#: block grads rounded to bf16 and summed in the ring's order, each row
+#: relative to the larger of its largest value and the largest partial
+#: summed into it (``summed_row_rel_err``: the ring rounds every partial
+#: to bf16 before the sum, the kernel's and the plain version's apart).
+#: LSEs: the merged within 1e-3 absolute of the whole-sequence kernel's,
+#: each block's within 1e-4 of the plain version's (the kernel phase's)
+RING_REPLAY_TOL = {"lse_abs": 1e-3, "block_lse_abs": 1e-4}
+
+
+def flash_counts():
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+            "dkv": fa.dkv_launches}
+
+
+def zero_flash_counts():
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+def lm_batches(n: int, seed: int):
+    """``n`` seeded (ids int32, targets f32) batches of the 137M recipe on
+    the card (targets 1..V, none masked)."""
+    import torch
+
+    V, T, B = LM137["V"], LM137["T"], LM137["B"]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.integers(1, V + 1, size=(B, T)).astype(np.int32)
+        y = rng.integers(1, V + 1, size=(B, T)).astype(np.float32)
+        out.append((torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()))
+    return out
+
+
+def unrolled_order(model, params):
+    """``params`` (``{name: tensor}`` of ``model``) as one list in the
+    unrolled stack's order: a ``ScanBlocks``' stacked leaves are taken
+    layer by layer."""
+    from bigdl_tpu_torch.models.transformer import ScanBlocks
+
+    out = []
+    for key, child in model._modules.items():
+        names = [f"{key}.{n}" for n, _ in child.named_parameters()]
+        if isinstance(child, ScanBlocks):
+            out += [params[n][i] for i in range(child.n_layers)
+                    for n in names]
+        else:
+            out += [params[n] for n in names]
+    return out
+
+
+def lm_run(steps, batches, kw=None, compute=None, method=None,
+           param_dtype=None, grad_transform=None, keep_grads=False):
+    """The 137M LM (seed 0, ``kw`` its knobs) through ``steps`` train steps
+    of ``make_train_step`` on the card, batch i % len(batches) at step i.
+    Returns a dict: losses, per-step seconds, peak GiB, flash launches,
+    the optimizer state's bytes and the final parameters (unrolled
+    order, on the card); with ``keep_grads`` also the first step's
+    gradients as the optimizer took them (unrolled order, on the card)."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import MaskedSoftmaxCECriterion
+    from bigdl_tpu_torch.optim.optim_method import Adam
+    from bigdl_tpu_torch.optim.train_step import make_train_step
+
+    c = LM137
+    lm = TransformerLM(c["V"], hidden_size=c["hidden"], n_heads=c["heads"],
+                       n_layers=c["layers"], max_len=c["T"],
+                       output="logits", seed=0, **(kw or {}))
+    if param_dtype is not None:
+        lm = lm.to(param_dtype)
+    method = method or Adam(learning_rate=1e-4)
+    first = {}
+
+    def transform(grads):
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        if keep_grads and not first:
+            first.update({k: g.detach().clone() for k, g in grads.items()})
+        return grads
+
+    step = make_train_step(lm, MaskedSoftmaxCECriterion(0), method,
+                           compute_dtype=compute, grad_transform=transform)
+    params = {k: p.detach().clone() for k, p in lm.named_parameters()}
+    for p in lm.parameters():          # the step reads only ``params``
+        p.data = torch.empty(0, device="cuda", dtype=p.dtype)
+    state = method.init_state(params)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for slot in ("m", "v") for t in state[slot].values())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts()
+    losses, secs = [], []
+    for i in range(steps):
+        x, y = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        params, state, _, loss = step(params, state, {}, None, x, y)
+        losses.append(float(loss))              # the step's one sync
+        secs.append(time.perf_counter() - t0)
+    out = {"losses": losses, "step_s": secs, "flash": flash_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "state_bytes": state_bytes,
+           "params": [t.detach() for t in unrolled_order(lm, params)],
+           "grads": unrolled_order(lm, first) if keep_grads else None}
+    del lm, params, state, step, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def summed_row_rel_err(got, want, part_peak, floor: float = 1e-3) -> float:
+    """``fa.max_row_rel_err`` for a sum of partials that were each rounded
+    to bf16: each row's largest error relative to the larger of its own
+    largest ``|want|`` and ``part_peak`` (that row's largest partial, the
+    magnitude at which its terms were rounded; the shape of ``got`` less
+    its last dim); rows below ``floor`` x the tensor's largest ``|want|``
+    against that floor."""
+    import torch
+
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    row = torch.maximum(w.abs().amax(dim=1), part_peak.reshape(-1))
+    scale = row.clamp_min(max(floor * float(w.abs().max()), 1e-30))
+    return float(((g - w).abs().amax(dim=1) / scale).max())
+
+
+def max_diff(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def grad_err(got, want) -> float:
+    """The largest error of any leaf of ``got`` against ``want`` (lists of
+    gradients), relative to that leaf's largest ``want``, or to
+    ``LM_KNOB_TOL["grad_floor"]`` of the largest of all where the leaf's
+    is smaller."""
+    peaks = [float(w.abs().max()) for w in want]
+    floor = LM_KNOB_TOL["grad_floor"] * max(peaks)
+    return max(float((g - w).abs().max()) / max(p, floor)
+               for g, w, p in zip(got, want, peaks))
+
+
+def lm_knobs_phase(f32_steps: int = 3, warm: int = 2, timed: int = 3):
+    """The LM's knobs at full width; returns the flash launches of every
+    run (each counted from 0 just before it)."""
+    import torch
+
+    from bigdl_tpu_torch.optim.optim_method import Adam
+
+    c, launches = LM137, {"fwd": 0, "dq": 0, "dkv": 0}
+
+    def count(run):
+        for k in launches:
+            launches[k] += run["flash"][k]
+        return run
+
+    batches = lm_batches(f32_steps, seed=1)
+    t0 = time.perf_counter()
+    ref = count(lm_run(f32_steps, batches, keep_grads=True))
+    again = count(lm_run(f32_steps, batches, keep_grads=True))
+    spread = max_diff(ref["params"], again["params"])
+    tol = max(LM_KNOB_TOL["param_abs"], spread)
+    grad_spread = grad_err(again["grads"], ref["grads"])
+    grad_tol = max(LM_KNOB_TOL["grad_rel"], grad_spread)
+    del again
+    checks = {}
+    for name, kw in (("remat", {"remat": True}),
+                     ("layer_scan", {"layer_scan": True}),
+                     ("layer_scan_remat", {"layer_scan": True,
+                                           "remat": True}),
+                     ("embed_grad_matmul", {"embed_grad_matmul": True})):
+        run = count(lm_run(f32_steps, batches, kw, keep_grads=True))
+        checks[name] = {
+            "param_max_abs_err": max_diff(run["params"], ref["params"]),
+            "first_step_grad_rel_err": grad_err(run["grads"], ref["grads"]),
+            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                zip(run["losses"], ref["losses"])),
+            "peak_gib": run["peak_gib"], "flash_launches": run["flash"]}
+        del run
+    emit("lm_knobs", what="3 f32 steps of each knob against the unrolled "
+         "run, same seed and batches", card=nvidia_smi(), **c,
+         compute="f32", optim="Adam(1e-4)", losses=ref["losses"],
+         unrolled_run_to_run_spread=spread, param_tol=tol,
+         param_tol_is=("the run-to-run spread" if spread > LM_KNOB_TOL[
+             "param_abs"] else "1e-5 absolute"),
+         unrolled_grad_spread=grad_spread, grad_tol=grad_tol,
+         grad_tol_is=("the run-to-run spread" if grad_spread > LM_KNOB_TOL[
+             "grad_rel"] else "1e-5 of the leaf's largest gradient"),
+         grad_floor=LM_KNOB_TOL["grad_floor"],
+         loss_rel_tol=LM_KNOB_TOL["loss_rel"], checks=checks,
+         seconds=time.perf_counter() - t0)
+    del ref
+    for name, chk in checks.items():
+        if not (chk["param_max_abs_err"] <= tol
+                and chk["first_step_grad_rel_err"] <= grad_tol
+                and chk["loss_rel_err"] <= LM_KNOB_TOL["loss_rel"]):
+            raise AssertionError(f"lm_knobs f32 {name}: {chk} beyond "
+                                 f"{tol} / {grad_tol} / "
+                                 f"{LM_KNOB_TOL['loss_rel']}")
+    # bf16 compute: one batch repeated, so the loss must fall
+    one = lm_batches(1, seed=2)
+    steps = warm + timed
+    runs = {}
+    for name, kw in (
+            ("plain", {}), ("remat", {"kw": {"remat": True}}),
+            ("layer_scan", {"kw": {"layer_scan": True}}),
+            ("bf16_adam_slots", {"method": Adam(1e-4, state_dtype="bf16")}),
+            ("bf16_params", {"param_dtype": torch.bfloat16,
+                             "method": Adam(1e-4)}),
+            ("bf16_params_sr", {"param_dtype": torch.bfloat16,
+                                "method": Adam(1e-4,
+                                               stochastic_rounding=True)})):
+        run = count(lm_run(steps, one, compute="bf16", **kw))
+        remat = name == "remat"
+        want = {"fwd": c["layers"] * steps * (2 if remat else 1),
+                "dq": c["layers"] * steps, "dkv": c["layers"] * steps}
+        runs[name] = {"step_ms": [s * 1e3 for s in run["step_s"]],
+                      "step_ms_p50": float(np.median(run["step_s"][warm:]))
+                      * 1e3,
+                      "peak_gib": run["peak_gib"], "losses": run["losses"],
+                      "optimizer_state_bytes": run["state_bytes"],
+                      "flash_launches": run["flash"],
+                      "expected_flash_launches": want}
+        if run["flash"] != want:
+            raise AssertionError(f"lm_knobs {name}: flash launches "
+                                 f"{run['flash']}, expected {want}")
+        if not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"lm_knobs {name}: losses {run['losses']}")
+        del run
+    emit("lm_knobs", what="bf16 compute, one batch repeated", card=nvidia_smi(),
+         steps=steps, timed_steps=timed, runs=runs,
+         stochastic_rounding_ms=runs["bf16_params_sr"]["step_ms_p50"]
+         - runs["bf16_params"]["step_ms_p50"])
+    if not runs["remat"]["peak_gib"] < runs["plain"]["peak_gib"]:
+        raise AssertionError("remat's peak memory is not below the plain "
+                             "run's")
+    if 2 * runs["bf16_adam_slots"]["optimizer_state_bytes"] != runs[
+            "plain"]["optimizer_state_bytes"]:
+        raise AssertionError("bf16 Adam slots are not half the f32 slots")
+    sr = runs["bf16_params_sr"]["losses"]
+    if not sr[-1] < sr[0]:
+        raise AssertionError(f"bf16 parameters with stochastic rounding: the "
+                             f"loss did not fall: {sr}")
+    return launches
+
+
+def lm_main_phase():
+    """The LM's ``train_main`` at the 137M width, plain and ``--remat``;
+    returns the flash launches of both runs."""
+    from bigdl_tpu_torch.models.transformer import train_main
+
+    argv = ["--vocab", "32768", "--hidden", "768", "--layers", "12",
+            "--heads", "12", "--seqLen", "2048", "-b", "8", "--synthetic",
+            "64", "--maxIteration", "6", "--computeDtype", "bf16"]
+    launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    out = {}
+    for name, extra in (("plain", []), ("remat", ["--remat"])):
+        zero_flash_counts()
+        model, wall, step_s, losses, peak = main_run(train_main,
+                                                     argv + extra, 8)
+        got = flash_counts()
+        for k in launches:
+            launches[k] += got[k]
+        out[name] = {"wall_s": wall, "step_ms": [s * 1e3 for s in step_s],
+                     "step_ms_p50": float(np.median(step_s[1:])) * 1e3,
+                     "peak_gib": peak, "losses": losses,
+                     "flash_launches": got}
+        del model
+        if not (len(losses) == 6 and np.isfinite(losses).all()):
+            raise AssertionError(f"lm_main {name}: losses {losses}")
+        if got["dq"] != 12 * 6:
+            raise AssertionError(f"lm_main {name}: flash launches {got}")
+    emit("lm_main", what="models.transformer.train_main through argv",
+         card=nvidia_smi(), argv=argv, runs=out)
+    return launches
+
+
+def seq_parallel_phase(steps: int = 3):
+    """The 137M LM with each ``sequence_parallel`` mode on a one-rank NCCL
+    group: three bf16 steps bitwise the LM without it; returns the flash
+    launches of the SP runs."""
+    from bigdl_tpu_torch.parallel.axis import sum_gradients
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    batches = lm_batches(steps, seed=3)
+    launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    out = {}
+    with nccl_world_of_one():
+        Engine.mesh(("seq",))
+        ref = lm_run(steps, batches, compute="bf16")
+        for mode in ("ring", "striped_ring", "ulysses"):
+            run = lm_run(steps, batches, {"sequence_parallel": mode},
+                         compute="bf16", grad_transform=sum_gradients("seq"))
+            for k in launches:
+                launches[k] += run["flash"][k]
+            same = (run["losses"] == ref["losses"] and all(
+                bool((a == b).all()) for a, b in zip(run["params"],
+                                                     ref["params"])))
+            out[mode] = {"losses": run["losses"], "bitwise": same,
+                         "step_ms_p50": float(np.median(run["step_s"][1:]))
+                         * 1e3,
+                         "flash_launches_per_step": {
+                             k: v / steps for k, v in run["flash"].items()},
+                         "param_max_abs_diff": max_diff(run["params"],
+                                                        ref["params"])}
+            del run
+    emit("seq_parallel", what="sequence-parallel LM at world size 1 "
+         "(NCCL) against the LM without it, 3 bf16 steps", card=nvidia_smi(),
+         **LM137, plain_losses=ref["losses"],
+         plain_step_ms_p50=float(np.median(ref["step_s"][1:])) * 1e3,
+         modes=out)
+    for mode, r in out.items():
+        if not r["bitwise"]:
+            raise AssertionError(f"seq_parallel {mode}: not bitwise the "
+                                 f"plain LM ({r['param_max_abs_diff']})")
+    return launches
+
+
+def ring_replay_phase(n: int = 4):
+    """The ring's n-rank schedule replayed on one card at the 137M
+    attention shape; returns the schedule's flash launches (the
+    whole-sequence references and the timings not counted) and the block
+    variants' figures."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.parallel.ring_attention import (
+        finish_merge, merge_block, ring_step_spec, stripe_sequence,
+        unstripe_sequence,
+    )
+
+    B, T, H, D = LM137["B"], LM137["T"], LM137["heads"], 64
+    t = T // n
+    scale = 1.0 / np.sqrt(D)
+    rtol = fa.ROW_RTOL[torch.bfloat16]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(B, T, H, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    results = {}
+    for sched, causal in (("contiguous", True), ("striped", True),
+                          ("contiguous", False)):
+        name = f"{sched}_{'causal' if causal else 'noncausal'}"
+        lay = ((lambda x: stripe_sequence(x, n)) if sched == "striped"
+               else (lambda x: x))
+        unlay = ((lambda x: unstripe_sequence(x, n)) if sched == "striped"
+                 else (lambda x: x))
+        qs, ks, vs, dos = (lay(x) for x in (q, k, v, do))
+        shard = [lambda x, r=r: x[:, r * t:(r + 1) * t] for r in range(n)]
+        spec = ring_step_spec(sched, causal)
+        # each block is held against the plain version on its inputs; the
+        # plain checks run after the schedule so that its launches are
+        # counted alone
+        blocks = []
+        zero_flash_counts()
+        outs, lses = [], []
+        for my in range(n):
+            acc = None
+            for step in range(n):
+                src = (my - step) % n
+                c_s, off, keep = spec(step, src, my)
+                o_i, lse_i = fa.flash_attention_with_lse(
+                    shard[my](qs), shard[src](ks), shard[src](vs), scale,
+                    causal=c_s, causal_offset=off)
+                blocks.append((my, src, c_s, off, keep, o_i, lse_i))
+                if keep is not None and not keep:
+                    lse_i = torch.full_like(lse_i, -float("inf"))
+                acc = merge_block(acc, o_i, lse_i)
+            o_my, lse_my = finish_merge(acc, torch.bfloat16)
+            outs.append(o_my)
+            lses.append(lse_my)
+        dq = [None] * n
+        dk = [torch.zeros(B, t, H, D, device="cuda") for _ in range(n)]
+        dv = [torch.zeros(B, t, H, D, device="cuda") for _ in range(n)]
+        bwd_blocks = []
+        for my in range(n):
+            for step in range(n):
+                src = (my - step) % n
+                c_s, off, keep = spec(step, src, my)
+                dq_i, dk_i, dv_i = fa.flash_attention_block_grads(
+                    shard[my](qs), shard[src](ks), shard[src](vs), outs[my],
+                    lses[my], shard[my](dos), scale, causal=c_s,
+                    causal_offset=off)
+                if keep is not None and not keep:
+                    continue
+                bwd_blocks.append((my, src, c_s, off, dq_i, dk_i, dv_i))
+                dq[my] = dq_i.float() if dq[my] is None else dq[my] + dq_i
+                dk[src] += dk_i.float()
+                dv[src] += dv_i.float()
+        torch.cuda.synchronize()
+        got = flash_counts()
+        for kk in launches:
+            launches[kk] += got[kk]
+        # every block against the plain version on the same inputs, per
+        # row; the plain block grads, each rounded to bf16 as the ring
+        # rounds the kernels', summed in the ring's order (the second
+        # reference); and the largest partial that went into each row of
+        # each sum (the magnitude at which its terms were rounded)
+        blk = {"fwd_row": 0.0, "lse_abs": 0.0, "bwd_row": 0.0}
+        for my, src, c_s, off, keep, o_i, lse_i in blocks:
+            o_p, lse_p = fa.flash_forward_reference(
+                shard[my](qs), shard[src](ks), shard[src](vs), scale, c_s,
+                off or 0)
+            blk["fwd_row"] = max(blk["fwd_row"], fa.max_row_rel_err(o_i,
+                                                                   o_p))
+            blk["lse_abs"] = max(blk["lse_abs"],
+                                 float((lse_i - lse_p).abs().max()))
+        pl = {"dq": [torch.zeros(B, t, H, D, device="cuda")
+                     for _ in range(n)]}
+        pl["dk"] = [torch.zeros_like(x) for x in pl["dq"]]
+        pl["dv"] = [torch.zeros_like(x) for x in pl["dq"]]
+        part = {kk: [torch.zeros(B, t, H, device="cuda") for _ in range(n)]
+                for kk in ("dq", "dk", "dv")}
+        for my, src, c_s, off, dq_i, dk_i, dv_i in bwd_blocks:
+            ref = fa.flash_backward_reference(
+                shard[my](qs), shard[src](ks), shard[src](vs), outs[my],
+                lses[my], shard[my](dos), scale, c_s, off or 0)
+            for kk, dst, gi, ri in (("dq", my, dq_i, ref[0]),
+                                    ("dk", src, dk_i, ref[1]),
+                                    ("dv", src, dv_i, ref[2])):
+                blk["bwd_row"] = max(blk["bwd_row"],
+                                     fa.max_row_rel_err(gi, ri))
+                pl[kk][dst] += ri.float()
+                part[kk][dst] = torch.maximum(
+                    part[kk][dst], gi.float().abs().amax(-1))
+        o_ring = unlay(torch.cat(outs, 1))
+        grads = [unlay(torch.cat(x, 1)).to(torch.bfloat16)
+                 for x in (dq, dk, dv)]
+        plain_sum = [unlay(torch.cat(pl[kk], 1)).to(torch.bfloat16)
+                     for kk in ("dq", "dk", "dv")]
+        parts = [unlay(torch.cat(part[kk], 1)) for kk in ("dq", "dk", "dv")]
+        o_w, lse_w = fa.flash_attention_with_lse(q, k, v, scale,
+                                                 causal=causal)
+        lse_ring = torch.cat(lses, 2)
+        if sched == "striped":
+            lse_ring = unstripe_sequence(lse_ring.transpose(1, 2),
+                                         n).transpose(1, 2)
+        # the backward on the same inputs as the ring's: its merged O and
+        # LSE (the whole-sequence kernel's own differ in their bf16 ulps,
+        # and delta = dO.O carries that into every gradient row)
+        want = fa.flash_attention_block_grads(q, k, v, o_ring, lse_ring, do,
+                                              scale, causal=causal)
+        err = {"fwd_row": fa.max_row_rel_err(o_ring, o_w),
+               "lse_max_abs": float((lse_ring - lse_w).abs().max()),
+               "bwd_row": max(fa.max_row_rel_err(a, b)
+                              for a, b in zip(grads, want)),
+               "bwd_row_blockwise_plain": max(
+                   summed_row_rel_err(a, b, c)
+                   for a, b, c in zip(grads, plain_sum, parts)),
+               "blocks": blk}
+        results[name] = {"err": err, "schedule_launches": got}
+        if not (err["fwd_row"] <= rtol and err["bwd_row"] <= rtol
+                and err["bwd_row_blockwise_plain"] <= rtol
+                and err["lse_max_abs"] <= RING_REPLAY_TOL["lse_abs"]
+                and blk["fwd_row"] <= rtol and blk["bwd_row"] <= rtol
+                and blk["lse_abs"] <= RING_REPLAY_TOL["block_lse_abs"]):
+            raise AssertionError(f"ring_replay {name}: {err} beyond "
+                                 f"{rtol} / {RING_REPLAY_TOL}")
+        del blocks, bwd_blocks, pl, part
+    # the block variants at the ring's block shape, one launch each
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    qb, kb, vb, dob = (x[:, :t].contiguous() for x in (q, k, v, do))
+    lib_c = fa._library()
+    variants = {}
+    for vname, causal, off in (("offset0", True, 0), ("offset-1", True, -1),
+                               ("noncausal", False, 0)):
+        o_r, lse_r = fa.flash_forward_reference(qb, kb, vb, scale, causal,
+                                                off)
+        delta = torch.empty((B, H, t), dtype=torch.float32, device="cuda")
+        dqb, dkb, dvb = (torch.empty_like(x) for x in (qb, kb, vb))
+        oc, lc = o_r.contiguous(), lse_r.contiguous()
+        geo = (B, H, t, t, D, int(causal), off, float(scale), 1,
+               torch.cuda.current_stream().cuda_stream)
+        dq_in = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), oc.data_ptr(),
+                 dob.data_ptr(), lc.data_ptr(), delta.data_ptr())
+        dkv_in = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dob.data_ptr(),
+                  lc.data_ptr(), delta.data_ptr())
+        launched(lib_c.bigdl_flash_dq(*dq_in, dqb.data_ptr(), *geo))
+        ms = {"fwd": time_ms(lambda: fa.flash_fwd_cuda(qb, kb, vb, scale,
+                                                        causal, off),
+                             flush=flush),
+              "dq": time_ms(lambda: launched(lib_c.bigdl_flash_dq(
+                  *dq_in, dqb.data_ptr(), *geo)), flush=flush),
+              "dkv": time_ms(lambda: launched(lib_c.bigdl_flash_dkv(
+                  *dkv_in, dkb.data_ptr(), dvb.data_ptr(), *geo)),
+                  flush=flush)}
+        # the variant's outputs against the plain version, per row
+        o_k, lse_k = fa.flash_fwd_cuda(qb, kb, vb, scale, causal, off)
+        ref = fa.flash_backward_reference(qb, kb, vb, o_r, lse_r, dob, scale,
+                                          causal, off)
+        torch.cuda.synchronize()
+        row_err = {"fwd": fa.max_row_rel_err(o_k, o_r),
+                   "dq": fa.max_row_rel_err(dqb, ref[0]),
+                   "dkv": max(fa.max_row_rel_err(dkb, ref[1]),
+                              fa.max_row_rel_err(dvb, ref[2]))}
+        lse_err = float((lse_k - lse_r).abs().max())
+        if (max(row_err.values()) > rtol
+                or lse_err > RING_REPLAY_TOL["block_lse_abs"]):
+            raise AssertionError(f"ring_replay block {vname}: row errors "
+                                 f"{row_err} (lse {lse_err}) beyond {rtol}")
+        plain = {"fwd": time_ms(lambda: fa.flash_forward_reference(
+            qb, kb, vb, scale, causal, off), reps=5, flush=flush)}
+        plain["dq"] = plain["dkv"] = time_ms(
+            lambda: fa.flash_backward_reference(qb, kb, vb, o_r, lse_r, dob,
+                                                scale, causal, off),
+            reps=5, flush=flush)
+        # the library: one SDPA call with the equivalent boolean mask
+        rows = torch.arange(t, device="cuda")[:, None]
+        mask = (None if not causal
+                else torch.arange(t, device="cuda")[None, :] <= rows + off)
+        qs_, ks_, vs_ = (x.transpose(1, 2).contiguous().requires_grad_()
+                         for x in (qb, kb, vb))
+        dos_ = dob.transpose(1, 2).contiguous()
+        lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+            qs_, ks_, vs_, attn_mask=mask), flush=flush)
+        lo = F.scaled_dot_product_attention(qs_, ks_, vs_, attn_mask=mask)
+        lib_b = time_ms(lambda: torch.autograd.grad(
+            lo, (qs_, ks_, vs_), dos_, retain_graph=True), flush=flush)
+        work = flash_work(B, t, t, H, D, causal, off, 2)
+        variants[vname] = {}
+        for kname in ("fwd", "dq", "dkv"):
+            b_ms, b_by = bound(*work[kname], BF16_FLOPS)
+            variants[vname][kname] = {
+                "ms": ms[kname], "plain_ms": plain[kname],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_f if kname == "fwd" else lib_b,
+                "roofline_share": b_ms / ms[kname],
+                "max_row_rel_err": row_err[kname], "rtol": rtol}
+        variants[vname]["fwd"]["lse_max_abs_err"] = lse_err
+    emit("ring_replay", what=f"{n}-rank ring schedules replayed on one card "
+         "against whole-sequence flash", card=nvidia_smi(),
+         shape=[B, T, H, D], per_rank=t, dtype="bf16", row_rtol=rtol,
+         tol=RING_REPLAY_TOL,
+         schedules=results, block_variants=variants,
+         library="F.scaled_dot_product_attention with the boolean mask "
+                 "(forward; backward: dq, dk and dv together)")
+    return launches
+
+
+def parallel_ext_phase():
+    """MoE, the one-stage pipeline and the one-rank tensor-parallel MLP on
+    a one-rank NCCL group, each against its plain computation."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.parallel import (
+        gpipe, microbatch, mlp_expert, moe_layer, tp_mlp,
+    )
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    d, E, top_k, cf, T, hid = 768, 8, 2, 1.25, 16384, 3072
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape, s=1.0):
+        return torch.randn(*shape, device="cuda", generator=g) * s
+
+    x = rand(T, d)
+    router = rand(d, E, s=d ** -0.5)
+    ep = {"w1": rand(E, d, hid, s=d ** -0.5), "b1": rand(E, hid, s=0.02),
+          "w2": rand(E, hid, d, s=hid ** -0.5), "b2": rand(E, d, s=0.02)}
+    cap = max(1, int(cf * top_k * T / E))
+    out = {}
+    with nccl_world_of_one():
+        Engine.mesh(("expert",))
+        y = moe_layer(x, router, ep, mlp_expert, "expert", top_k=top_k,
+                      capacity_factor=cf)
+        ms = time_ms(lambda: moe_layer(x, router, ep, mlp_expert, "expert",
+                                       top_k=top_k, capacity_factor=cf),
+                     reps=5)
+        # the dense per-expert loop: top-k by torch.topk, each expert's
+        # first ``cap`` tokens in token order, the kept gates renormalized
+        probs = torch.softmax(x @ router, dim=-1)
+        top = torch.topk(probs, top_k, dim=-1).indices
+        chosen = torch.zeros_like(probs).scatter_(1, top, 1.0)
+        keep = chosen * ((torch.cumsum(chosen, 0) - chosen) < cap)
+        gates = probs * keep
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        want = torch.zeros_like(x)
+        for e in range(E):
+            idx = keep[:, e].nonzero().squeeze(1)
+            h = F.gelu(x[idx] @ ep["w1"][e] + ep["b1"][e], approximate="tanh")
+            want[idx] += gates[idx, e, None] * (h @ ep["w2"][e] + ep["b2"][e])
+        err = float((y - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        out["moe"] = {"tokens": T, "d": d, "experts": E, "top_k": top_k,
+                      "capacity": cap, "dropped_assignments": int(
+                          chosen.sum() - keep.sum()),
+                      "ms": ms, "max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"moe_layer vs the dense loop: {err} > {tol}")
+        Engine.mesh(("pipe",))
+        pw, pb, px = rand(1, d, d, s=d ** -0.5), rand(1, d, s=0.02), rand(64, d)
+
+        def stage(p, xx):
+            return torch.tanh(xx @ p["w"] + p["b"])
+
+        piped = gpipe(stage, {"w": pw, "b": pb}, microbatch(px, 4), "pipe")
+        plain = torch.stack([stage({"w": pw[0], "b": pb[0]}, mb)
+                             for mb in microbatch(px, 4)])
+        out["gpipe_one_stage"] = {"bitwise": bool(torch.equal(piped, plain))}
+        Engine.mesh(("model",))
+        w1, b1 = rand(hid, d, s=d ** -0.5), rand(hid, s=0.02)
+        w2, b2 = rand(d, hid, s=hid ** -0.5), rand(d, s=0.02)
+        tp = tp_mlp(px, w1, b1, w2, b2, "model")
+        dense = F.gelu(px @ w1.t() + b1, approximate="tanh") @ w2.t() + b2
+        out["tp_mlp_one_rank"] = {"bitwise": bool(torch.equal(tp, dense))}
+    emit("parallel_ext", what="expert, pipeline and tensor parallelism on a "
+         "one-rank NCCL group against their plain computations (f32)",
+         card=nvidia_smi(), **out)
+    if not (out["gpipe_one_stage"]["bitwise"]
+            and out["tp_mlp_one_rank"]["bitwise"]):
+        raise AssertionError(f"parallel_ext: {out}")
+
+
 def main() -> int:
     import torch
 
@@ -5168,6 +5852,15 @@ def main() -> int:
         requant["launches"] += n_kr
     for name, n in train_phase().items():
         flash[name]["launches"] = n
+        flash[name]["launches_by_phase"] = {"train": n}
+    for phase_name, phase in (("lm_knobs", lm_knobs_phase),
+                              ("lm_main", lm_main_phase),
+                              ("seq_parallel", seq_parallel_phase),
+                              ("ring_replay", ring_replay_phase)):
+        for name, n in phase().items():
+            flash[name]["launches"] += n
+            flash[name]["launches_by_phase"][phase_name] = n
+    parallel_ext_phase()
     fused = fused_conv_phase()
     fused_shapes_phase()
     resnet_check_phase()

@@ -779,12 +779,24 @@ def test_engine_init_distributed_must_come_first():
             Engine.init_distributed(num_processes=1, device="cpu")
         with pytest.raises(RuntimeError, match="init_distributed"):
             Engine.mesh()                   # no group: nothing starts one
-        with pytest.raises(NotImplementedError, match="A.8"):
-            Engine.hybrid_mesh()
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            Engine.hybrid_mesh()            # nor does the hybrid mesh
         with pytest.raises(NotImplementedError, match="A.7"):
             Engine.default_pool()
     finally:
         Engine.reset()
+    # the hybrid mesh is ported: on a one-process gloo group, its shape
+    try:
+        Engine.init_distributed(num_processes=1, device="cpu")
+        mesh = Engine.hybrid_mesh(("data", "model"), num_slices=1)
+        assert tuple(mesh.shape) == (1, 1, 1)
+        assert mesh.mesh_dim_names == ("dcn", "data", "model")
+        assert Engine.current_mesh() is mesh
+        with pytest.raises(ValueError, match="slices"):
+            Engine.hybrid_mesh(num_slices=2)
+    finally:
+        Engine.shutdown()
+    assert Engine.current_mesh() is None
     assert not torch.distributed.is_initialized()
 
 

@@ -78,6 +78,11 @@ def test_package_has_the_slice_modules():
               "bigdl_tpu_torch.parallel.block_store",
               "bigdl_tpu_torch.serving.kv_tier",
               "bigdl_tpu_torch.serving.disagg",
+              "bigdl_tpu_torch.parallel.axis",
+              "bigdl_tpu_torch.parallel.ring_attention",
+              "bigdl_tpu_torch.parallel.tensor_parallel",
+              "bigdl_tpu_torch.parallel.pipeline",
+              "bigdl_tpu_torch.parallel.moe",
               "bigdl_tpu_torch.serving.health",
               "bigdl_tpu_torch.serving.autopilot",
               "bigdl_tpu_torch.nn.beam_search",

@@ -140,10 +140,18 @@ def test_optim_method_updates_match_jax(kind):
 def test_unported_optim_knobs_raise():
     from bigdl_tpu_torch.optim.optim_method import SGD, Adam, Step
 
-    with pytest.raises(NotImplementedError, match="state_dtype"):
-        Adam(state_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="stochastic_rounding"):
-        Adam(stochastic_rounding=True)
+    # Adam's bf16 slots and stochastic rounding are ported: both build
+    # and step (tests/test_torch_lm_knobs.py holds them against JAX)
+    for kw, dtype in (({"state_dtype": "bf16"}, torch.float32),
+                      ({"stochastic_rounding": True}, torch.bfloat16)):
+        adam = Adam(1e-2, **kw)
+        w = {"w": torch.ones(3, dtype=dtype)}
+        st = adam.init_state(w)
+        w, st = adam.update({"w": torch.ones(3)}, st, w)
+        assert st["neval"] == 1 and w["w"].dtype == dtype
+        assert (w["w"].float() < 1.0).all()
+    with pytest.raises(ValueError, match="state_dtype"):
+        Adam(state_dtype="fp8")
     # SGD's schedules are ported: a Step schedule drives the update's rate
     sgd = SGD(learning_rate=0.1, learning_rate_schedule=Step(2, 0.5))
     p = {"w": torch.ones(3)}

@@ -65,6 +65,7 @@ from bigdl_tpu_torch.nn.containers import Container, Remat, Sequential
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.misc import LookupTable
 from bigdl_tpu_torch.nn.module import AbstractModule, new_param
+from bigdl_tpu_torch.ops.w8a16 import w8a16
 from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.params_tree import load_jax_tree
 
@@ -433,7 +434,21 @@ def _resolve_decode_views(model: Sequential, off: int, Pt: Dict):
 
 
 def _serving_proj(p, x):
+    """The serving steps' projection (``:667-682``): plain ``{weight,
+    bias}`` params, or a weight-only int8 layout (``weight_q``/``w_scale``,
+    keyed on ``weight_q`` whatever the scheme, as in JAX) through the W8A16
+    kernel: the f32 product cast to ``x``'s dtype, then ``bias`` added in
+    it, in one launch."""
+    if "weight_q" in p:
+        bias = p.get("bias")
+        return w8a16(x, p["weight_q"], p["w_scale"],
+                     None if bias is None else bias.to(x.dtype), x.dtype)
     return F.linear(x, p["weight"], p.get("bias"))
+
+
+def _tree_has_key(tree, key: str) -> bool:
+    return isinstance(tree, dict) and any(
+        k == key or _tree_has_key(v, key) for k, v in tree.items())
 
 
 def _plain_proj(p, x, site):
@@ -461,9 +476,15 @@ ADAPTER_SITES = ("wq", "wk", "wv", "wo", "fc1", "fc2")
 def adapter_site_shapes(model: Sequential):
     """Per-layer ``{site: (out_dim, in_dim)}`` weight shapes of the six
     adapted projections (``:484``): what an AdapterBank sizes its factors
-    against."""
+    against. Quantized (``weight_q``) layouts are refused (``:491-494``):
+    the adapter delta is sized and added against float weights."""
+    tree = _params_tree(model)
+    if _tree_has_key(tree, "weight_q"):
+        raise NotImplementedError(
+            "LoRA adapter serving over quantized (weight_q/w_scale) "
+            "layouts is not wired up — serve the float model")
     _, _, blocks, _, _ = _resolve_decode_views(
-        model, _decode_head_offset(model), _params_tree(model))
+        model, _decode_head_offset(model), tree)
     shapes = []
     for blk, bp in blocks:
         ap = bp[blk._child_key(1)]

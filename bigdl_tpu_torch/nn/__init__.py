@@ -26,6 +26,10 @@ from bigdl_tpu_torch.nn.normalization import (
     BatchNormalization, SpatialBatchNormalization, SpatialCrossMapLRN,
 )
 from bigdl_tpu_torch.nn.pooling import SpatialAveragePooling, SpatialMaxPooling
+from bigdl_tpu_torch.nn.quantized import (
+    QuantizedLinear, QuantizedSpatialConvolution, Quantizer,
+    quantize_symmetric,
+)
 from bigdl_tpu_torch.nn.recurrent import LSTM, BiRecurrent, Cell, Recurrent
 from bigdl_tpu_torch.nn.shape_ops import (
     CAddTable, FlattenTable, Reshape, Select,
@@ -44,4 +48,5 @@ __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
            "AbstractCriterion", "ClassNLLCriterion", "CrossEntropyCriterion",
            "ParallelCriterion", "TimeDistributedCriterion",
            "TimeDistributedMaskCriterion", "MaskedSoftmaxCECriterion",
-           "SequenceBeamSearch", "beam_search"]
+           "SequenceBeamSearch", "beam_search", "QuantizedLinear",
+           "QuantizedSpatialConvolution", "Quantizer", "quantize_symmetric"]

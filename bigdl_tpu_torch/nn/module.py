@@ -296,6 +296,15 @@ class AbstractModule(nn.Module):
             if was_training:
                 self.train()
 
+    def quantize(self, scheme: str = "dynamic") -> "AbstractModule":
+        """int8 inference model of this trained model, in place
+        (reference ``module.quantize()``; :class:`~bigdl_tpu_torch.nn.
+        quantized.Quantizer`); ``scheme="weight_only"`` keeps activations
+        bf16 (the serving mode)."""
+        from bigdl_tpu_torch.nn.quantized import Quantizer
+
+        return Quantizer.quantize(self, scheme=scheme)
+
     # -- persistence -------------------------------------------------------
 
     def save(self, path: str, over_write: bool = False) -> "AbstractModule":

@@ -53,6 +53,22 @@ any failure raises, so the exit code is non-zero and no result prints:
               grown and not-grown rows); its time per case beside the
               plain unconditional requantize, the whole merge step and
               the earlier host-read step, and the bound;
+4a. kernels — (w8a16) the weight-only int8 projection kernel against its
+              plain version at the 137m LM's fc1 (768 x 3072), fc2 (3072 x
+              768) and head (768 x 32768), at M = 1, 4, 8, 16 (decode) and
+              2048 (a 16 x 128 prefill), called as the bf16 serving
+              projection calls it (bf16 x, output and bias), at
+              ResNet-50's weight-only head (M 256, K 2048, N 1000, f32 x,
+              output and bias) and at a ragged M 37 / 5, K 203, N 91 (f32
+              x and output with and without an f32 bias, and bf16): each
+              output row's error
+              relative to that row's largest plain value within
+              ``W8A16_ROW_RTOL``; kernel times
+              (mean, median, min-max) beside the plain version, the
+              two-call ``F.linear(x, weight_q.to(bf16))``, the bf16 model's
+              ``F.linear`` on a pre-cast bf16 weight (the library column,
+              not the same function) and the bound (bytes at decode,
+              operations at prefill);
 5. check    — a small model's int8-KV decode step on the card against the
               same step on the CPU, teacher-forced, f32;
 6. train_check — a small LM's three ``make_train_step`` steps (f32,
@@ -143,6 +159,33 @@ any failure raises, so the exit code is non-zero and no result prints:
               ``beam_generate`` (beam 4, 64-token prompt, 32 tokens) with
               sorted scores and the top score re-scored by the f32 model;
               ``make_decode_step``'s step p50 and tok/s at batch 1 and 4;
+14a. int8_infer — ``benchmarks/int8_bench.py`` on the card: ResNet-50
+              (depth 50, shortcut B, 1,000 classes) inference at batch 256,
+              224², fp32 (TF32 off), bf16, ``quantize("dynamic")`` and
+              ``quantize("weight_only")``: images/s, weight bytes, peak
+              memory, argmax agreement with fp32; then ``accuracy_delta``:
+              a CIFAR ResNet-8 (shortcut A) trained 200 iterations on the
+              card (SGD 0.1 / 0.9 / 5e-4, ``Step(150, 0.2)``, the synthetic
+              CIFAR set of seed 5, noise 180), Top-1 through ``Evaluator``
+              float against dynamic and weight-only int8, each int8 Top-1
+              within ``INT8_TOP1_DROP`` (0.01) of float; and the ResNet-50
+              (two images) and a ResNet-8 under both schemes quantized on
+              the card and on the CPU from the same weights: codes
+              bitwise, each dynamic layer's int32 accumulators bitwise on
+              the same activation codes, each weight-only layer within
+              ``WO_CONV_CARD_RTOL`` of the CPU's with cuDNN's TF32 allowed
+              (the layer's own switch holds it off);
+14b. int8_decode — ``benchmarks/decode_bench.py`` for ``137m`` (max_len
+              384, 128-token prompt, 256 greedy tokens) through
+              ``make_prefill_step`` and ``make_decode_step`` at batch 1
+              and 8, fp32, bf16 and int8 weight-only + bf16: tok/s, step
+              p50, prefill ms, w8a16 launches 25 per step and per prefill,
+              decode attention 12 per step; then ``ServingEngine(kv_dtype=
+              "int8")`` over the weight-only 137m (bf16, 16 slots) on the
+              serve phase's 24 requests: tok/s, decode step p50 and
+              launches per decode step (w8a16 25, decode attention and
+              kv_requant 12); then a small weight-only LM's int8-KV
+              decode step on the card against the CPU, teacher-forced;
 15. train    — the training path at full width: the same 137m model at
               max_len = T = 2048, ``output="logits"``, trained through
               ``Optimizer(...).optimize()`` with
@@ -361,7 +404,9 @@ fused-conv kernel exactly 28 times per ResNet-50 step (resnet_train,
 the three resnet_u8 runs and distri_resnet's distributed run; the forward
 also 28 times per eval batch of resnet_u8's validations), the conv3x3
 kernel
-once per checked case and 33 times per timed shape).
+once per checked case and 33 times per timed shape; the w8a16 kernel
+once per forward of int8_infer's weight-only ResNet-50 and 25 times per
+decode step and per prefill call of int8_decode's weight-only runs).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``.
@@ -394,8 +439,15 @@ HOST_GUARD_CYCLES = 2_000_000    # ~1 ms of device spin while the host enqueues
 LENET_CARD_TOL = {"f32_first_step": 1e-5, "f64": 1e-9}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started, so
+    the log shows where the run's time goes."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - _T0, 3)}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -5801,6 +5853,617 @@ def parallel_ext_phase():
         raise AssertionError(f"parallel_ext: {out}")
 
 
+# -- int8 inference: the W8A16 kernel, ResNet-50 and the 137m LM ------------
+
+#: (projection, K, N) of the 137m LM's weight-only int8 layers
+W8A16_SHAPES = (("fc1", 768, 3072), ("fc2", 3072, 768), ("head", 768, 32768))
+#: rows the main path gives the kernel: decode at batch 1, 4, 8 and the
+#: 16-slot engine; a 16 x 128 prefill
+W8A16_ROWS = (1, 4, 8, 16, 2048)
+#: per output row, relative to the row's largest plain value: the kernel
+#: and the plain version differ only in the order of the f32 sums (every
+#: bf16 x bf16 product is exact in f32); with the serving projection's bf16
+#: output and bf16 bias, each of the two roundings may then land one bf16
+#: ulp apart, and a bf16 ulp is at most 2^-7 of its value: 2^-6 of the
+#: row's largest value
+W8A16_ROW_RTOL = {"f32": 5e-5, "bf16": 2.0 ** -6}
+
+
+def w8a16_phase():
+    """The W8A16 kernel against its plain version at the 137m LM's
+    shapes, called as the bf16 serving projection calls it (bf16 x, bf16
+    output, bf16 bias), at ResNet-50's weight-only head at batch 256 and
+    at ragged shapes, both with f32 x and output (the ``QuantizedLinear``
+    call, with and without its f32 bias); times beside the plain version,
+    the two-call ``F.linear(x_bf16, weight_q.to(bf16), bias_bf16)``, the
+    bf16 model's ``F.linear`` on a pre-cast weight (the library column:
+    not the same function) and the bound. Returns the kernel's summary
+    entry at the 16-slot engine's fc1 call."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops import w8a16 as w8
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, m, k, n, bf16, bf16, True) for name, k, n in W8A16_SHAPES
+             for m in W8A16_ROWS]
+    cases += [("resnet50_head", 256, 2048, 1000, f32, f32, True),
+              ("ragged", 37, 203, 91, f32, f32, True),
+              ("ragged", 5, 203, 91, f32, f32, False),
+              ("ragged", 5, 203, 91, bf16, bf16, True)]
+    entry = None
+    for name, m, k, n, dt, out_dt, with_bias in cases:
+        wq = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                           device="cuda", generator=g)
+        scale = torch.rand(n, 1, device="cuda", generator=g) * 2e-3 + 1e-4
+        x = torch.randn(m, k, device="cuda", generator=g).to(dt)
+        bias = (torch.randn(n, device="cuda", generator=g).to(out_dt)
+                if with_bias else None)
+        got = w8.w8a16(x, wq, scale, bias, out_dt)
+        want = w8.w8a16_plain(x, wq, scale, bias, out_dt)
+        torch.cuda.synchronize()
+        err = fa.max_row_rel_err(got, want, floor=0.0)
+        abs_err = float((got.float() - want.float()).abs().max())
+        tol = W8A16_ROW_RTOL["bf16" if out_dt == bf16 else "f32"]
+        splits = w8.split_plan(m, n, k, sms)
+        fields = dict(kernel="w8a16", case=f"{name}_m{m}", shape=[m, k, n],
+                      x_dtype=str(dt), out_dtype=str(out_dt),
+                      bias=with_bias, splits=splits[0],
+                      max_row_rel_err=err, max_abs_err=abs_err, tol=tol,
+                      why="f32 sums in another order (bf16 products exact); "
+                          "a bf16 output's two roundings one ulp apart")
+        if not (bool(torch.isfinite(got).all()) and err <= tol
+                and got.dtype == out_dt):
+            emit("kernels", **fields)
+            raise AssertionError(f"w8a16 {name} m{m}: row error {err}")
+        if name == "ragged":
+            emit("kernels", **fields)
+            continue
+        kern = time_stats(lambda: w8.w8a16(x, wq, scale, bias, out_dt),
+                          flush=flush)
+        plain_ms = time_ms(lambda: w8.w8a16_plain(x, wq, scale, bias,
+                                                  out_dt), flush=flush)
+        xb = x.to(bf16)
+        bb = None if bias is None else bias.to(bf16)
+        two = time_stats(lambda: F.linear(xb, wq.to(bf16), bb),
+                         flush=flush)
+        w_bf16 = wq.to(bf16)
+        lib = time_stats(lambda: F.linear(xb, w_bf16, bb), flush=flush)
+        n_bytes = (n * k + m * k * x.element_size() + n * 4
+                   + (0 if bias is None else n * bias.element_size())
+                   + m * n * got.element_size())
+        bound_ms, bound_by = bound(2.0 * m * n * k, n_bytes, BF16_FLOPS)
+        fields.update(ms=kern["mean"], ms_median=kern["median"],
+                      ms_min_max=[kern["min"], kern["max"]],
+                      host_ms_max=kern["host_ms_max"], plain_ms=plain_ms,
+                      two_call_ms=two["mean"], two_call_ms_median=two["median"],
+                      library_ms=lib["mean"], library_ms_median=lib["median"],
+                      library_ms_min_max=[lib["min"], lib["max"]],
+                      library="F.linear(x_bf16, w_bf16, b_bf16) on a "
+                              "pre-cast bf16 weight: the bf16 model's "
+                              "projection, not the same function",
+                      bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+                      roofline_share=bound_ms / kern["mean"])
+        emit("kernels", **fields)
+        if (name, m) == ("fc1", 16):
+            entry = {"name": "w8a16", "route": "cuda",
+                     "source": "bigdl_tpu_torch/csrc/w8a16.cu",
+                     "replaces": "bigdl_tpu/models/transformer.py:674",
+                     "launches": None, "max_abs_err": abs_err,
+                     "ms": kern["mean"], "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib["mean"]}
+        del w_bf16
+    return entry
+
+
+def param_bytes(model) -> int:
+    return int(sum(p.numel() * p.element_size() for p in model.parameters()))
+
+
+def infer_images_per_s(model, x, warm: int = 2, timed: int = 5):
+    """(images/s, peak GiB, output) of ``model`` on batch ``x``."""
+    import torch
+
+    with torch.no_grad():
+        for _ in range(warm):
+            out = model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            out = model(x)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (x.shape[0] * timed / wall,
+            torch.cuda.max_memory_allocated() / 2 ** 30, out)
+
+
+def resnet8_accuracy_delta():
+    """``benchmarks/int8_bench.py::accuracy_delta`` on the card: the
+    CIFAR-shape ResNet-8 (shortcut A) trained 200 iterations (batch 64,
+    SGD 0.1 / momentum 0.9 / weight decay 5e-4, ``Step(150, 0.2)``) on
+    ``generate_batch_dataset(n_train=1280, n_test=512, seed=5,
+    noise=180)``; Top-1 through ``Evaluator`` of the float model and of
+    its dynamic and weight-only twins. Returns the fields."""
+    import copy
+    import tempfile
+
+    from bigdl_tpu_torch.dataset import (
+        BGRImgNormalizer, DataSet, SampleToMiniBatch,
+    )
+    from bigdl_tpu_torch.dataset.cifar import (
+        TRAIN_MEAN, TRAIN_STD, generate_batch_dataset, load_samples,
+    )
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (
+        SGD, Evaluator, Optimizer, Step, Top1Accuracy, Trigger,
+    )
+
+    def stream(d, kind, train):
+        ds = (DataSet.array(load_samples(d, kind, synthetic_fallback=False),
+                            seed=13)
+              .transform(BGRImgNormalizer(TRAIN_MEAN, TRAIN_STD))
+              .transform(SampleToMiniBatch(64, drop_remainder=train)))
+        if not train:
+            return list(ds.data(train=False))
+        it = ds.data(train=True)
+        return [next(it) for _ in range(200)]
+
+    with tempfile.TemporaryDirectory() as d:
+        generate_batch_dataset(d, n_train=1280, n_test=512, seed=5,
+                               noise=180.0)
+        train, test = stream(d, "train", True), stream(d, "test", False)
+    model = ResNet(10, {"depth": 8, "shortcutType": "A",
+                        "dataSet": "cifar10"}, seed=17)
+    opt = Optimizer(model=model, dataset=DataSet.array(train),
+                    criterion=ClassNLLCriterion(),
+                    end_trigger=Trigger.max_iteration(200))
+    opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9,
+                             weight_decay=5e-4,
+                             learning_rate_schedule=Step(150, 0.2)))
+    t0 = time.perf_counter()
+    trained = opt.optimize()
+    train_s = time.perf_counter() - t0
+
+    def top1(m):
+        (res,) = Evaluator(m).test(test, [Top1Accuracy()], 64)
+        acc, n = res.result()
+        if n != 512:
+            raise AssertionError(f"Evaluator scored {n} of 512")
+        return float(acc)
+
+    f32 = top1(trained)
+    dyn = top1(copy.deepcopy(trained).quantize("dynamic"))
+    wo = top1(copy.deepcopy(trained).quantize("weight_only"))
+    return {"train_s": train_s, "top1_float": f32, "top1_int8_dynamic": dyn,
+            "top1_int8_weight_only": wo, "delta_dynamic": dyn - f32,
+            "delta_weight_only": wo - f32}
+
+
+#: a weight-only convolution on the card against the same layer on the
+#: CPU, on the same input, relative to the layer output's largest
+#: magnitude: every product is exact in f32 (bf16 activations, int8
+#: codes), so only the order of the f32 sums differs (the kernels' f32
+#: ``ROW_RTOL``)
+WO_CONV_CARD_RTOL = 2e-5
+#: the most an int8 model's Top-1 may fall below its float model's
+#: (``accuracy_delta``; the cost ``bigdl_tpu/nn/quantized.py`` states)
+INT8_TOP1_DROP = 0.01
+
+
+def quantized_card_vs_cpu(cpu, x, scheme: str):
+    """The float model ``cpu`` (on the CPU) quantized under ``scheme`` on
+    the CPU and on the card from the same weights: codes and scales
+    bitwise. Then every quantized convolution's input (the CPU run's, kept
+    by a hook) goes through the layer on both devices. Dynamic: the
+    activation codes are compared, and the int32 accumulators are bitwise
+    on the CPU's codes and, where the codes agree, on the card's. Weight-
+    only: each layer within ``WO_CONV_CARD_RTOL``; this runs with cuDNN's
+    TF32 at PyTorch's default (allowed), so the layer's own switch is what
+    holds it off. Also the whole output's largest error relative to its
+    largest magnitude (reported)."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.nn import QuantizedSpatialConvolution
+    from bigdl_tpu_torch.nn.quantized import _quantize_rows
+
+    cpu.evaluate()
+    gpu = copy.deepcopy(cpu).to("cuda").quantize(scheme)
+    cpu.quantize(scheme)
+    for (k, a), (_, b) in zip(cpu.named_parameters(), gpu.named_parameters()):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f"{k}: quantized on the card != on the CPU")
+    inputs = {}
+
+    def keep_input(key):
+        def hook(mod, inp, out):
+            inputs[key] = inp[0]      # returns None: the output stands
+        return hook
+
+    hooks = [m.register_forward_hook(keep_input(name))
+             for name, m in cpu.named_modules()
+             if isinstance(m, QuantizedSpatialConvolution)]
+    cudnn = torch.backends.cudnn
+    tf32 = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    out = {"scheme": scheme, "images": int(x.shape[0])}
+    try:
+        with torch.no_grad():
+            want = cpu(x)
+            got = gpu(x.to("cuda")).cpu()
+            for h in hooks:
+                h.remove()
+            c_layers, g_layers = dict(cpu.named_modules()), \
+                dict(gpu.named_modules())
+            code_mismatch, acc_bitwise, layer_err = 0, True, 0.0
+            for name, xin in inputs.items():
+                c, g = c_layers[name], g_layers[name]
+                if scheme == "weight_only":
+                    a = c._weight_only(xin)
+                    b = g._weight_only(xin.to("cuda")).cpu()
+                    layer_err = max(layer_err, float(
+                        (a - b).abs().max() / a.abs().max().clamp_min(1e-30)))
+                    continue
+                xq_c, _ = _quantize_rows(xin, (1, 2, 3))
+                xq_g, _ = _quantize_rows(xin.to("cuda"), (1, 2, 3))
+                agree = torch.equal(xq_c, xq_g.cpu())
+                code_mismatch += int((xq_c != xq_g.cpu()).sum())
+                acc_c = c._int8_conv(xq_c)
+                acc_bitwise &= torch.equal(
+                    acc_c, g._int8_conv(xq_c.to("cuda")).cpu())
+                if agree:
+                    acc_bitwise &= torch.equal(acc_c,
+                                               g._int8_conv(xq_g).cpu())
+    finally:
+        cudnn.allow_tf32 = tf32
+    out["layers"] = len(inputs)
+    if scheme == "weight_only":
+        out.update(layer_max_rel_err=layer_err, layer_rtol=WO_CONV_CARD_RTOL)
+    else:
+        out.update(activation_code_mismatches=code_mismatch,
+                   int32_accumulators_bitwise=acc_bitwise)
+    out["output_max_rel_err"] = float((got - want).abs().max()
+                                      / want.abs().max())
+    if not acc_bitwise:
+        raise AssertionError("int32 accumulators differ between the card "
+                             "and the CPU on the same codes")
+    if not layer_err <= WO_CONV_CARD_RTOL:
+        raise AssertionError(f"weight-only convolution, card vs CPU: "
+                             f"{layer_err} > {WO_CONV_CARD_RTOL}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{scheme}: non-finite output on the card")
+    return out
+
+
+def int8_infer_phase(warm: int = 2, timed: int = 5, batch: int = 256):
+    """``benchmarks/int8_bench.py`` on the card: ResNet-50 (depth 50,
+    shortcut B, 1,000 classes) inference at batch 256, 3 x 224 x 224,
+    fp32 (TF32 off), bf16, int8 dynamic and int8 weight-only: images/s,
+    weight bytes, peak memory; both int8 schemes of this ResNet-50 card
+    against CPU on two images; then the ResNet-8 accuracy delta (each int8
+    Top-1 within ``INT8_TOP1_DROP`` of float) and both schemes of a
+    ResNet-8 card against CPU. Returns the W8A16 launches of the timed
+    runs (the weight-only head)."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.ops import w8a16 as w8
+
+    model = ResNet(1000, {"depth": 50, "shortcutType": "B"}, seed=7)
+    model.evaluate()
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (batch, 3, 224, 224)).astype(np.float32)).to("cuda")
+    variants = {}
+    launches = 0
+    ref = None
+    for name in ("fp32", "bf16", "int8_dynamic", "int8_weight_only"):
+        if name == "fp32":
+            m, xin = model, x
+        elif name == "bf16":
+            m, xin = copy.deepcopy(model).to(torch.bfloat16), x.bfloat16()
+        else:
+            m, xin = copy.deepcopy(model).quantize(name[5:]), x
+        w8.launches = 0
+        ips, peak, out = infer_images_per_s(m, xin, warm, timed)
+        n = w8.launches
+        launches += n
+        out = out.float()
+        if ref is None:
+            ref = out
+        agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        variants[name] = {"images_per_s": ips, "weight_bytes": param_bytes(m),
+                          "peak_mem_gib": peak, "argmax_agreement_fp32": agree,
+                          "max_rel_diff_fp32": rel, "w8a16_launches": n}
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"int8_infer {name}: non-finite output")
+        if name == "int8_weight_only" and n != warm + timed:
+            raise AssertionError(f"the weight-only head launched w8a16 {n} "
+                                 f"times in {warm + timed} forwards")
+        if m is not model:
+            del m
+        torch.cuda.empty_cache()
+    emit("int8_infer", model="ResNet-50 B", batch=batch, warm=warm,
+         timed=timed, variants=variants,
+         vs_bf16={k: v["images_per_s"] / variants["bf16"]["images_per_s"]
+                  for k, v in variants.items()})
+    for scheme in ("dynamic", "weight_only"):
+        emit("int8_infer", what="ResNet-50 B, card vs CPU",
+             **quantized_card_vs_cpu(copy.deepcopy(model).to("cpu"),
+                                     x[:2].cpu(), scheme))
+    delta = resnet8_accuracy_delta()
+    emit("int8_infer", what="accuracy_delta (ResNet-8, cifar10)",
+         top1_drop_limit=INT8_TOP1_DROP, **delta)
+    if min(delta["delta_dynamic"], delta["delta_weight_only"]) \
+            < -INT8_TOP1_DROP:
+        raise AssertionError(f"int8 Top-1 more than {INT8_TOP1_DROP} below "
+                             f"float: {delta}")
+    for scheme in ("dynamic", "weight_only"):
+        small = ResNet(10, {"depth": 8, "shortcutType": "A",
+                            "dataSet": "cifar10"}, device="cpu", seed=4)
+        x8 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (16, 3, 32, 32)).astype(np.float32))
+        emit("int8_infer", what="ResNet-8, card vs CPU",
+             **quantized_card_vs_cpu(small, x8, scheme))
+    return launches
+
+
+PROMPT_137M, GEN_137M = 128, 256
+
+
+def decode_run(lm, dtype, batch: int):
+    """``benchmarks/decode_bench.py``'s protocol with the port's steps:
+    prefill 127 prompt tokens, then 256 greedy tokens one step at a time;
+    returns (tok/s, step p50 ms, prefill ms, tokens)."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import (
+        make_decode_step, make_prefill_step, serving_params,
+    )
+
+    step, init = make_decode_step(lm, compute_dtype=dtype)
+    prefill = make_prefill_step(lm, compute_dtype=dtype)
+    P = serving_params(lm, dtype)
+    g = torch.Generator(device="cuda").manual_seed(batch)
+    prompt = torch.randint(0, lm[0].n_index, (batch, PROMPT_137M),
+                           device="cuda", generator=g)
+    with torch.no_grad():
+        for _ in range(2):                              # warm-up
+            _, c = prefill(P, prompt[:, :-1], init(batch))
+            for _ in range(4):
+                _, c = step(P, prompt[:, -1], c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, carry = prefill(P, prompt[:, :-1], init(batch))
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok, toks = prompt[:, -1], []
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(GEN_137M + 1)]
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(GEN_137M):
+            logp, carry = step(P, tok, carry)
+            tok = logp.argmax(-1)
+            events[i + 1].record()
+            toks.append(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    out = torch.stack(toks, 1)
+    if not bool(((out >= 0) & (out < lm[0].n_index)).all()) or \
+            not bool(torch.isfinite(logp).all()):
+        raise AssertionError("decode produced ids out of range or "
+                             "non-finite log-probs")
+    return batch * GEN_137M / wall, float(np.median(steps)), prefill_ms, out
+
+
+def int8_decode_phase():
+    """``benchmarks/decode_bench.py`` for ``137m`` on the card (fp32,
+    bf16, int8 weight-only + bf16; batch 1 and 8), then a weight-only
+    ``ServingEngine`` with int8 KV on the serve phase's traffic, then a
+    small weight-only LM's int8-KV decode card vs CPU. Returns the
+    launches of (w8a16, decode_attention, kv_requant)."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import w8a16 as w8
+
+    V, layers = 32768, 12
+    per_step_w8 = 2 * layers + 1
+    lm = TransformerLM(V, hidden_size=768, n_heads=12, n_layers=layers,
+                       max_len=PROMPT_137M + GEN_137M, output="logits",
+                       seed=17).evaluate()
+    qlm = copy.deepcopy(lm).quantize("weight_only")
+    totals = {"w8a16": 0, "decode_attention": 0, "kv_requant": 0}
+    models = {"fp32": (lm, None), "bf16": (lm, torch.bfloat16),
+              "int8": (qlm, torch.bfloat16)}
+    runs, greedy = {}, {}
+    # bf16 and int8 in turns: a host-bound step's time spreads between
+    # runs
+    for batch in (1, 8):
+        for variant in ("bf16", "int8", "int8", "bf16", "fp32"):
+            model, dtype = models[variant]
+            w8.launches = da.launches = 0
+            tok_s, p50, prefill_ms, out = decode_run(model, dtype, batch)
+            n_w8, n_da = w8.launches, da.launches
+            totals["w8a16"] += n_w8
+            totals["decode_attention"] += n_da
+            run = runs.setdefault(f"{variant}_b{batch}", {
+                "tok_s": [], "step_p50_ms": [], "prefill_ms": [],
+                "w8a16_launches": n_w8, "decode_attention_launches": n_da})
+            run["tok_s"].append(tok_s)
+            run["step_p50_ms"].append(p50)
+            run["prefill_ms"].append(prefill_ms)
+            greedy[(variant, batch)] = out
+            warm_steps = 2 * 4
+            steps = GEN_137M + warm_steps
+            want_w8 = per_step_w8 * (steps + 3) if variant == "int8" else 0
+            if n_w8 != want_w8 or n_da != layers * steps:
+                raise AssertionError(
+                    f"decode {variant} b{batch}: w8a16 {n_w8} (want "
+                    f"{want_w8}), decode_attention {n_da} (want "
+                    f"{layers * steps})")
+    agree = {f"b{b}": float((greedy[("int8", b)] == greedy[("bf16", b)])
+                            .float().mean()) for b in (1, 8)}
+    emit("int8_decode", model="137m", prompt=PROMPT_137M, gen=GEN_137M,
+         order="per batch: bf16, int8, int8, bf16, fp32",
+         weight_bytes={"fp32": param_bytes(lm), "int8": param_bytes(qlm)},
+         runs=runs, int8_vs_bf16_greedy_agreement=agree,
+         w8a16_launches_per_step=per_step_w8)
+    del lm, qlm
+    torch.cuda.empty_cache()
+    for name, n in engine_weight_only_run().items():
+        totals[name] += n
+    weight_only_check()
+    return totals
+
+
+def engine_weight_only_run():
+    """``ServingEngine(kv_dtype="int8")`` over the weight-only 137m (bf16,
+    16 slots) on the serve phase's 24 requests, in turns with the same
+    engine over the float model (float, int8, int8, float): tok/s, decode
+    step p50, TTFT p50; the weight-only runs' launches per decode step.
+    Returns the runs' launches."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.ops import decode_attention as da
+    from bigdl_tpu_torch.ops import kv_requant as kr
+    from bigdl_tpu_torch.ops import w8a16 as w8
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    V, layers = 32768, 12
+    lm, build_s = lm_137m()
+    models = {"bf16": lm, "int8": copy.deepcopy(lm).quantize("weight_only")}
+
+    def engine(model):
+        return ServingEngine(model, n_slots=16, compute_dtype=torch.bfloat16,
+                             kv_dtype="int8")
+
+    for model in models.values():       # warm-up, outside the counts
+        warm = engine(model)
+        for p in ([5, 9, 2] * 7, [4] * 40):
+            warm.submit(p, max_new_tokens=3)
+        with torch.no_grad():
+            warm.drain()
+    del warm
+    counts = {"w8a16": 0, "decode_attention": 0, "kv_requant": 0}
+    runs = {}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        rng = np.random.default_rng(0)
+        eng = engine(models[name])
+        rids = [eng.submit(prompt, max_new_tokens=32, sampling=sp)
+                for prompt, sp in serve_traffic(rng, V)]
+        torch.cuda.synchronize()
+        w8.launches = da.launches = kr.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"w8a16": w8.launches, "decode_attention": da.launches,
+               "kv_requant": kr.launches}
+        steps = eng.metrics.decode_step_count
+        prefills = int(eng.metrics.metrics.get("serving/prefill_batch")[1])
+        for rid in rids:
+            out, lps = outs[rid], eng.logprobs(rid)
+            if not (len(out) == 32 and out.min() >= 1 and out.max() <= V
+                    and np.isfinite(lps).all() and (lps <= 0).all()):
+                raise AssertionError(f"{name} engine request {rid}: {out}")
+        want = {"w8a16": ((2 * layers + 1) * (steps + prefills)
+                          if name == "int8" else 0),
+                "decode_attention": layers * steps,
+                "kv_requant": layers * steps}
+        if got != want:
+            raise AssertionError(f"{name} engine launches {got}, expected "
+                                 f"{want}")
+        s = eng.summary()
+        run = runs.setdefault(name, {"tokens_per_s": [],
+                                     "decode_step_p50_s": [],
+                                     "ttft_p50_s": [], "wall_s": []})
+        run["tokens_per_s"].append(s["serving/tokens_per_sec"])
+        run["decode_step_p50_s"].append(s["serving/decode_step_p50_s"])
+        run["ttft_p50_s"].append(s["serving/ttft_p50_s"])
+        run["wall_s"].append(wall)
+        for k in counts:
+            counts[k] += got[k]
+        if name == "int8":
+            run.update(decode_steps=steps, prefill_calls=prefills,
+                       per_decode_step={
+                           "w8a16": (got["w8a16"] - (2 * layers + 1)
+                                     * prefills) / steps,
+                           "decode_attention": got["decode_attention"]
+                           / steps,
+                           "kv_requant": got["kv_requant"] / steps})
+        del eng
+    emit("int8_decode", what="ServingEngine 137m, bf16, int8 KV, 16 slots: "
+         "weight-only int8 against float weights, in turns",
+         order="bf16, int8, int8, bf16", build_s=build_s,
+         weight_bytes={k: param_bytes(m) for k, m in models.items()},
+         requests=24, new_tokens=32 * 24, runs=runs, launches=counts,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del models, lm
+    torch.cuda.empty_cache()
+    return counts
+
+
+def weight_only_check():
+    """A small weight-only LM's int8-KV decode step, teacher-forced, on
+    the card against the same step on the CPU (the check phase's recipe
+    over int8 weights, f32): log-probs within 2e-3 (an int8 KV value or a
+    bf16-rounded activation on a rounding boundary may land one step
+    apart)."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.models import transformer as tm
+
+    lm_cpu = tm.TransformerLM(97, hidden_size=128, n_heads=4, n_layers=2,
+                              max_len=64, device="cpu", seed=3)
+    lm_cpu.quantize("weight_only")
+    lm_gpu = copy.deepcopy(lm_cpu).to("cuda")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, 97, size=(4, 16))
+    lengths = np.asarray([16, 5, 0, 11])
+    feeds = rng.integers(0, 97, size=(6, 4))
+    active = torch.tensor([True, True, False, True])
+    outs = []
+    for lm, dev in ((lm_cpu, "cpu"), (lm_gpu, "cuda")):
+        prefill = tm.make_batch_prefill_step(lm, kv_quant=True)
+        step, init = tm.make_batch_decode_step(lm, kv_quant=True)
+        P = tm.serving_params(lm)
+        with torch.no_grad():
+            _, carry = prefill(P, torch.from_numpy(toks).to(dev), lengths,
+                               init(4))
+            logps = []
+            for f in feeds:
+                lp, carry = step(P, torch.from_numpy(f).to(dev),
+                                 active.to(dev), carry)
+                logps.append(lp.cpu().numpy())
+        outs.append(np.stack(logps))
+    err = float(np.abs(outs[0] - outs[1])[:, active.numpy()].max())
+    emit("int8_decode", what="weight-only int8-KV decode step, card vs CPU, "
+         "small model", steps=len(feeds), max_abs_logp_err=err, tol=2e-3)
+    if not err <= 2e-3:
+        raise AssertionError(f"weight-only card vs CPU decode: err {err}")
+
+
 def main() -> int:
     import torch
 
@@ -5836,6 +6499,7 @@ def main() -> int:
     data_plane_phase()
     entry = kernels_phase()
     requant = kv_requant_phase()
+    w8 = w8a16_phase()
     flash = flash_phase()
     check_phase()
     train_check_phase()
@@ -5850,6 +6514,11 @@ def main() -> int:
         n_da, n_kr = phase()
         entry["launches"] += n_da
         requant["launches"] += n_kr
+    w8["launches"] = int8_infer_phase()
+    int8 = int8_decode_phase()
+    w8["launches"] += int8["w8a16"]
+    entry["launches"] += int8["decode_attention"]
+    requant["launches"] += int8["kv_requant"]
     for name, n in train_phase().items():
         flash[name]["launches"] = n
         flash[name]["launches_by_phase"] = {"train": n}
@@ -5889,7 +6558,7 @@ def main() -> int:
     print(json.dumps({"kernels": [entry]
                       + [flash[n] for n in ("fwd", "dq", "dkv")]
                       + [fused[n] for n in ("fwd", "dgrad", "wgrad")]
-                      + [conv, requant]}))
+                      + [conv, requant, w8]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,12 @@ magnitude of the same row of the plain result
 span orders, so a tensor-wide scale would hide a fault in the late rows):
 2e-5 for f32 (sums in another order), 2e-2 for bf16 (p and ds are rounded
 to bf16 relative to the running max in the kernels and to the final max in
-the plain version, and outputs are bf16: a few bf16 ulps)."""
+the plain version, and outputs are bf16: a few bf16 ulps).
+
+The weight-only int8 projection (W8A16) is held row by row too, within
+5e-5 of each row's largest plain value: the kernel and its plain version
+differ only in the order of f32 sums (every bf16 product is exact); the
+dynamic scheme's int8 product bitwise the CPU's."""
 
 import pytest
 import torch
@@ -770,6 +775,90 @@ def test_kv_requant_kernel_refuses_rather_than_falls_back(card):
         kr.kv_requant_cuda(strided, vc, ks, vs, ka, va)
     with pytest.raises(ValueError, match="f32"):
         kr.kv_requant(kc, vc, ks, vs, ka.double(), va)
+
+
+# -- the weight-only int8 projection (W8A16) --------------------------------
+
+#: (M, N, K): decode rows on the split path (the 137m LM's fc2 and fc1),
+#: a prefill on unsplit 64-row tiles, ResNet-50's head at batch 256 (split
+#: 64-row tiles), and a ragged case where no dimension is a multiple of 16
+W8A16_CASES = [(1, 768, 3072), (4, 3072, 768), (2048, 768, 3072),
+               (256, 1000, 2048), (37, 91, 203)]
+#: per output row, relative to the row's largest plain value: the kernel
+#: and the plain version differ only in the order of f32 sums (every bf16
+#: product is exact in f32)
+W8A16_ROW_RTOL = 5e-5
+
+
+def _w8a16_inputs(m, n, k, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+    wq = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda",
+                       generator=g)
+    scale = torch.rand(n, 1, device="cuda", generator=g) * 1e-2 + 1e-4
+    return x, wq, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["f32", "f32_bias", "bf16_bias"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", W8A16_CASES)
+def test_w8a16_kernel_matches_plain_version(card, case, dtype, epilogue):
+    """The f32 output (QuantizedLinear, with and without its bias) within
+    ``W8A16_ROW_RTOL``; the bf16 output and bias (the bf16 serving
+    projection) within 2^-6 of the row's largest value more: the output's
+    and the bias add's roundings may each land one bf16 ulp apart, and an
+    ulp is at most 2^-7 of its value."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops import w8a16 as w8
+
+    x, wq, scale = _w8a16_inputs(*case, dtype, seed=sum(case))
+    out_dt = torch.bfloat16 if epilogue.startswith("bf16") else torch.float32
+    bias = (torch.randn(case[1], device="cuda").to(out_dt)
+            if epilogue.endswith("bias") else None)
+    w8.launches = 0
+    got = w8.w8a16(x, wq, scale, bias, out_dt)
+    again = w8.w8a16(x, wq, scale, bias, out_dt)
+    torch.cuda.synchronize()
+    assert w8.launches == 2 and got.dtype == out_dt
+    assert torch.equal(got, again)          # the split sums run in order
+    want = w8.w8a16_plain(x, wq, scale, bias, out_dt)
+    tol = W8A16_ROW_RTOL + (2.0 ** -6 if out_dt == torch.bfloat16 else 0.0)
+    assert fa.max_row_rel_err(got, want, floor=0.0) <= tol
+
+
+@pytest.mark.cuda
+def test_w8a16_kernel_refuses_rather_than_falls_back(card):
+    from bigdl_tpu_torch.ops import w8a16 as w8
+
+    x, wq, scale = _w8a16_inputs(4, 64, 64, torch.float32, seed=2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        w8.w8a16_cuda(x.cpu(), wq.cpu(), scale.cpu())
+    with pytest.raises(ValueError, match="int8"):
+        w8.w8a16(x, wq.float(), scale)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        w8.w8a16(x.half(), wq, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        w8.w8a16(x, wq.t().contiguous().t(), scale)
+    with pytest.raises(ValueError, match="bias"):
+        w8.w8a16(x, wq, scale, torch.zeros(64, device="cuda"),
+                 torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(5, 10, 147), (300, 64, 576),
+                                   (17, 1000, 2048)])
+def test_dynamic_int8_product_bitwise_the_cpu_integer_product(card, m, n, k):
+    """``torch._int_mm`` over zero-padded operands (rows, K and N off its
+    shape rules included) against the CPU's int32 matmul, bitwise."""
+    from bigdl_tpu_torch.nn.quantized import int8_matmul
+
+    g = torch.Generator().manual_seed(m + n + k)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g)
+    got = int8_matmul(a.to(card), b.to(card))
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), int8_matmul(a, b))
 
 
 # -- the serving engine's admission and scheduling modes on the card -------

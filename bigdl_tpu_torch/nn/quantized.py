@@ -73,11 +73,12 @@ def _div127(t):
     return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
 
 
-def quantize_symmetric(w, dims):
-    """Symmetric int8 quantization (``quantized.py:28-36``). ``dims``: the
-    dims reduced for the scale (all but the output channel). Returns
-    ``(int8 codes, f32 scale)``, the scale keeping the reduced dims."""
-    amax = w.abs().amax(dim=dims, keepdim=True)
+def quantize_symmetric(w, axis):
+    """Symmetric int8 quantization (``quantized.py:28-36``). ``axis``: the
+    dim or dims reduced for the scale (all but the output channel), as in
+    JAX. Returns ``(int8 codes, f32 scale)``, the scale keeping the
+    reduced dims."""
+    amax = w.abs().amax(dim=axis, keepdim=True)
     scale = _div127(torch.clamp_min(amax, 1e-8))
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale

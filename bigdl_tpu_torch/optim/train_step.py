@@ -132,9 +132,20 @@ def module_regularizers(model):
     return out
 
 
-def apply_module_regularizers(regs, params, grads):
-    """Add each regularizer's gradient term (``regs`` from
-    :func:`module_regularizers`); returns a new grads dict."""
+def _regs_of(model_or_regs):
+    """The ``[(name, regularizer)]`` list itself, or a module's through
+    :func:`module_regularizers` (JAX's functions take the model)."""
+    if isinstance(model_or_regs, torch.nn.Module):
+        return module_regularizers(model_or_regs)
+    return model_or_regs
+
+
+def apply_module_regularizers(model, params, grads):
+    """Add each regularizer's gradient term; returns a new grads dict.
+    ``model``: the model, as JAX takes it (``bigdl_tpu/optim/train_step.py
+    :94``), or the list :func:`module_regularizers` returns (the port's
+    step computes it once)."""
+    regs = _regs_of(model)
     if not regs:
         return grads
     out = dict(grads)
@@ -143,12 +154,13 @@ def apply_module_regularizers(regs, params, grads):
     return out
 
 
-def regularizer_loss(regs, params) -> Any:
-    """The regularizers' penalty on ``params`` (``regs`` from
-    :func:`module_regularizers`): the loss term whose gradient
-    :func:`apply_module_regularizers` adds."""
+def regularizer_loss(model, params) -> Any:
+    """The regularizers' penalty on ``params``: the loss term whose
+    gradient :func:`apply_module_regularizers` adds. ``model``: the model,
+    as JAX takes it (``bigdl_tpu/optim/train_step.py:177``), or the list
+    :func:`module_regularizers` returns."""
     total = 0.0
-    for name, reg in regs:
+    for name, reg in _regs_of(model):
         total = total + reg.loss_term(params[name])
     return total
 

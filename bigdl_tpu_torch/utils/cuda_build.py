@@ -100,3 +100,13 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             lib = _loaded[name] = ctypes.CDLL(library_path(name))
         return lib
+
+
+def raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as the integer handle
+    the kernels' C entries take: ``torch.cuda.current_stream(index)
+    .cuda_stream`` without building a ``Stream`` object, which costs a
+    launch of a short kernel several microseconds of host time."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)

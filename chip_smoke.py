@@ -59,11 +59,15 @@ any failure raises, so the exit code is non-zero and no result prints:
               2048 (a 16 x 128 prefill), called as the bf16 serving
               projection calls it (bf16 x, output and bias), at
               ResNet-50's weight-only head (M 256, K 2048, N 1000, f32 x,
-              output and bias) and at a ragged M 37 / 5, K 203, N 91 (f32
-              x and output with and without an f32 bias, and bf16): each
-              output row's error
-              relative to that row's largest plain value within
-              ``W8A16_ROW_RTOL``; kernel times
+              output and bias), at a ragged M 37 / 5, K 203, N 91 (f32
+              x and output with and without an f32 bias, and bf16), at
+              the regime boundary (M 16 and 17 at fc1, bf16 and f32) and
+              at decode plans that split K over 1, 2 and 8 blocks of a
+              cluster (picked through ``launch_plan``): each output row's
+              error relative to that row's largest plain value within
+              ``W8A16_ROW_RTOL``, and a second call bitwise the first;
+              the wrapper's median host time per call beside the bf16
+              ``F.linear``'s at fc1 M 16; kernel times
               (mean, median, min-max) beside the plain version, the
               two-call ``F.linear(x, weight_q.to(bf16))``, the bf16 model's
               ``F.linear`` on a pre-cast bf16 weight (the library column,
@@ -471,12 +475,14 @@ def ptxas_summary(log: str) -> dict:
 WGMMA_KERNELS = {"conv3x3": ("conv3x3_wgmma",),
                  "flash_attention": ("fwd_wgmma", "dq_wgmma", "dkv_wgmma"),
                  "fused_conv": ("fwd_wgmma", "fwd_panel_wgmma", "dgrad_wgmma",
-                                "wgrad_wgmma")}
+                                "wgrad_wgmma"),
+                 "w8a16": ("w8a16_wgmma",)}
 #: kernels, by library, that must build without a "wgmma ... serialized"
 #: ptxas line (by library: both libraries have a ``fwd_wgmma``)
 NO_SERIALIZED_WGMMA = {"flash_attention": ("dq_wgmma", "dkv_wgmma"),
                        "fused_conv": ("fwd_wgmma", "fwd_panel_wgmma",
-                                      "dgrad_wgmma", "wgrad_wgmma")}
+                                      "dgrad_wgmma", "wgrad_wgmma"),
+                       "w8a16": ("w8a16_wgmma",)}
 
 
 def hgmma_per_kernel(name: str) -> dict:
@@ -581,6 +587,38 @@ def time_stats(fn, reps: int = 30, flush=None) -> dict:
         times.append(start.elapsed_time(end))
     return {"mean": float(np.mean(times)), "median": float(np.median(times)),
             "min": min(times), "max": max(times), "host_ms_max": host_max}
+
+
+def device_us(fn, flush, reps: int = 20) -> float:
+    """Median time on the card in microseconds of the kernels one call of
+    ``fn`` launches, summed per call, by ``torch.profiler`` (no host time
+    and no event overhead: the launch gap a CUDA-event pair holds is left
+    out), ``flush`` overwritten before each call; elementwise and memset
+    kernels (the flush's, a wrapper's allocations) are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type.name == "CUDA"
+                      and "elementwise" not in e.name
+                      and "Memset" not in e.name),
+                     key=lambda e: e.time_range.start)
+    per = len(kernels) // reps        # kernels per call
+    if per == 0 or len(kernels) % reps:   # the profiler dropped events
+        return float("nan")
+    sums = sorted(sum(e.time_range.elapsed_us()
+                      for e in kernels[i * per:(i + 1) * per])
+                  for i in range(reps))
+    return float(sums[len(sums) // 2])
 
 
 def time_ms(fn, reps: int = 30, flush=None) -> float:
@@ -1285,7 +1323,8 @@ CONV3X3_CASES = [("s1 56² 64", 256, 56, 56, 64, 64, "bf16"),
 # f32 result; an f32 output differs by sum order and by the algorithm cuDNN
 # picks (a Winograd or FFT transform rounds in other places)
 CONV3X3_LIB_RTOL = {"bf16": 1e-2, "f32": 1e-4}
-CONV3X3_TIMED_CALLS = 3 + 30      # time_ms: 3 warm-up calls + 30 timed
+CONV3X3_TIMED_CALLS = 3 + 30      # time_ms: 3 warm-up calls + 30 timed,
+#                                   plus any launch it takes again
 
 
 def conv3x3_phase():
@@ -1345,8 +1384,13 @@ def conv3x3_phase():
         ms = time_ms(lambda: launched(lib_c.bigdl_conv3x3(
             x.data_ptr(), w9.data_ptr(), out.data_ptr(), n, h, w, c, k, 1,
             stream)), flush=flush)
+        retaken = HOST_ENQUEUE["over_guard"] - HOST_ENQUEUE["kept_over_guard"]
         entry_ms = time_ms(lambda: cv.conv3x3(x, w9), flush=flush)
-        expected += CONV3X3_TIMED_CALLS
+        # each launch time_stats took again (its enqueue outlasted the
+        # guard) launched once more
+        expected += CONV3X3_TIMED_CALLS + (
+            HOST_ENQUEUE["over_guard"] - HOST_ENQUEUE["kept_over_guard"]
+            - retaken)
         plain_ms = time_ms(lambda: cv.conv3x3_reference(x, w9), reps=5,
                            flush=flush)
         # the library: one cuDNN call on the same bf16 values, x as its
@@ -5867,6 +5911,27 @@ W8A16_ROWS = (1, 4, 8, 16, 2048)
 #: ulp apart, and a bf16 ulp is at most 2^-7 of its value: 2^-6 of the
 #: row's largest value
 W8A16_ROW_RTOL = {"f32": 5e-5, "bf16": 2.0 ** -6}
+#: decode shapes (N, K) searched through ``launch_plan`` for a plan that
+#: splits K over a cluster of 1, 2 and 8 blocks on this card
+W8A16_SPLIT_SHAPES = ((3072, 768), (2048, 768), (768, 3072), (320, 2048),
+                      (192, 4096))
+
+
+def host_enqueue_us(fn, reps: int = 300) -> float:
+    """Median host time of one call of ``fn`` in microseconds (the
+    enqueue: nothing waits for the card)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def w8a16_phase():
@@ -5874,7 +5939,9 @@ def w8a16_phase():
     shapes, called as the bf16 serving projection calls it (bf16 x, bf16
     output, bf16 bias), at ResNet-50's weight-only head at batch 256 and
     at ragged shapes, both with f32 x and output (the ``QuantizedLinear``
-    call, with and without its f32 bias); times beside the plain version,
+    call, with and without its f32 bias), at the regime boundary and at
+    planned split counts 1, 2 and 8, every call repeated bitwise; the
+    wrapper's host time per call at fc1 M 16; times beside the plain version,
     the two-call ``F.linear(x_bf16, weight_q.to(bf16), bias_bf16)``, the
     bf16 model's ``F.linear`` on a pre-cast weight (the library column:
     not the same function) and the bound. Returns the kernel's summary
@@ -5894,7 +5961,15 @@ def w8a16_phase():
     cases += [("resnet50_head", 256, 2048, 1000, f32, f32, True),
               ("ragged", 37, 203, 91, f32, f32, True),
               ("ragged", 5, 203, 91, f32, f32, False),
-              ("ragged", 5, 203, 91, bf16, bf16, True)]
+              ("ragged", 5, 203, 91, bf16, bf16, True),
+              # the regime boundary: M 16 decodes, M 17 takes the next
+              ("boundary", 16, 768, 3072, bf16, bf16, True),
+              ("boundary", 17, 768, 3072, bf16, bf16, True),
+              ("boundary", 17, 768, 3072, f32, f32, True)]
+    for want in (1, 2, 8):       # a decode plan splitting K over `want`
+        n, k = next((n, k) for n, k in W8A16_SPLIT_SHAPES
+                    if w8.launch_plan(8, n, k, sms).splits == want)
+        cases.append((f"splits{want}", 8, k, n, bf16, bf16, True))
     entry = None
     for name, m, k, n, dt, out_dt, with_bias in cases:
         wq = torch.randint(-127, 128, (n, k), dtype=torch.int8,
@@ -5904,23 +5979,28 @@ def w8a16_phase():
         bias = (torch.randn(n, device="cuda", generator=g).to(out_dt)
                 if with_bias else None)
         got = w8.w8a16(x, wq, scale, bias, out_dt)
+        again = w8.w8a16(x, wq, scale, bias, out_dt)
         want = w8.w8a16_plain(x, wq, scale, bias, out_dt)
         torch.cuda.synchronize()
         err = fa.max_row_rel_err(got, want, floor=0.0)
         abs_err = float((got.float() - want.float()).abs().max())
         tol = W8A16_ROW_RTOL["bf16" if out_dt == bf16 else "f32"]
-        splits = w8.split_plan(m, n, k, sms)
+        plan = w8.launch_plan(m, n, k, sms, dt == bf16, k % 16 == 0,
+                              out_dt == bf16)
         fields = dict(kernel="w8a16", case=f"{name}_m{m}", shape=[m, k, n],
                       x_dtype=str(dt), out_dtype=str(out_dt),
-                      bias=with_bias, splits=splits[0],
+                      bias=with_bias, plan=plan._asdict(),
                       max_row_rel_err=err, max_abs_err=abs_err, tol=tol,
+                      repeat_bitwise=bool(torch.equal(got, again)),
                       why="f32 sums in another order (bf16 products exact); "
                           "a bf16 output's two roundings one ulp apart")
         if not (bool(torch.isfinite(got).all()) and err <= tol
-                and got.dtype == out_dt):
+                and got.dtype == out_dt and fields["repeat_bitwise"]):
             emit("kernels", **fields)
-            raise AssertionError(f"w8a16 {name} m{m}: row error {err}")
-        if name == "ragged":
+            raise AssertionError(f"w8a16 {name} m{m}: row error {err} "
+                                 f"(repeat bitwise: "
+                                 f"{fields['repeat_bitwise']})")
+        if name == "ragged" or name.startswith(("boundary", "splits")):
             emit("kernels", **fields)
             continue
         kern = time_stats(lambda: w8.w8a16(x, wq, scale, bias, out_dt),
@@ -5950,6 +6030,13 @@ def w8a16_phase():
                       roofline_share=bound_ms / kern["mean"])
         emit("kernels", **fields)
         if (name, m) == ("fc1", 16):
+            emit("kernels", kernel="w8a16", case="host_enqueue_fc1_m16",
+                 wrapper_us=host_enqueue_us(
+                     lambda: w8.w8a16(x, wq, scale, bias, out_dt)),
+                 f_linear_us=host_enqueue_us(
+                     lambda: F.linear(xb, w_bf16, bb)),
+                 what="median host time per call: the wrapper (checks, "
+                      "cached plan, one launch) beside the bf16 F.linear")
             entry = {"name": "w8a16", "route": "cuda",
                      "source": "bigdl_tpu_torch/csrc/w8a16.cu",
                      "replaces": "bigdl_tpu/models/transformer.py:674",

@@ -706,9 +706,10 @@ def test_conv3x3_kernel_takes_views_and_refuses_rather_than_falls_back(card):
 # -- the int8 KV cache's grow-only requantize ------------------------------
 
 #: (n, L, h, d, byte offset into the buffer): the serving shape and a small
-#: one on 16-byte loads, an odd head dim and a misaligned view on byte loads
+#: one on 16-byte loads, an odd head dim and a misaligned view on byte
+#: loads, and L 300 with 170 positions a chunk (not a multiple of it)
 REQUANT_CASES = [(16, 512, 12, 64, 0), (3, 37, 5, 32, 0), (3, 37, 5, 20, 0),
-                 (2, 9, 3, 48, 8)]
+                 (2, 9, 3, 48, 8), (2, 300, 3, 64, 0)]
 
 
 def _requant_inputs(n, L, h, d, offset, seed):
@@ -763,6 +764,47 @@ def test_kv_requant_kernel_matches_plain_version_bitwise(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("growth", ["none", "all", "mixed"])
+@pytest.mark.parametrize("L", [512, 300])
+def test_kv_requant_kernel_growth_cases_bitwise(card, growth, L):
+    """No pair grown (every block leaves, the caches untouched), every pair
+    grown and a mix, each with a zero-scale row (row 0: grows from zero in
+    "all" and "mixed", stays zero in "none") and an inactive row (row 1,
+    amax 0): caches and scales bitwise the plain version; at L 300 the
+    row's last chunk is partial."""
+    from bigdl_tpu_torch.ops import kv_requant as kr
+
+    n, h, d = 4, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(L + len(growth))
+
+    def cache():
+        return torch.randint(-127, 128, (n, L, h, d), dtype=torch.int8,
+                             device="cuda", generator=g)
+
+    def scales():
+        s_old = torch.rand(n, h, device="cuda", generator=g) * 0.1 + 0.01
+        s_old[0] = 0.0
+        grow = torch.rand(n, h, device="cuda", generator=g) < 0.5
+        grow[:] = grow if growth == "mixed" else growth == "all"
+        amax = torch.where(grow, (s_old + 0.01) * 127 * 2, s_old * 127 * 0.5)
+        amax[1] = 0.0
+        return s_old, amax
+
+    kc, vc = cache(), cache()
+    (ks, ka), (vs, va) = scales(), scales()
+    want = kr.kv_merge_reference(kc, vc, ks, vs, ka, va)
+    k0, v0 = kc.clone(), vc.clone()
+    got = kr.kv_requant(kc, vc, ks, vs, ka, va)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    if growth == "none":
+        assert torch.equal(kc, k0) and torch.equal(vc, v0)
+    else:
+        assert not torch.equal(kc, k0) and not torch.equal(vc, v0)
+
+
+@pytest.mark.cuda
 def test_kv_requant_kernel_refuses_rather_than_falls_back(card):
     from bigdl_tpu_torch.ops import kv_requant as kr
 
@@ -779,11 +821,15 @@ def test_kv_requant_kernel_refuses_rather_than_falls_back(card):
 
 # -- the weight-only int8 projection (W8A16) --------------------------------
 
-#: (M, N, K): decode rows on the split path (the 137m LM's fc2 and fc1),
-#: a prefill on unsplit 64-row tiles, ResNet-50's head at batch 256 (split
-#: 64-row tiles), and a ragged case where no dimension is a multiple of 16
+#: (M, N, K): decode rows (the 137m LM's fc2 and fc1), a prefill (the
+#: wgmma kernel for bf16 x, 64-row mma.sync tiles for f32 x), ResNet-50's
+#: head at batch 256, a ragged case where no dimension is a multiple of 16,
+#: the regime boundary (M 16 decode, M 17 the next regime) at the 137m
+#: LM's fc1, the head's prefill (256-row wgmma tiles for a bf16 output),
+#: and decode rows with a ragged N and K
 W8A16_CASES = [(1, 768, 3072), (4, 3072, 768), (2048, 768, 3072),
-               (256, 1000, 2048), (37, 91, 203)]
+               (256, 1000, 2048), (37, 91, 203), (16, 3072, 768),
+               (17, 3072, 768), (512, 32768, 768), (5, 91, 203)]
 #: per output row, relative to the row's largest plain value: the kernel
 #: and the plain version differ only in the order of f32 sums (every bf16
 #: product is exact in f32)
@@ -824,6 +870,38 @@ def test_w8a16_kernel_matches_plain_version(card, case, dtype, epilogue):
     assert torch.equal(got, again)          # the split sums run in order
     want = w8.w8a16_plain(x, wq, scale, bias, out_dt)
     tol = W8A16_ROW_RTOL + (2.0 ** -6 if out_dt == torch.bfloat16 else 0.0)
+    assert fa.max_row_rel_err(got, want, floor=0.0) <= tol
+
+
+#: decode shapes whose plan on the card splits K over a cluster of 1, 2
+#: or 8 blocks (searched through launch_plan with the card's SM count)
+W8A16_SPLIT_SHAPES = [(3072, 768), (2048, 768), (4096, 768), (768, 3072),
+                      (320, 2048), (192, 4096), (96, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8a16_kernel_at_planned_split_counts(card, splits, dtype):
+    """A decode call whose ``launch_plan`` splits K over ``splits`` blocks
+    of one cluster: within the tolerance of the plain version, bitwise
+    the same on a repeat (the cluster sums the splits in order)."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops import w8a16 as w8
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    shape = next(((n, k) for n, k in W8A16_SPLIT_SHAPES
+                  if w8.launch_plan(8, n, k, sms).splits == splits), None)
+    assert shape is not None, f"no shape plans {splits} splits on {sms} SMs"
+    n, k = shape
+    x, wq, scale = _w8a16_inputs(8, n, k, dtype, seed=splits)
+    bias = torch.randn(n, device="cuda").to(dtype)
+    got = w8.w8a16(x, wq, scale, bias, dtype)
+    again = w8.w8a16(x, wq, scale, bias, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = w8.w8a16_plain(x, wq, scale, bias, dtype)
+    tol = W8A16_ROW_RTOL + (2.0 ** -6 if dtype == torch.bfloat16 else 0.0)
     assert fa.max_row_rel_err(got, want, floor=0.0) <= tol
 
 

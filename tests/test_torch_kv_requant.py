@@ -17,6 +17,10 @@ bigdl_tpu_torch/models/transformer.py), on the CPU:
   only on growth (that spelling is copied here as the reference), with
   steps of both kinds in the run.
 
+* the kernel's work split (``chunk_plan``): over a grid of shapes every
+  (cache, row, head, position) is in exactly one block's chunk, and a
+  chunk stays within the block's bytes unless one position exceeds them.
+
 The kernel itself is held to its plain version on the card in
 tests/test_torch_cuda.py. Every other comparison here is exact."""
 
@@ -218,3 +222,23 @@ def test_137m_shaped_decode_unchanged_against_the_parent(monkeypatch):
         assert torch.equal(g, w)
     for k, v in want_carry.items():
         assert torch.equal(got_carry[k], v), k
+
+
+@pytest.mark.parametrize("n,L,h,d", [(16, 512, 12, 64), (3, 37, 5, 20),
+                                     (2, 300, 3, 64), (1, 1, 1, 16),
+                                     (2, 9, 64, 128), (4, 1000, 256, 256)])
+def test_chunk_plan_covers_each_pair_and_position_once(n, L, h, d):
+    """Block (cache c, row r, part p) of the kernel's grid 2 n chunks takes
+    positions p chunk .. min(L, (p + 1) chunk) of every head of its row:
+    each (cache, row, head, position) once."""
+    from bigdl_tpu_torch.ops.kv_requant import CHUNK_BYTES, chunk_plan
+
+    chunk, chunks = chunk_plan(L, h, d)
+    assert chunk >= 1 and chunks == -(-L // chunk)
+    assert chunk * h * d <= CHUNK_BYTES or chunk == 1
+    seen = np.zeros((2, n, h, L), np.int64)
+    for block in range(2 * n * chunks):
+        rc, part = divmod(block, chunks)
+        c, row = divmod(rc, n)
+        seen[c, row, :, part * chunk:min(L, (part + 1) * chunk)] += 1
+    assert (seen == 1).all()

@@ -170,6 +170,66 @@ def test_regularized_train_step_matches_jax(kind):
     assert moved > 1e-4
 
 
+@pytest.fixture(scope="module")
+def lenet_l2():
+    """(JAX LeNet5, port LeNet5) with the same weights, both convolutions
+    and both linear layers carrying an L2 regularizer on weight and bias."""
+    from bigdl_tpu.models import LeNet5 as JLeNet5
+    from bigdl_tpu.optim import regularizer as jreg
+    from bigdl_tpu.utils.random_gen import RNG
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.optim import regularizer as treg
+    from bigdl_tpu_torch.utils.params_tree import load_jax_tree
+
+    RNG.set_seed(11)
+    jm = JLeNet5(10)
+    jm._ensure_params()
+    tm = LeNet5(10, device="cpu")
+    load_jax_tree(tm, jax.device_get(jm.params))
+    for mods, reg in ((jm.modules, jreg), (list(tm.children()), treg)):
+        for m in mods:
+            if type(m).__name__ in ("SpatialConvolution", "Linear"):
+                m.w_regularizer = reg.L2Regularizer(0.02)
+                m.b_regularizer = reg.L2Regularizer(0.005)
+    return jm, tm
+
+
+@pytest.mark.parametrize("form", ["model", "list"])
+def test_regularizer_functions_take_jax_model_form(lenet_l2, form):
+    """``apply_module_regularizers`` and ``regularizer_loss`` called as
+    JAX calls them, with the model (``bigdl_tpu/optim/train_step.py:94``,
+    ``:177``), and with the port's list from ``module_regularizers``:
+    the same gradients and penalty as JAX's on LeNet-5 with L2 on every
+    conv and linear layer (1e-6 relative: f32 sums in another order)."""
+    from bigdl_tpu.optim import train_step as jts
+    from bigdl_tpu_torch.optim import train_step as tts
+    from bigdl_tpu_torch.utils.params_tree import named_leaves
+
+    jm, tm = lenet_l2
+    rng = np.random.default_rng(12)
+    jgrads = jax.tree_util.tree_map(
+        lambda p: jnp.asarray(rng.standard_normal(p.shape).astype(
+            np.float32)), jm.params)
+    params = {k: p.detach().clone() for k, p in tm.named_parameters()}
+    grads = {k: torch.from_numpy(np.asarray(v).copy())
+             for k, v in named_leaves(tm, jax.device_get(jgrads)).items()}
+    target = tm if form == "model" else tts.module_regularizers(tm)
+    got = tts.apply_module_regularizers(target, params, grads)
+    want = named_leaves(tm, jax.device_get(
+        jts.apply_module_regularizers(jm, jm.params, jgrads)))
+    assert set(got) == set(want) == set(params)
+    moved = 0.0
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+        moved = max(moved, float((got[k] - grads[k]).abs().max()))
+    assert moved > 1e-4                       # the regularizers acted
+    loss = float(tts.regularizer_loss(target, params))
+    assert loss == pytest.approx(
+        float(jts.regularizer_loss(jm, jm.params)), rel=1e-6)
+    assert loss > 0
+
+
 def test_regularizer_terms_match_jax():
     from bigdl_tpu.optim import regularizer as jreg
     from bigdl_tpu_torch.optim import regularizer as treg

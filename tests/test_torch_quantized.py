@@ -81,11 +81,18 @@ def _code_mismatches(w, scale, got_q, want_q):
     ((16, 8, 3, 3), (-3, -2, -1), (1, 2, 3)),
 ])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_quantize_symmetric_matches_jax(shape, dims, axis, seed):
+@pytest.mark.parametrize("spelling", ["dims", "axis_keyword"])
+def test_quantize_symmetric_matches_jax(shape, dims, axis, seed, spelling):
+    """Both spellings: the port's negative dims positionally, and JAX's own
+    call, ``axis=`` by keyword with JAX's dims (``quantized.py:66``,
+    ``:134``)."""
     w = _np(seed, *shape, scale=0.3)
     w.reshape(shape[0], -1)[0] = 0.0           # an all-zero channel: 1e-8
-    jqv, jscale = jq.quantize_symmetric(jnp.asarray(w), axis)
-    got_q, got_s = tq.quantize_symmetric(torch.from_numpy(w), dims)
+    jqv, jscale = jq.quantize_symmetric(jnp.asarray(w), axis=axis)
+    if spelling == "dims":
+        got_q, got_s = tq.quantize_symmetric(torch.from_numpy(w), dims)
+    else:
+        got_q, got_s = tq.quantize_symmetric(torch.from_numpy(w), axis=axis)
     jqv, jscale = np.asarray(jqv), np.asarray(jscale)
     assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
     assert got_s.shape == jscale.shape

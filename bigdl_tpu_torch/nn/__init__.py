@@ -1,29 +1,44 @@
 """Layers of the port (``bigdl_tpu.nn`` counterparts), as ``nn.Module``s."""
 
-from bigdl_tpu_torch.nn.activations import LogSoftMax, ReLU, Tanh
+from bigdl_tpu_torch.nn.activations import (
+    ELU, GELU, HardTanh, LeakyReLU, LogSoftMax, PReLU, ReLU, ReLU6, Sigmoid,
+    SoftMax, SoftPlus, SoftSign, Tanh,
+)
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch, beam_search
 from bigdl_tpu_torch.nn.containers import (
-    Concat, ConcatTable, Container, Remat, Sequential,
+    Bottle, Concat, ConcatTable, Container, MapTable, ParallelTable, Remat,
+    Sequential,
 )
-from bigdl_tpu_torch.nn.conv import SpatialConvolution
+from bigdl_tpu_torch.nn.conv import SpatialConvolution, SpatialFullConvolution
 from bigdl_tpu_torch.nn.criterion import (
-    AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion,
-    ParallelCriterion, TimeDistributedCriterion,
+    AbsCriterion, AbstractCriterion, BCECriterion, ClassNLLCriterion,
+    CrossEntropyCriterion, DistKLDivCriterion, MarginCriterion, MSECriterion,
+    MultiLabelSoftMarginCriterion, ParallelCriterion, SmoothL1Criterion,
+    TimeDistributedCriterion,
 )
 from bigdl_tpu_torch.nn.criterion_more import (
-    MaskedSoftmaxCECriterion, TimeDistributedMaskCriterion,
+    CategoricalCrossEntropy, KullbackLeiblerDivergenceCriterion,
+    L1HingeEmbeddingCriterion, MaskedSoftmaxCECriterion,
+    MeanAbsolutePercentageCriterion, MeanSquaredLogarithmicCriterion,
+    PoissonCriterion, TimeDistributedMaskCriterion,
 )
 from bigdl_tpu_torch.nn.graph import Graph, Input, ModuleNode
 from bigdl_tpu_torch.nn.init_methods import (
-    ConstInitMethod, InitializationMethod, MsraFiller, Ones, RandomNormal,
-    RandomUniform, Xavier, Zeros,
+    BilinearFiller, ConstInitMethod, InitializationMethod, MsraFiller, Ones,
+    RandomNormal, RandomUniform, Xavier, Zeros,
 )
 from bigdl_tpu_torch.nn.linear import Linear
-from bigdl_tpu_torch.nn.misc import Dropout, LookupTable
-from bigdl_tpu_torch.nn.module import AbstractModule, Identity, TensorModule
+from bigdl_tpu_torch.nn.misc import (
+    MM, MV, Abs, Add, AddConstant, CAdd, Clamp, CMul, Dropout, Exp, Log,
+    LookupTable, Max, Mean, Min, Mul, MulConstant, Power, Sqrt, Square, Sum,
+)
+from bigdl_tpu_torch.nn.module import (
+    AbstractModule, Echo, Identity, TensorModule,
+)
 from bigdl_tpu_torch.nn.normalization import (
-    BatchNormalization, SpatialBatchNormalization, SpatialCrossMapLRN,
+    BatchNormalization, Normalize, SpatialBatchNormalization,
+    SpatialCrossMapLRN,
 )
 from bigdl_tpu_torch.nn.pooling import SpatialAveragePooling, SpatialMaxPooling
 from bigdl_tpu_torch.nn.quantized import (
@@ -32,7 +47,9 @@ from bigdl_tpu_torch.nn.quantized import (
 )
 from bigdl_tpu_torch.nn.recurrent import LSTM, BiRecurrent, Cell, Recurrent
 from bigdl_tpu_torch.nn.shape_ops import (
-    CAddTable, FlattenTable, Reshape, Select,
+    CAddTable, CAveTable, CDivTable, CMaxTable, CMinTable, CMulTable,
+    Contiguous, CSubTable, FlattenTable, JoinTable, Narrow, Padding, Reshape,
+    Select, SplitTable, Squeeze, Transpose, Unsqueeze, View,
 )
 
 __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
@@ -49,4 +66,20 @@ __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
            "ParallelCriterion", "TimeDistributedCriterion",
            "TimeDistributedMaskCriterion", "MaskedSoftmaxCECriterion",
            "SequenceBeamSearch", "beam_search", "QuantizedLinear",
-           "QuantizedSpatialConvolution", "Quantizer", "quantize_symmetric"]
+           "QuantizedSpatialConvolution", "Quantizer", "quantize_symmetric",
+           # activations, misc, shape/table ops, containers, criteria
+           "ELU", "GELU", "HardTanh", "LeakyReLU", "PReLU", "ReLU6",
+           "Sigmoid", "SoftMax", "SoftPlus", "SoftSign", "MM", "MV", "Abs",
+           "Add", "AddConstant", "CAdd", "Clamp", "CMul", "Exp", "Log",
+           "Max", "Mean", "Min", "Mul", "MulConstant", "Power", "Sqrt",
+           "Square", "Sum", "CAveTable", "CDivTable", "CMaxTable",
+           "CMinTable", "CMulTable", "Contiguous", "CSubTable", "JoinTable",
+           "Narrow", "Padding", "SplitTable", "Squeeze", "Transpose",
+           "Unsqueeze", "View", "Bottle", "MapTable", "ParallelTable",
+           "SpatialFullConvolution", "Normalize", "BilinearFiller", "Echo",
+           "AbsCriterion", "BCECriterion", "DistKLDivCriterion",
+           "MarginCriterion", "MSECriterion", "MultiLabelSoftMarginCriterion",
+           "SmoothL1Criterion", "CategoricalCrossEntropy",
+           "KullbackLeiblerDivergenceCriterion", "L1HingeEmbeddingCriterion",
+           "MeanAbsolutePercentageCriterion",
+           "MeanSquaredLogarithmicCriterion", "PoissonCriterion"]

@@ -1,6 +1,7 @@
 """Containers — ``Container``, ``Sequential``, ``Concat``,
-``ConcatTable`` and ``Remat`` (``bigdl_tpu/nn/containers.py:21``,
-``:61``, ``:82``, ``:108``, ``:195``).
+``ConcatTable``, ``ParallelTable``, ``MapTable``, ``Bottle`` and
+``Remat`` (``bigdl_tpu/nn/containers.py:21``, ``:61``, ``:82``, ``:108``,
+``:127``, ``:146``, ``:171``, ``:195``).
 
 Children are registered under ``f"{i}:{child.name}"`` exactly as the
 JAX container keys its params tree (``containers.py:33``), so the two
@@ -74,6 +75,48 @@ class ConcatTable(Container):
 
     def forward(self, x):
         return [m(x) for m in self._modules.values()]
+
+
+class ParallelTable(Container):
+    """Child i on element i of the input table; the output is the list
+    of their outputs (reference ``nn/ParallelTable.scala``)."""
+
+    def forward(self, xs):
+        return [m(x) for m, x in zip(self._modules.values(), xs)]
+
+
+class MapTable(Container):
+    """One child applied to every element of the input table, its
+    parameters shared by every application (reference
+    ``nn/MapTable.scala``)."""
+
+    def __init__(self, module: AbstractModule = None) -> None:
+        super().__init__()
+        if module is not None:
+            self.add(module)
+
+    def forward(self, xs):
+        return [self[0](x) for x in xs]
+
+
+class Bottle(Container):
+    """The child on the input with its leading dims folded into one batch
+    dim, the output's leading dims restored (reference
+    ``nn/Bottle.scala``): the last ``n_input_dim - 1`` dims are the
+    child's per-row input."""
+
+    def __init__(self, module: AbstractModule, n_input_dim: int = 2,
+                 n_output_dim: int = 2) -> None:
+        super().__init__()
+        self.add(module)
+        self.n_input_dim = n_input_dim
+        self.n_output_dim = n_output_dim
+
+    def forward(self, x):
+        split = x.dim() - self.n_input_dim + 1
+        lead, rest = tuple(x.shape[:split]), tuple(x.shape[split:])
+        out = self[0](x.reshape((-1,) + rest))
+        return out.reshape(lead + tuple(out.shape[1:]))
 
 
 class Remat(Container):

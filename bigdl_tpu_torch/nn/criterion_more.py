@@ -1,11 +1,91 @@
-"""Sequence criteria (``bigdl_tpu/nn/criterion_more.py``):
-``TimeDistributedMaskCriterion`` and ``MaskedSoftmaxCECriterion``."""
+"""More criteria (``bigdl_tpu/nn/criterion_more.py``):
+``L1HingeEmbeddingCriterion``, ``PoissonCriterion``, the keras-heritage
+regression losses (``MeanAbsolutePercentageCriterion``,
+``MeanSquaredLogarithmicCriterion``,
+``KullbackLeiblerDivergenceCriterion``, ``CategoricalCrossEntropy``;
+``:20-98``), and the sequence criteria ``TimeDistributedMaskCriterion``
+and ``MaskedSoftmaxCECriterion``. Their clamps at ``_EPS`` are JAX's
+``jnp.maximum``/``jnp.clip`` (half the gradient at an exact bound)."""
 
 from __future__ import annotations
 
 import torch
 
+from bigdl_tpu_torch.nn.activations import clip
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion, _as_tensor
+
+_EPS = 1e-7
+
+
+def _at_least(x, lo: float):
+    return torch.maximum(x, x.new_tensor(lo))
+
+
+class L1HingeEmbeddingCriterion(AbstractCriterion):
+    """Table input ``[x1, x2]`` with target ±1: the L1 distance ``d``
+    between the pair for a similar pair (y = 1), ``max(0, margin - d)``
+    for a dissimilar one (y = -1)."""
+
+    def __init__(self, margin: float = 1.0) -> None:
+        super().__init__()
+        self.margin = margin
+
+    def apply(self, input, target):
+        x1, x2 = input
+        d = torch.abs(x1 - x2).sum()
+        y = _as_tensor(target, x1).reshape(())
+        hinge = self.margin - d
+        return torch.where(y > 0, d, torch.maximum(hinge, hinge.new_zeros(())))
+
+
+class PoissonCriterion(AbstractCriterion):
+    """``mean(p - t·log(max(p, eps)))``."""
+
+    def apply(self, input, target):
+        t = _as_tensor(target, input)
+        return (input - t * torch.log(_at_least(input, _EPS))).mean()
+
+
+class MeanAbsolutePercentageCriterion(AbstractCriterion):
+    """``100 · mean(|t - p| / max(|t|, eps))``."""
+
+    def apply(self, input, target):
+        t = _as_tensor(target, input)
+        return 100.0 * (torch.abs(t - input)
+                        / _at_least(torch.abs(t), _EPS)).mean()
+
+
+class MeanSquaredLogarithmicCriterion(AbstractCriterion):
+    """``mean((log(t + 1) - log(p + 1))²)``, both sides clamped to at
+    least eps."""
+
+    def apply(self, input, target):
+        t = _as_tensor(target, input)
+        lp = torch.log(_at_least(input, _EPS) + 1.0)
+        lt = torch.log(_at_least(t, _EPS) + 1.0)
+        return ((lt - lp) ** 2).mean()
+
+
+class KullbackLeiblerDivergenceCriterion(AbstractCriterion):
+    """Keras-style ``mean over rows of Σ t·log(t / p)``, both sides
+    clipped to [eps, 1] (distinct from ``DistKLDivCriterion``, which
+    takes log-probabilities)."""
+
+    def apply(self, input, target):
+        p = clip(input, _EPS, 1.0)
+        t = clip(_as_tensor(target, input), _EPS, 1.0)
+        return (t * torch.log(t / p)).sum(-1).mean()
+
+
+class CategoricalCrossEntropy(AbstractCriterion):
+    """Cross entropy of PROBABILITY input (clipped to [eps, 1 - eps] and
+    renormalized per row) against one-hot targets."""
+
+    def apply(self, input, target):
+        p = clip(input, _EPS, 1.0 - _EPS)
+        p = p / p.sum(-1, keepdim=True)
+        t = _as_tensor(target, input)
+        return (-(t * torch.log(p)).sum(-1)).mean()
 
 
 class TimeDistributedMaskCriterion(AbstractCriterion):

@@ -1,6 +1,6 @@
 """Initialization methods (``bigdl_tpu/nn/init_methods.py``): ``Zeros``,
 ``Ones``, ``ConstInitMethod``, ``RandomUniform``, ``RandomNormal``,
-``Xavier`` and ``MsraFiller``.
+``Xavier``, ``MsraFiller`` and ``BilinearFiller``.
 
 Each method fills a tensor IN PLACE from an explicit ``torch.Generator``
 (``fill(tensor, generator)``), the PyTorch counterpart of the JAX
@@ -112,3 +112,23 @@ class MsraFiller(InitializationMethod):
         std = float(np.sqrt(2.0 / max(n, 1.0)))
         with torch.no_grad():
             return t.normal_(0.0, std, generator=generator)
+
+
+class BilinearFiller(InitializationMethod):
+    """The bilinear-upsampling kernel for a deconvolution weight (4-D or
+    more): every ``(..., kH, kW)`` slice holds the same filter, drawn
+    from no generator (``init_methods.py:119``)."""
+
+    def fill(self, t, generator=None):
+        shape = tuple(t.shape)
+        if len(shape) < 4:
+            raise ValueError("BilinearFiller needs a 4D+ weight")
+        kh, kw = shape[-2], shape[-1]
+        f_h, f_w = np.ceil(kh / 2.0), np.ceil(kw / 2.0)
+        c_h = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h)
+        c_w = (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+        yy, xx = np.meshgrid(np.arange(kh), np.arange(kw), indexing="ij")
+        filt = (1 - np.abs(yy / f_h - c_h)) * (1 - np.abs(xx / f_w - c_w))
+        w = np.broadcast_to(filt.astype(np.float32), shape)
+        with torch.no_grad():
+            return t.copy_(torch.from_numpy(np.ascontiguousarray(w)))

@@ -23,6 +23,12 @@ the layer's computation. What carries over from the JAX base:
   batch_size)``, ``predict``/``predict_class`` through
   :mod:`bigdl_tpu_torch.optim.evaluator`;
 * ``save``/``load`` (:mod:`bigdl_tpu_torch.utils.file_io`);
+* ``freeze``/``unfreeze``/``frozen_flag``/``is_frozen`` (``:199-252``,
+  the reference's transfer-learning freeze): a tri-state flag per module
+  (``None`` inherits the parent's, ``True``/``False`` are explicit, so an
+  explicit ``False`` overrides a frozen ancestor and ``model.freeze();
+  model.unfreeze("head")`` trains the head). The train steps read it
+  through :func:`bigdl_tpu_torch.optim.train_step.frozen_mask_tree`;
 * ``module.inputs(...)`` (``bigdl_tpu/nn/graph.py:38-43``), which
   attaches the module to a :class:`~bigdl_tpu_torch.nn.graph.Graph` node;
 * the ``rng`` of the JAX ``apply``: stochastic layers (``Dropout``, a
@@ -126,6 +132,49 @@ class AbstractModule(nn.Module):
         from bigdl_tpu_torch.nn.graph import ModuleNode
 
         return ModuleNode(self, nodes)
+
+    # -- freezing (reference Graph.freeze/unfreeze: transfer learning) ----
+
+    def freeze(self, *names: str) -> "AbstractModule":
+        """Stop training this module (no names) or the named sub-modules:
+        the train steps zero their gradients and restore their weights
+        bit for bit after every optimizer update. Optimizer slots of
+        frozen leaves still step with zero gradients (momentum decays);
+        only the WEIGHTS are guaranteed untouched."""
+        self._set_frozen(True, names)
+        return self
+
+    def unfreeze(self, *names: str) -> "AbstractModule":
+        """With names: explicitly unfreeze those sub-modules (overriding
+        frozen ancestors). Without names: clear EVERY freeze flag in the
+        whole tree."""
+        if not names:
+            for m in self.modules():
+                m._frozen = None
+            return self
+        self._set_frozen(False, names)
+        return self
+
+    def _set_frozen(self, value, names) -> None:
+        if not names:
+            self._frozen = value
+            return
+        found = set()
+        for m in self.modules():
+            if getattr(m, "name", None) in names:
+                m._frozen = value
+                found.add(m.name)
+        missing = set(names) - found
+        if missing:
+            raise ValueError(f"freeze/unfreeze: no sub-module named "
+                             f"{sorted(missing)}")
+
+    def frozen_flag(self):
+        """None (inherit) / True / False — see :meth:`freeze`."""
+        return getattr(self, "_frozen", None)
+
+    def is_frozen(self) -> bool:
+        return bool(getattr(self, "_frozen", None))
 
     # -- facade: parameters ------------------------------------------------
 
@@ -358,6 +407,18 @@ class TensorModule(AbstractModule):
 
 class Identity(TensorModule):
     def forward(self, x):
+        return x
+
+
+class Echo(TensorModule):
+    """Debug layer: prints its name and the input's shape at every
+    forward and returns the input (``module.py:529``; under JAX's jit it
+    prints once, at the trace)."""
+
+    def forward(self, x):
+        shape = getattr(x, "shape", None)
+        print(f"[Echo {self.name}] shape="
+              f"{None if shape is None else tuple(shape)}")
         return x
 
 

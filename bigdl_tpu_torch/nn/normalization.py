@@ -1,8 +1,9 @@
 """Batch normalization (``bigdl_tpu/nn/normalization.py``):
 ``BatchNormalization`` (``:24``) over (N, D) and
 ``SpatialBatchNormalization`` (``:128``) per channel over (N, C, H, W);
-and ``SpatialCrossMapLRN`` (``:132``), the local response normalization
-across channels.
+``SpatialCrossMapLRN`` (``:132``), the local response normalization
+across channels; and ``Normalize`` (``:165``), the Lp normalization of
+dim 1.
 
 The semantics of the JAX ``apply`` (``:78-125``), kept exactly (which is
 why ``F.batch_norm``, with its own variance and momentum conventions, is
@@ -151,3 +152,17 @@ class SpatialCrossMapLRN(TensorModule):
         window_sum = sq.unfold(1, self.size, 1).sum(dim=-1)
         out = x / (self.k + (self.alpha / self.size) * window_sum) ** self.beta
         return out[0] if squeeze else out
+
+
+class Normalize(TensorModule):
+    """Lp-normalize along dim 1: ``x / (‖x‖_p + eps)`` with the norm
+    ``sum(|x|^p, dim 1) ** (1/p)`` (``normalization.py:165``)."""
+
+    def __init__(self, p: float = 2.0, eps: float = 1e-10) -> None:
+        super().__init__()
+        self.p = p
+        self.eps = eps
+
+    def forward(self, x):
+        norm = (torch.abs(x) ** self.p).sum(1, keepdim=True) ** (1.0 / self.p)
+        return x / (norm + self.eps)

@@ -10,8 +10,9 @@ from bigdl_tpu_torch.optim.evaluator import (
 )
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import (
-    SGD, Adagrad, Adam, Default, Exponential, LearningRateSchedule, MultiStep,
-    OptimMethod, Plateau, Poly, SequentialSchedule, Step, Warmup,
+    SGD, Adadelta, Adagrad, Adam, Adamax, Default, Exponential, Ftrl,
+    LarsSGD, LearningRateSchedule, MultiStep, OptimMethod, Plateau, Poly,
+    RMSprop, SequentialSchedule, Step, Warmup,
 )
 from bigdl_tpu_torch.optim.optimizer import (
     LocalOptimizer, Optimizer, TrainingPreempted,
@@ -25,7 +26,8 @@ from bigdl_tpu_torch.optim.validation import (
     ValidationMethod, ValidationResult,
 )
 
-__all__ = ["Adagrad", "Adam", "Default", "Exponential", "LearningRateSchedule",
+__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "Ftrl", "LarsSGD",
+           "RMSprop", "Default", "Exponential", "LearningRateSchedule",
            "MultiStep", "OptimMethod", "DistriOptimizer", "Plateau", "Poly",
            "SequentialSchedule", "SGD", "Step", "Warmup", "LocalOptimizer",
            "Optimizer", "TrainingPreempted", "Trigger", "Evaluator",

@@ -47,8 +47,16 @@ vector and its slots are all-gathered on the device), so checkpoints have
 once per validation, each rank scores its own validation data, and the
 results merge across the ranks (``set_validation``'s batch size is
 global). The counterparts of JAX's collectives are ``torch.distributed``'s
-explicit ones (``parallel/all_reduce.py``), not DDP or FSDP. Frozen layers
-are refused, as the port's local step refuses them.
+explicit ones (``parallel/all_reduce.py``), not DDP or FSDP.
+
+Frozen layers (``Module.freeze``) are a flat boolean mask over the
+step's vector (the JAX layout, padding unfrozen), as in JAX
+(``:189``, ``:284``, ``:392``): the frozen elements' gradient is zeroed
+and, after the update, their weights are written back bit for bit from
+a copy taken before it. The partitioned and blockstore modes zero the
+owner's shard before the clipping (the global norm leaves them out), the
+allreduce mode after the regularizers and the clipping, each where JAX
+does; a rank's shard restores exactly the frozen elements it owns.
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ from torch.func import functional_call
 from bigdl_tpu_torch.nn.module import use_rng
 from bigdl_tpu_torch.optim.optimizer import Optimizer
 from bigdl_tpu_torch.optim.train_step import (
-    _refuse_unported, apply_module_regularizers, cast_floats,
+    apply_module_regularizers, cast_floats, frozen_mask_tree,
     module_regularizers, regularizer_loss, resolve_dtype, step_seed,
 )
 from bigdl_tpu_torch.optim.upload import PinnedUploader
@@ -242,19 +250,47 @@ class DistriOptimizer(Optimizer):
             pmean_([loss] + floats, n, group)
         return loss.reshape(())
 
+    def _frozen_elements(self, arp, lo: int = 0, hi: Optional[int] = None):
+        """(mask, indices) of the frozen elements of ``arp``'s padded flat
+        vector in ``[lo, hi)``, on the device, or ``(None, None)`` when
+        nothing is frozen. The indices are taken once here, so the step
+        gathers and scatters them without a host sync."""
+        named = dict(self.model.named_parameters())
+        mask = frozen_mask_tree(self.model, named)
+        if mask is None:
+            return None, None
+        with torch.no_grad():
+            flat = arp.flatten({k: torch.full_like(p, float(mask[k]))
+                                for k, p in named.items()})[lo:hi] > 0.5
+        return flat, flat.nonzero().squeeze(1)
+
+    @staticmethod
+    def _put_back(vec, idx, kept) -> None:
+        """Write the frozen elements' copies ``kept`` back at ``idx``."""
+        if idx is not None:
+            with torch.no_grad():
+                vec.index_copy_(0, idx, kept)
+
     # -- the three steps ----------------------------------------------------
 
     def _build_partitioned_step(self, group, n, rank):
         arp = self._arp = AllReduceParameter(self.model, n, group,
                                              self.compress)
         optim = self.optim_method
+        fr, idx = self._frozen_elements(
+            arp, rank * arp.shard_size, (rank + 1) * arp.shard_size)
 
         def step(shard, opt_state, model_state, rng, inputs, targets):
             loss, gshard = self._grad(shard, arp.get_weights, model_state,
                                       rng, inputs, targets, True)
-            gshard = self._clip(gshard / n, group)
+            gshard = gshard / n
+            if fr is not None:
+                gshard = gshard.masked_fill(fr, 0.0)
+            gshard = self._clip(gshard, group)
+            kept = None if idx is None else shard.index_select(0, idx)
             _, new_opt = optim.update({"flat": gshard}, opt_state,
                                       {"flat": shard})
+            self._put_back(shard, idx, kept)
             return shard, new_opt, model_state, self._pmean_state(
                 loss, model_state, n, group)
 
@@ -265,6 +301,7 @@ class DistriOptimizer(Optimizer):
     def _build_allreduce_step(self, group, n):
         arp = self._arp = AllReduceParameter(self.model, 1)
         optim = self.optim_method
+        fr, idx = self._frozen_elements(arp)
 
         def step(flat, opt_state, model_state, rng, inputs, targets):
             loss, g = self._grad(flat, arp.unflatten, model_state, rng,
@@ -278,7 +315,11 @@ class DistriOptimizer(Optimizer):
                     for name, _ in self._regs:
                         grads[name].copy_(new[name])
             g = self._clip(g)
+            if fr is not None:
+                g = g.masked_fill(fr, 0.0)
+            kept = None if idx is None else flat.index_select(0, idx)
             _, new_opt = optim.update({"flat": g}, opt_state, {"flat": flat})
+            self._put_back(flat, idx, kept)
             return flat, new_opt, model_state, self._pmean_state(
                 loss, model_state, n, group)
 
@@ -309,6 +350,8 @@ class DistriOptimizer(Optimizer):
         l2 = self.grad_clip.get("l2_norm")
         const = self.grad_clip.get("constant")
         counter = {"t": 0}
+        fr, idx = self._frozen_elements(arp, lo, hi)
+        fr_host = None if fr is None else fr.cpu().numpy()
 
         def to_host(t):
             self.host_bytes += t.numel() * t.element_size()
@@ -331,6 +374,8 @@ class DistriOptimizer(Optimizer):
             g_my, _, dropped = bsp.aggregate_my_partition(t)
             if dropped:
                 self.metrics.add("dropped gradients", float(len(dropped)))
+            if fr_host is not None:
+                g_my = np.where(fr_host, np.float32(0.0), g_my)
             if l2 is not None:
                 bsp.publish_aux(t, "gnorm2", np.float64(
                     np.sum(g_my.astype(np.float64) ** 2)))
@@ -342,8 +387,10 @@ class DistriOptimizer(Optimizer):
             mine = master[lo:hi]
             g_dev = torch.from_numpy(np.ascontiguousarray(g_my, np.float32))
             self.host_bytes += g_dev.numel() * 4
+            kept = None if idx is None else mine.index_select(0, idx)
             _, new_opt = optim.update({"flat": g_dev.to(master.device)},
                                       opt_state, {"flat": mine})
+            self._put_back(mine, idx, kept)
             bsp.publish_weights(t + 1, to_host(mine))
             wfull = torch.from_numpy(bsp.get_weights(t + 1))
             self.host_bytes += wfull.numel() * 4
@@ -375,7 +422,6 @@ class DistriOptimizer(Optimizer):
         from bigdl_tpu_torch.parallel.broadcast import ModelBroadcast
 
         self._device = next(self.model.parameters()).device
-        _refuse_unported(self.model)
         self._compute_dtype = resolve_dtype(self.compute_dtype)
         self._regs = module_regularizers(self.model)
         if self.parameter_mode == "blockstore" and self._mesh is None:

@@ -2,7 +2,9 @@
 base with ``save``/``load``/``clear_history``, ``SGD`` with its
 learning-rate schedules (``Default``, ``Step``, ``MultiStep``,
 ``Exponential``, ``Poly``, ``Warmup``, ``SequentialSchedule``,
-``Plateau``; ``:53-190``), ``Adam`` and ``Adagrad`` (``:419``).
+``Plateau``; ``:53-190``), ``Adam``, ``Adagrad`` (``:419``),
+``Adadelta`` (``:449``), ``Adamax`` (``:486``), ``RMSprop`` (``:523``),
+``Ftrl`` (``:556``) and ``LarsSGD`` (``:610``).
 
 Each method keeps the JAX package's functional contract
 ``update(grads, state, params) -> (new_params, new_state)`` over dicts of
@@ -32,8 +34,11 @@ leaves laid end to end, so a leaf's bits are fixed by the step and its
 place in the parameter order. JAX draws
 its noise with threefry, so the two packages round the same value with
 other bits; the rounding given the bits is :func:`_round_with_noise`,
-bitwise JAX's. The other OptimMethods (Adadelta, Adamax, RMSprop, Ftrl,
-LarsSGD, L-BFGS) are not ported.
+bitwise JAX's. L-BFGS is not ported.
+
+Slot names are JAX's (``accum``/``delta_accum``, ``m``/``u``, ``sq``,
+``accum``/``linear``, ``velocity``), so checkpoints and
+:func:`load_jax_opt_state` carry them as they carry Adam's.
 """
 
 from __future__ import annotations
@@ -371,9 +376,7 @@ class Adam(OptimMethod):
 
     def _scalars(self, neval: int):
         t = np.float32(neval + 1)
-        clr = _f32(np.float32(self.learning_rate) / (
-            np.float32(1.0) + np.float32(neval)
-            * np.float32(self.learning_rate_decay)))
+        clr = _clr(self.learning_rate, self.learning_rate_decay, neval)
         bc1 = _f32(np.float32(1.0) - np.float32(self.beta1) ** t)
         bc2 = _f32(np.float32(1.0) - np.float32(self.beta2) ** t)
         return clr, bc1, bc2
@@ -457,9 +460,7 @@ class Adagrad(OptimMethod):
         if self.weight_decay > 0:
             g = torch._foreach_add(g, p, alpha=self.weight_decay)
         neval = state["neval"]
-        clr = _f32(np.float32(self.learning_rate) / (
-            np.float32(1.0) + np.float32(neval)
-            * np.float32(self.learning_rate_decay)))
+        clr = _clr(self.learning_rate, self.learning_rate_decay, neval)
         accum = [state["accum"][k] for k in names]
         torch._foreach_addcmul_(accum, g, g)
         den = torch._foreach_sqrt(accum)
@@ -470,11 +471,234 @@ class Adagrad(OptimMethod):
         return params, {"neval": neval + 1, "accum": state["accum"]}
 
 
+def _clr(learning_rate: float, learning_rate_decay: float, neval: int):
+    """``lr / (1 + neval * decay)`` in f32, as JAX computes it."""
+    return _f32(np.float32(learning_rate) / (
+        np.float32(1.0) + np.float32(neval) * np.float32(learning_rate_decay)))
+
+
+class Adadelta(OptimMethod):
+    """The JAX update (``:449-483``): ``accum = ρ·accum + (1 - ρ)·g²``,
+    ``Δ = g·sqrt(delta_accum + ε) / sqrt(accum + ε)``, ``delta_accum =
+    ρ·delta_accum + (1 - ρ)·Δ²``, ``p -= Δ``."""
+
+    def __init__(self, decay_rate: float = 0.9, epsilon: float = 1e-10) -> None:
+        super().__init__()
+        self.decay_rate = decay_rate
+        self.epsilon = epsilon
+        self.learning_rate = 1.0
+
+    def init_state(self, params: Tensors) -> Dict:
+        return {"neval": 0,
+                "accum": {k: torch.zeros_like(p) for k, p in params.items()},
+                "delta_accum": {k: torch.zeros_like(p)
+                                for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        accum = [state["accum"][k] for k in names]
+        dacc = [state["delta_accum"][k] for k in names]
+        rho, eps = self.decay_rate, self.epsilon
+        torch._foreach_mul_(accum, rho)
+        torch._foreach_addcmul_(accum, g, g, value=1 - rho)
+        num = torch._foreach_add(dacc, eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(accum, eps)
+        torch._foreach_sqrt_(den)
+        delta = torch._foreach_mul(g, num)
+        torch._foreach_div_(delta, den)
+        torch._foreach_mul_(dacc, rho)
+        torch._foreach_addcmul_(dacc, delta, delta, value=1 - rho)
+        torch._foreach_sub_(p, delta)
+        return params, {"neval": state["neval"] + 1,
+                        "accum": state["accum"],
+                        "delta_accum": state["delta_accum"]}
+
+
+class Adamax(OptimMethod):
+    """The JAX update (``:486-520``): ``m = β1·m + (1 - β1)·g``, ``u =
+    max(β2·u, |g| + ε)``, ``p -= (lr / (1 - β1^t))·m / u``. The default ε
+    is JAX's 1e-8 (the reference's 1e-38 is subnormal in f32)."""
+
+    def __init__(self, learning_rate: float = 2e-3, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8) -> None:
+        super().__init__()
+        self.learning_rate = learning_rate
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def init_state(self, params: Tensors) -> Dict:
+        return {"neval": 0,
+                "m": {k: torch.zeros_like(p) for k, p in params.items()},
+                "u": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        m = [state["m"][k] for k in names]
+        u = [state["u"][k] for k in names]
+        neval = state["neval"]
+        torch._foreach_mul_(m, self.beta1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - self.beta1))
+        torch._foreach_mul_(u, self.beta2)
+        absg = torch._foreach_abs(g)
+        torch._foreach_add_(absg, self.epsilon)
+        torch._foreach_maximum_(u, absg)
+        bc = np.float32(1.0) - np.float32(self.beta1) ** np.float32(neval + 1)
+        step = torch._foreach_mul(m, _f32(np.float32(self.learning_rate) / bc))
+        torch._foreach_div_(step, u)
+        torch._foreach_sub_(p, step)
+        return params, {"neval": neval + 1, "m": state["m"], "u": state["u"]}
+
+
+class RMSprop(OptimMethod):
+    """The JAX update (``:523-553``): ``clr = lr / (1 + neval·decay)``,
+    ``sq = ρ·sq + (1 - ρ)·g²``, ``p -= clr·g / (sqrt(sq) + ε)``."""
+
+    def __init__(self, learning_rate: float = 1e-2,
+                 learning_rate_decay: float = 0.0,
+                 decay_rate: float = 0.99, epsilon: float = 1e-8) -> None:
+        super().__init__()
+        self.learning_rate = learning_rate
+        self.learning_rate_decay = learning_rate_decay
+        self.decay_rate = decay_rate
+        self.epsilon = epsilon
+
+    def init_state(self, params: Tensors) -> Dict:
+        return {"neval": 0,
+                "sq": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        sq = [state["sq"][k] for k in names]
+        neval = state["neval"]
+        clr = _clr(self.learning_rate, self.learning_rate_decay, neval)
+        torch._foreach_mul_(sq, self.decay_rate)
+        torch._foreach_addcmul_(sq, g, g, value=1 - self.decay_rate)
+        den = torch._foreach_sqrt(sq)
+        torch._foreach_add_(den, self.epsilon)
+        step = torch._foreach_mul(g, clr)
+        torch._foreach_div_(step, den)
+        torch._foreach_sub_(p, step)
+        return params, {"neval": neval + 1, "sq": state["sq"]}
+
+
+class Ftrl(OptimMethod):
+    """Follow-the-regularized-leader, the JAX update (``:556-607``) with
+    ``n = accum``, ``z = linear`` and ``c = -learning_rate_power``:
+    ``σ = (n'^c - n^c) / lr`` with ``n' = n + g²``, ``z += g - σ·w``,
+    ``w = (clip(z, ±l1) - z) / (n'^c / lr + 2·l2)``."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_power: float = -0.5,
+                 initial_accumulator_value: float = 0.1,
+                 l1_regularization_strength: float = 0.0,
+                 l2_regularization_strength: float = 0.0) -> None:
+        super().__init__()
+        self.learning_rate = learning_rate
+        self.lr_power = learning_rate_power
+        self.init_accum = initial_accumulator_value
+        self.l1 = l1_regularization_strength
+        self.l2 = l2_regularization_strength
+
+    def init_state(self, params: Tensors) -> Dict:
+        return {"neval": 0,
+                "accum": {k: torch.full_like(p, self.init_accum)
+                          for k, p in params.items()},
+                "linear": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        names = list(params)
+        w = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        accum = [state["accum"][k] for k in names]
+        linear = [state["linear"][k] for k in names]
+        lr, c = self.learning_rate, -self.lr_power
+        old = torch._foreach_pow(accum, c)
+        torch._foreach_addcmul_(accum, g, g)
+        new = torch._foreach_pow(accum, c)
+        sigma = torch._foreach_sub(new, old)
+        torch._foreach_div_(sigma, lr)
+        torch._foreach_add_(linear, g)
+        torch._foreach_sub_(linear, torch._foreach_mul(sigma, w))
+        quad = torch._foreach_div(new, lr)
+        torch._foreach_add_(quad, 2.0 * self.l2)
+        l1_part = torch._foreach_clamp_min(linear, -self.l1)
+        torch._foreach_clamp_max_(l1_part, self.l1)
+        torch._foreach_sub_(l1_part, linear)
+        torch._foreach_div_(l1_part, quad)
+        torch._foreach_copy_(w, l1_part)
+        return params, {"neval": state["neval"] + 1,
+                        "accum": state["accum"], "linear": state["linear"]}
+
+
+class LarsSGD(SGD):
+    """Layer-wise Adaptive Rate Scaling SGD (``:610-662``): each tensor's
+    step is scaled by its trust ratio ``trust·‖w‖ / (‖g‖ + wd·‖w‖ + ε)``
+    (1 for a tensor of norm 0), the RAW gradient's norm, then weight
+    decay joins the gradient and momentum applies as ``v = μ·v +
+    clr·ratio·g``, ``p -= v``."""
+
+    def __init__(self, learning_rate: float = 1e-2, momentum: float = 0.9,
+                 weight_decay: float = 0.0, trust: float = 0.001,
+                 epsilon: float = 1e-9,
+                 learning_rate_schedule: Optional[LearningRateSchedule] = None
+                 ) -> None:
+        super().__init__(learning_rate=learning_rate, momentum=momentum,
+                         weight_decay=weight_decay,
+                         learning_rate_schedule=learning_rate_schedule)
+        self.trust = trust
+        self.epsilon = epsilon
+
+    def trust_ratios(self, grads: Tensors, params: Tensors) -> torch.Tensor:
+        """The per-tensor ratios, in ``params``' order, as one tensor."""
+        names = list(params)
+        wn = torch.stack(torch._foreach_norm([params[k] for k in names]))
+        gn = torch.stack(torch._foreach_norm([grads[k] for k in names]))
+        ratio = self.trust * wn / (gn + self.weight_decay * wn + self.epsilon)
+        return torch.where(wn > 0, ratio, 1.0)
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        clr = self.learning_rate_schedule.lr(self.learning_rate,
+                                             state["neval"])
+        ratios = self.trust_ratios(grads, params).unbind(0)
+        if self.weight_decay > 0:
+            g = torch._foreach_add(g, p, alpha=self.weight_decay)
+        scaled = torch._foreach_mul(g, list(ratios))
+        new_state = dict(state)
+        if self.momentum > 0:
+            vel = [state["velocity"][k] for k in names]
+            torch._foreach_mul_(vel, self.momentum)
+            torch._foreach_add_(vel, scaled, alpha=clr)
+            step = vel
+        else:
+            step = torch._foreach_mul(scaled, clr)
+        torch._foreach_sub_(p, step)
+        new_state["neval"] = state["neval"] + 1
+        return params, new_state
+
+
 def load_jax_opt_state(model, state_np: Dict) -> Dict:
-    """A JAX optimizer state (``{"neval", "m", "v"}`` or
-    ``{"neval", "velocity"}``, numpy trees in the JAX params layout) as the
-    port's state for ``model``'s parameters: slot trees become
-    ``{parameter name: tensor}`` on the model's device."""
+    """A JAX optimizer state (``{"neval", <slot>: tree, ...}`` of any
+    method: Adam's ``m``/``v``, SGD's ``velocity``, Adagrad's ``accum``,
+    Adadelta's ``accum``/``delta_accum``, Adamax's ``m``/``u``,
+    RMSprop's ``sq``, Ftrl's ``accum``/``linear``; numpy trees in the JAX
+    params layout) as the port's state for ``model``'s parameters: slot
+    trees become ``{parameter name: tensor}`` on the model's device."""
     from bigdl_tpu_torch.utils.params_tree import named_leaves
 
     device = next(model.parameters()).device

@@ -34,8 +34,17 @@ base key.
 ``grad_transform`` maps the gradient dict after the regularizers and
 before clipping, where the JAX step applies it.
 
-Not ported yet: frozen layers (the step raises if a module asks for
-them).
+Frozen layers (``Module.freeze``) follow the JAX step's order
+(``:266-281``): the regularizers; then the frozen leaves' gradients are
+zeroed (:func:`zero_frozen_grads`), before ``grad_transform`` and the
+clipping, so a global norm leaves them out; the optimizer updates every
+leaf, so a frozen leaf's slots still step with a zero gradient
+(momentum decays); then the frozen weights are restored bit for bit
+(:func:`apply_frozen`), so weight decay inside the optimizer cannot move
+them. The optimizers update in place, so the step keeps a copy of the
+frozen leaves across the update. BatchNorm running statistics are model
+state, not parameters: they still update under a freeze, as in JAX.
+The frozen leaves' gradients are still computed, as JAX computes them.
 """
 
 from __future__ import annotations
@@ -165,11 +174,75 @@ def regularizer_loss(model, params) -> Any:
     return total
 
 
-def _refuse_unported(model) -> None:
-    for m in model.modules():
-        if getattr(m, "frozen", None):
-            raise NotImplementedError(
-                f"{type(m).__name__}: frozen layers are not ported yet")
+def child_for_key(module, key: str):
+    """The direct child of ``module`` that owns the parameter (or params
+    key) ``key``, or ``None`` when ``key`` is one of ``module``'s own
+    leaves. ``key``'s first dotted part is the child's name; a
+    container's children are keyed ``"{i}:{name}"``, and a key of that
+    form from a JAX tree (whose name part carries another instance
+    counter) resolves by its index ``i`` — the one place the convention
+    is parsed (``bigdl_tpu/optim/train_step.py:75``)."""
+    head = str(key).split(".", 1)[0]
+    children = dict(module.named_children())
+    if head in children:
+        return children[head]
+    try:
+        idx = int(head.split(":", 1)[0])
+    except ValueError:
+        return None
+    if ":" in head and 0 <= idx < len(children):
+        return list(children.values())[idx]
+    return None
+
+
+def frozen_mask_tree(model, params) -> Optional[Dict[str, bool]]:
+    """``{parameter name: frozen}`` for every name of ``params``, or
+    ``None`` when nothing is frozen (the step then pays nothing). A
+    module's own flag (``frozen_flag()``) overrides the one it inherits,
+    so ``model.freeze(); model.unfreeze("head")`` trains the head."""
+    flags: Dict[str, bool] = {}
+
+    def mark(m, prefix: str, inherited: bool) -> None:
+        flag = getattr(m, "_frozen", None)
+        frozen = inherited if flag is None else bool(flag)
+        for name, _ in m.named_parameters(recurse=False):
+            flags[prefix + name] = frozen
+        for name, child in m.named_children():
+            mark(child, f"{prefix}{name}.", frozen)
+
+    mark(model, "", False)
+    mask = {k: flags.get(k, False) for k in params}
+    return mask if any(mask.values()) else None
+
+
+def zero_frozen_grads(mask: Dict[str, bool], grads):
+    """``grads`` with the frozen leaves' gradients replaced by zeros (a
+    new dict)."""
+    return {k: torch.zeros_like(g) if mask.get(k) else g
+            for k, g in grads.items()}
+
+
+def apply_frozen(mask: Dict[str, bool], new_params, old_params):
+    """Write the frozen leaves' ``old_params`` values back into
+    ``new_params`` (in place; returns ``new_params``): zeroed gradients
+    alone would still let an optimizer's weight decay move them.
+    ``old_params`` holds at least the frozen leaves, copied before the
+    in-place update."""
+    frozen = [k for k in new_params if mask.get(k)]
+    if frozen:
+        with torch.no_grad():
+            torch._foreach_copy_([new_params[k] for k in frozen],
+                                 [old_params[k] for k in frozen])
+    return new_params
+
+
+def frozen_copies(mask: Optional[Dict[str, bool]], params):
+    """Copies of ``params``' frozen leaves (what :func:`apply_frozen`
+    restores after an in-place update); ``{}`` when nothing is frozen."""
+    if mask is None:
+        return {}
+    with torch.no_grad():
+        return {k: params[k].clone() for k in params if mask.get(k)}
 
 
 def make_train_step(model, criterion, optim_method,
@@ -193,10 +266,12 @@ def make_train_step(model, criterion, optim_method,
     the clipping. ``device_preprocess`` maps the raw input batch first. ``rng`` (a
     ``torch.Generator`` or ``None``) feeds the stochastic layers. The
     model's output may be a table (a list of tensors, ``Inception_v1``'s
-    three heads): the casts and the criterion take it as it is."""
-    _refuse_unported(model)
+    three heads): the casts and the criterion take it as it is. Frozen
+    modules (``Module.freeze``) keep their weights, as the module
+    docstring says; their flags are read here, once."""
     compute_dtype = resolve_dtype(compute_dtype)
     regs = module_regularizers(model)
+    frozen = frozen_mask_tree(model, dict(model.named_parameters()))
 
     def step(params, opt_state, model_state, rng, inputs, targets):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
@@ -219,6 +294,8 @@ def make_train_step(model, criterion, optim_method,
             loss = loss / loss_scale
             grads = {k: g / loss_scale for k, g in grads.items()}
         grads = apply_module_regularizers(regs, params, grads)
+        if frozen is not None:
+            grads = zero_frozen_grads(frozen, grads)
         if grad_transform is not None:
             grads = grad_transform(grads)
         if grad_clip:
@@ -227,7 +304,10 @@ def make_train_step(model, criterion, optim_method,
             if grad_clip.get("constant") is not None:
                 lo, hi = grad_clip["constant"]
                 grads = clip_by_value(grads, lo, hi)
+        kept = frozen_copies(frozen, params)
         new_params, new_opt = optim_method.update(grads, opt_state, params)
+        if frozen is not None:
+            new_params = apply_frozen(frozen, new_params, kept)
         return new_params, new_opt, model_state, loss
 
     return step

@@ -385,6 +385,32 @@ any failure raises, so the exit code is non-zero and no result prints:
               ``cudnn.deterministic``; step p50; collective calls and
               bytes per step and launches per step over a 4-iteration run
               (no checkpoint, no validation);
+29a. nn_tail — every layer, criterion and optimizer of A.7 group 1 on the
+              card against the port's own CPU run from the same weights
+              and inputs (f32, TF32 off): the activations, misc ops,
+              shape/table ops and containers on (64, 1024) rows or (32, 64,
+              56, 56) maps, ``SpatialFullConvolution`` 64→32 channels,
+              stride 2, on 28² (batch 32), ``Normalize``, ``BilinearFiller``
+              and ``Echo``; forward, input gradient and parameter
+              gradients; the 13 criteria on (64, 1024) rows (loss and input
+              gradient); the five optimizers five steps each on a (1024,
+              1024) weight; the largest error per name, each relative to
+              the CPU value's largest magnitude, against ``NN_TAIL_TOL``;
+29b. autoencoder — ``models.autoencoder.train_main`` at its published
+              width (784 → 32 → 784, batch 128, Adagrad 0.01, 2 epochs)
+              on 60,000 synthetic digits: the loss falls, step p50 and
+              records/s; its first f32 step card against CPU (loss, the
+              Adagrad accumulator g², the parameters) within
+              ``AE_CARD_TOL``;
+29c. finetune — ResNet-50 (1,000 classes, shortcut B, f32, batch 64,
+              224², synthetic ImageNet) fine-tuned: ``freeze()`` then
+              ``unfreeze(<the head Linear>)``, RMSprop with L2 weight decay
+              on every conv and linear (``w_regularizer``), 5 steps
+              through ``LocalOptimizer`` and again through
+              ``DistriOptimizer`` (allreduce, a one-rank NCCL group): every
+              frozen parameter ``torch.equal`` to its start, the head
+              moved; the same recipe unfrozen for the step p50 beside the
+              frozen one;
 30. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
@@ -431,6 +457,20 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 HOST_GUARD_CYCLES = 2_000_000    # ~1 ms of device spin while the host enqueues
+#: nn_tail: card vs CPU, the largest difference relative to the CPU
+#: value's largest magnitude, per kind of computation (f32, TF32 off).
+#: Element-wise ops differ by the two libraries' math functions (a few
+#: ulps); reductions, products, convolutions and losses by their summation
+#: order; five optimizer steps by both.
+NN_TAIL_TOL = {"elementwise": 1e-5, "reduction": 1e-5, "product": 1e-4,
+               "criterion": 1e-5, "optimizer": 1e-5}
+#: autoencoder: its first f32 step card vs CPU: the loss, the Adagrad
+#: accumulator g² (each tensor relative to its largest), and the
+#: parameters wherever the gradient is above 1% of its tensor's largest
+#: (Adagrad's first step is lr·g / (|g| + 1e-10) ≈ ±lr: where g is within
+#: the summation order's rounding of 0, card and CPU may step opposite
+#: ways, as on the CPU against JAX).
+AE_CARD_TOL = 1e-5
 #: LeNet through the Optimizer, card vs CPU from the same weights and
 #: batches: the largest parameter difference after the first f32 step, and
 #: after 20 float64 steps. Twenty f32 steps part at a max-pool near-tie
@@ -6551,6 +6591,404 @@ def weight_only_check():
         raise AssertionError(f"weight-only card vs CPU decode: err {err}")
 
 
+def tail_layer_cases():
+    """A.7 group 1's layers for ``nn_tail``: (name, kind, build(generator)
+    → module on the CPU, inputs(rng) → array, list of arrays, or an int
+    array of ids)."""
+    import bigdl_tpu_torch.nn as T
+
+    E, R, P = "elementwise", "reduction", "product"
+    rows, maps = (64, 1024), (32, 64, 56, 56)
+
+    def normal(*shape, scale=1.0):
+        return lambda rng: (scale * rng.standard_normal(shape)).astype(
+            np.float32)
+
+    def positive(*shape):
+        return lambda rng: rng.uniform(0.1, 3.0, shape).astype(np.float32)
+
+    def table(*makers):
+        return lambda rng: [m(rng) for m in makers]
+
+    def lin(i, o):
+        return lambda g: T.Linear(i, o, device="cpu", generator=g)
+
+    return [
+        ("ReLU6", E, lambda g: T.ReLU6(), normal(*maps, scale=4.0)),
+        ("Sigmoid", E, lambda g: T.Sigmoid(), normal(*rows)),
+        ("SoftMax", R, lambda g: T.SoftMax(), normal(*maps)),
+        ("PReLU", E, lambda g: T.PReLU(64, device="cpu"), normal(*maps)),
+        ("ELU", E, lambda g: T.ELU(0.7), normal(*maps)),
+        ("LeakyReLU", E, lambda g: T.LeakyReLU(0.1), normal(*maps)),
+        ("HardTanh", E, lambda g: T.HardTanh(-0.5, 0.8), normal(*maps)),
+        ("SoftPlus", E, lambda g: T.SoftPlus(2.0), normal(*maps)),
+        ("SoftSign", E, lambda g: T.SoftSign(), normal(*maps)),
+        ("GELU", E, lambda g: T.GELU(), normal(*maps)),
+        ("MulConstant", E, lambda g: T.MulConstant(2.5), normal(*rows)),
+        ("AddConstant", E, lambda g: T.AddConstant(-1.5), normal(*rows)),
+        ("Power", E, lambda g: T.Power(3.0, 0.5, 1.0), normal(*rows)),
+        ("Square", E, lambda g: T.Square(), normal(*rows)),
+        ("Sqrt", E, lambda g: T.Sqrt(), positive(*rows)),
+        ("Abs", E, lambda g: T.Abs(), normal(*rows)),
+        ("Log", E, lambda g: T.Log(), positive(*rows)),
+        ("Exp", E, lambda g: T.Exp(), normal(*rows)),
+        ("Clamp", E, lambda g: T.Clamp(-0.5, 0.5), normal(*maps)),
+        ("Mean", R, lambda g: T.Mean(2), normal(*maps)),
+        ("Sum", R, lambda g: T.Sum(2, n_input_dims=3), normal(*maps)),
+        ("Max", R, lambda g: T.Max(3, squeeze=False), normal(*maps)),
+        ("Min", R, lambda g: T.Min(4), normal(*maps)),
+        ("MM", P, lambda g: T.MM(trans_b=True),
+         table(normal(64, 256, 512), normal(64, 128, 512))),
+        ("MV", P, lambda g: T.MV(), table(normal(64, 256, 1024),
+                                          normal(64, 1024))),
+        ("Mul", E, lambda g: T.Mul(device="cpu", generator=g),
+         normal(*rows)),
+        ("Add", E, lambda g: T.Add(1024, device="cpu"), normal(*rows)),
+        ("CMul", E, lambda g: T.CMul((1, 1024), device="cpu", generator=g),
+         normal(*rows)),
+        ("CAdd", E, lambda g: T.CAdd((1, 1024), device="cpu"),
+         normal(*rows)),
+        ("LookupTable", R, lambda g: T.LookupTable(
+            10000, 1024, padding_value=3, max_norm=1.0, device="cpu",
+            generator=g),
+         lambda rng: rng.integers(0, 10001, (64, 32))),
+        ("View", E, lambda g: T.View(32, 32), normal(*rows)),
+        ("Narrow", E, lambda g: T.Narrow(2, 5, 1000), normal(*rows)),
+        ("Squeeze", E, lambda g: T.Squeeze(3), normal(64, 1024, 1)),
+        ("Unsqueeze", E, lambda g: T.Unsqueeze(2), normal(*rows)),
+        ("Transpose", E, lambda g: T.Transpose([(2, 3), (3, 4)]),
+         normal(*maps)),
+        ("Contiguous", E, lambda g: T.Contiguous(), normal(*maps)),
+        ("Padding", E, lambda g: T.Padding(2, -3, 3, 0.5), normal(*maps)),
+        ("CMulTable", E, lambda g: T.CMulTable(),
+         table(normal(*rows), normal(*rows), normal(*rows))),
+        ("CSubTable", E, lambda g: T.CSubTable(),
+         table(normal(*rows), normal(*rows))),
+        ("CDivTable", E, lambda g: T.CDivTable(),
+         table(normal(*rows), positive(*rows))),
+        ("CMaxTable", E, lambda g: T.CMaxTable(),
+         table(normal(*rows), normal(*rows), normal(*rows))),
+        ("CMinTable", E, lambda g: T.CMinTable(),
+         table(normal(*rows), normal(*rows), normal(*rows))),
+        ("CAveTable", E, lambda g: T.CAveTable(),
+         table(normal(*rows), normal(*rows), normal(*rows))),
+        ("JoinTable", E, lambda g: T.JoinTable(2),
+         table(normal(*rows), normal(*rows))),
+        ("SplitTable", E, lambda g: T.SplitTable(2), normal(64, 16, 1024)),
+        ("ParallelTable", P,
+         lambda g: T.ParallelTable().add(lin(1024, 1024)(g)).add(T.Tanh()),
+         table(normal(*rows), normal(*rows))),
+        ("MapTable", P, lambda g: T.MapTable(lin(1024, 512)(g)),
+         table(normal(*rows), normal(*rows), normal(*rows))),
+        ("Bottle", P, lambda g: T.Bottle(lin(1024, 256)(g)),
+         normal(8, 64, 1024)),
+        ("SpatialFullConvolution", P, lambda g: T.SpatialFullConvolution(
+            64, 32, 3, 3, 2, 2, 1, 1, adj_w=1, adj_h=1, device="cpu",
+            generator=g), normal(32, 64, 28, 28)),
+        ("Normalize", R, lambda g: T.Normalize(), normal(*maps)),
+        ("Echo", E, lambda g: T.Echo(), normal(*rows)),
+    ]
+
+
+def tail_criterion_cases():
+    """(name, criterion, inputs(rng) → (input, target)) at (64, 1024)."""
+    from bigdl_tpu_torch import nn as T
+
+    def f32(a):
+        return a.astype(np.float32)
+
+    def make(kind):
+        def inputs(rng):
+            x = f32(rng.standard_normal((64, 1024)))
+            y = f32(rng.standard_normal((64, 1024)))
+            p = f32(rng.uniform(0.02, 0.98, (64, 1024)))
+            t01 = f32(rng.uniform(0, 1, (64, 1024)) > 0.5)
+            pos = f32(rng.uniform(0.1, 3.0, (64, 1024)))
+            pm1 = f32(np.where(y > 0, 1.0, -1.0))
+            dist = p / p.sum(-1, keepdims=True)
+            return {"xy": (x, y), "bce": (p, t01), "pm1": (x, pm1),
+                    "pos": (pos, f32(rng.uniform(0.1, 3.0, (64, 1024)))),
+                    "kl": (f32(np.log(dist)), f32(dist[::-1].copy())),
+                    "prob": (dist, f32(dist[::-1].copy())),
+                    "onehot": (p, f32(np.eye(1024)[rng.integers(
+                        0, 1024, 64)])),
+                    "pair": ([x, y], np.float32([1.0]))}[kind]
+        return inputs
+
+    w = f32(np.random.default_rng(3).uniform(0.5, 2.0, 1024))
+    return [
+        ("MSECriterion", T.MSECriterion(), make("xy")),
+        ("AbsCriterion", T.AbsCriterion(), make("xy")),
+        ("BCECriterion", T.BCECriterion(w), make("bce")),
+        ("SmoothL1Criterion", T.SmoothL1Criterion(), make("xy")),
+        ("MultiLabelSoftMarginCriterion",
+         T.MultiLabelSoftMarginCriterion(w), make("bce")),
+        ("MarginCriterion", T.MarginCriterion(), make("pm1")),
+        ("DistKLDivCriterion", T.DistKLDivCriterion(), make("kl")),
+        ("L1HingeEmbeddingCriterion", T.L1HingeEmbeddingCriterion(),
+         make("pair")),
+        ("PoissonCriterion", T.PoissonCriterion(), make("pos")),
+        ("MeanAbsolutePercentageCriterion",
+         T.MeanAbsolutePercentageCriterion(), make("xy")),
+        ("MeanSquaredLogarithmicCriterion",
+         T.MeanSquaredLogarithmicCriterion(), make("pos")),
+        ("KullbackLeiblerDivergenceCriterion",
+         T.KullbackLeiblerDivergenceCriterion(), make("prob")),
+        ("CategoricalCrossEntropy", T.CategoricalCrossEntropy(),
+         make("onehot")),
+    ]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (float64, on the CPU)."""
+    import torch
+
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    return float((got - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+def tail_layer_run(layer, xs, cts, device):
+    """Forward ``layer`` (a copy on ``device``) on ``xs`` and take the
+    vector-Jacobian product of ``cts`` (drawn for its outputs when
+    ``None``): (outputs, input gradients, parameter gradients), on the
+    CPU."""
+    import copy
+    import io
+
+    import torch
+
+    m = copy.deepcopy(layer).to(device)
+    table = isinstance(xs, list)
+    ins = [torch.from_numpy(x).to(device) for x in (xs if table else [xs])]
+    ins = [x.requires_grad_() if x.is_floating_point() else x for x in ins]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):    # Echo's line
+        out = m(ins if table else ins[0])
+    outs = out if isinstance(out, list) else [out]
+    if cts is None:
+        rng = np.random.default_rng(99)
+        cts = [rng.standard_normal(tuple(o.shape)).astype(np.float32)
+               for o in outs]
+    params = dict(m.named_parameters())
+    wrt = list(params.values()) + [x for x in ins if x.requires_grad]
+    grads = torch.autograd.grad(
+        outs, wrt, [torch.from_numpy(c).to(device) for c in cts])
+    cpu = [t.detach().cpu() for t in outs]
+    return (cpu, [g.cpu() for g in grads[len(params):]],
+            {k: g.cpu() for k, g in zip(params, grads)}, cts, log.getvalue())
+
+
+def tail_optimizer_run(method, grads, device):
+    """Five steps of ``method`` on a (1024, 1024) weight on ``device``:
+    (final weight, final slots), on the CPU."""
+    import torch
+
+    w = {"w": torch.from_numpy(
+        np.random.default_rng(5).standard_normal((1024, 1024)).astype(
+            np.float32)).to(device)}
+    state = method.init_state(w)
+    for g in grads:
+        w, state = method.update({"w": torch.from_numpy(g).to(device)},
+                                 state, w)
+    slots = {k: v["w"].cpu() for k, v in state.items() if isinstance(v, dict)}
+    return w["w"].cpu(), slots
+
+
+def nn_tail_phase():
+    """A.7 group 1 on the card against the port's own CPU run (see the
+    phase list); raises on any error beyond ``NN_TAIL_TOL``."""
+    import torch
+
+    from bigdl_tpu_torch import optim as O
+
+    errors, kinds = {}, {}
+    for i, (name, kind, build, inputs) in enumerate(tail_layer_cases()):
+        layer = build(torch.Generator().manual_seed(i))
+        xs = inputs(np.random.default_rng(i))
+        c_out, c_gx, c_gp, cts, c_log = tail_layer_run(layer, xs, None, "cpu")
+        d_out, d_gx, d_gp, _, d_log = tail_layer_run(layer, xs, cts, "cuda")
+        if name == "Echo" and not (c_log == d_log and "shape=(64, 1024)"
+                                   in d_log):
+            raise AssertionError(f"Echo printed {d_log!r}, not {c_log!r}")
+        pairs = (list(zip(d_out, c_out)) + list(zip(d_gx, c_gx))
+                 + [(d_gp[k], v) for k, v in c_gp.items()])
+        errors[name] = max(rel_err(a, b) for a, b in pairs)
+        kinds[name] = kind
+    for i, (name, crit, inputs) in enumerate(tail_criterion_cases()):
+        x, t = inputs(np.random.default_rng(100 + i))
+        got = []
+        for device in ("cpu", "cuda"):
+            xd = ([torch.from_numpy(v).to(device) for v in x]
+                  if isinstance(x, list) else torch.from_numpy(x).to(device))
+            td = torch.from_numpy(t).to(device)
+            loss = crit.forward(xd, td)
+            g = crit.backward(xd, td)
+            got.append((loss, g if isinstance(g, list) else [g]))
+        (lc, gc), (ld, gd) = got
+        errors[name] = max([abs(ld - lc) / max(abs(lc), 1e-30)]
+                           + [rel_err(a, b) for a, b in zip(gd, gc)])
+        kinds[name] = "criterion"
+    rng = np.random.default_rng(7)
+    grads = [rng.standard_normal((1024, 1024)).astype(np.float32)
+             for _ in range(5)]
+    for name, make in (("Adadelta", lambda: O.Adadelta()),
+                       ("Adamax", lambda: O.Adamax()),
+                       ("RMSprop", lambda: O.RMSprop(1e-3)),
+                       ("Ftrl", lambda: O.Ftrl(0.05, l1_regularization_strength
+                                                =1e-3)),
+                       ("LarsSGD", lambda: O.LarsSGD(0.1, weight_decay=1e-4))):
+        wc, sc = tail_optimizer_run(make(), grads, "cpu")
+        wd, sd = tail_optimizer_run(make(), grads, "cuda")
+        errors[name] = max([rel_err(wd, wc)]
+                           + [rel_err(sd[k], v) for k, v in sc.items()])
+        kinds[name] = "optimizer"
+    misses = {n: {"err": e, "tol": NN_TAIL_TOL[kinds[n]]}
+              for n, e in errors.items() if not e <= NN_TAIL_TOL[kinds[n]]}
+    filler = torch.empty((64, 32, 4, 4), device="cuda")
+    from bigdl_tpu_torch.nn import BilinearFiller
+
+    bilinear_equal = torch.equal(
+        BilinearFiller().fill(filler).cpu(),
+        BilinearFiller().fill(torch.empty((64, 32, 4, 4))))
+    emit("nn_tail", card=nvidia_smi(), names=len(errors),
+         max_err={n: {"kind": kinds[n], "err": e} for n, e in errors.items()},
+         tol=NN_TAIL_TOL, bilinear_filler_bitwise=bilinear_equal,
+         misses=misses)
+    if misses or not bilinear_equal:
+        raise AssertionError(f"nn_tail card vs CPU beyond tolerance: "
+                             f"{misses}, bilinear bitwise {bilinear_equal}")
+
+
+def ae_first_step(model, x, device):
+    """One ``Adagrad(0.01)`` train step of a copy of ``model`` on
+    ``device``: (loss, accumulator, params), on the CPU."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.nn import MSECriterion
+    from bigdl_tpu_torch.optim import Adagrad
+    from bigdl_tpu_torch.optim.train_step import make_train_step
+
+    m = copy.deepcopy(model).to(device)
+    opt = Adagrad(learning_rate=0.01)
+    params = {k: p.detach().clone() for k, p in m.named_parameters()}
+    xd = torch.from_numpy(x).to(device)
+    params, state, _, loss = make_train_step(m, MSECriterion(), opt)(
+        params, opt.init_state(params), {}, None, xd, xd)
+    return (float(loss), {k: v.cpu() for k, v in state["accum"].items()},
+            {k: v.cpu() for k, v in params.items()})
+
+
+def autoencoder_phase():
+    """The Autoencoder at its published width (see the phase list)."""
+    import torch
+
+    from bigdl_tpu_torch.dataset.mnist import load_samples
+    from bigdl_tpu_torch.models.autoencoder import Autoencoder, train_main
+
+    _, wall, step_s, losses, peak = main_run(
+        train_main, ["--synthetic", "60000"], 128)
+    p50 = float(np.median(step_s[1:]))
+    x = np.stack([s.features[0].reshape(-1) for s in load_samples(
+        "/nonexistent", "train", synthetic_count=128)])
+    model = Autoencoder(32, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    lc, ac, pc = ae_first_step(model, x, "cpu")
+    ld, ad, pd = ae_first_step(model, x, "cuda")
+    accum_err = max(rel_err(ad[k], v) for k, v in ac.items())
+    param_err = 0.0
+    for k, v in pc.items():
+        clear = ac[k].sqrt() > 1e-2 * ac[k].sqrt().max()
+        param_err = max(param_err, rel_err(pd[k][clear], v[clear]))
+    check = {"loss_rel_err": abs(ld - lc) / abs(lc), "accum_rel_err":
+             accum_err, "param_rel_err": param_err, "cpu_loss": lc,
+             "card_loss": ld}
+    emit("autoencoder", card=nvidia_smi(),
+         what="models.autoencoder.train_main (784-32-784, batch 128, "
+         "Adagrad 0.01, 2 epochs, 60,000 synthetic digits)", wall_s=wall,
+         steps=len(step_s), step_ms_p50=p50 * 1e3,
+         records_per_s=128 / p50, first_loss=losses[0], last_loss=losses[-1],
+         peak_mem_gib=peak, card_vs_cpu=check, tol=AE_CARD_TOL)
+    if not (len(losses) == 938 and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"autoencoder losses {losses[:3]} ... "
+                             f"{losses[-3:]} ({len(losses)})")
+    if max(check["loss_rel_err"], accum_err, param_err) > AE_CARD_TOL:
+        raise AssertionError(f"autoencoder card vs CPU {check}")
+
+
+def finetune_build(frozen: bool):
+    """ResNet-50 with L2 weight decay on every conv and linear, frozen
+    but for its head when asked: (model, criterion, head name)."""
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, Linear
+    from bigdl_tpu_torch.optim import L2Regularizer
+
+    model = ResNet(1000, {"depth": 50, "shortcutType": "B"}, seed=0)
+    for m in model.modules():
+        if hasattr(m, "w_regularizer"):
+            m.w_regularizer = L2Regularizer(1e-4)
+    head = [m for m in model.modules() if isinstance(m, Linear)][-1].name
+    if frozen:
+        model.freeze()
+        model.unfreeze(head)
+    return model, CrossEntropyCriterion(), head
+
+
+def finetune_phase(batch: int = 64, steps: int = 5):
+    """ResNet-50 fine-tuned with a frozen backbone (see the phase list)."""
+    import torch
+
+    from bigdl_tpu_torch.models.utils import synthetic_imagenet_samples
+    from bigdl_tpu_torch.optim import RMSprop
+
+    samples = synthetic_imagenet_samples(batch, seed=0)
+    out = {}
+    for label, frozen, mode in (("local_frozen", True, "local"),
+                                ("local_unfrozen", False, "local"),
+                                ("allreduce_frozen", True, "allreduce")):
+        made = {}
+
+        def build():
+            model, crit, made["head"] = finetune_build(frozen)
+            made["before"] = {k: p.detach().clone()
+                              for k, p in model.named_parameters()}
+            return model, crit
+
+        ctx = (contextlib.nullcontext() if mode == "local"
+               else nccl_world_of_one())
+        with ctx:
+            model, _, fig = distri_run(build, samples, batch, steps,
+                                       RMSprop(learning_rate=1e-3), mode)
+        before, head = made["before"], made["head"]
+        kept, moved, n_frozen = True, False, 0
+        for k, p in model.named_parameters():
+            if k.rsplit(".", 1)[0].rsplit(":", 1)[-1] == head:
+                moved = moved or not torch.equal(p, before[k])
+            elif frozen:
+                n_frozen += 1
+                kept = kept and torch.equal(p, before[k])
+        fig.update({"frozen_params": n_frozen, "frozen_kept_bitwise": kept,
+                    "head_moved": moved})
+        out[label] = fig
+        del model, made, before
+        torch.cuda.empty_cache()
+        if not (kept and moved):
+            raise AssertionError(f"finetune {label}: frozen kept {kept}, "
+                                 f"head moved {moved}")
+    emit("finetune", card=nvidia_smi(),
+         what=f"ResNet-50 (1000 classes, f32, batch {batch}, 224², "
+         "synthetic ImageNet), freeze() + unfreeze(head), RMSprop 1e-3 with "
+         f"L2 1e-4 on every conv and linear, {steps} steps",
+         step_ms_p50_frozen=out["local_frozen"]["step_ms_p50"],
+         step_ms_p50_unfrozen=out["local_unfrozen"]["step_ms_p50"],
+         step_ms_p50_allreduce_frozen=out["allreduce_frozen"]["step_ms_p50"],
+         runs=out)
+
+
 def main() -> int:
     import torch
 
@@ -6636,6 +7074,9 @@ def main() -> int:
     for name, n in distri_resnet_phase().items():
         fused[name]["launches"] += n
     distri_pod_phase()
+    nn_tail_phase()
+    autoencoder_phase()
+    finetune_phase()
     conv = conv3x3_phase()
     emit("timing_guard", guard_ms=guard_ms(),
          host_enqueue_ms_max=HOST_ENQUEUE["max_ms"],

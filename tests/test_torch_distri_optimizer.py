@@ -215,13 +215,21 @@ def _():
 
 @scenario("frozen")
 def _():
-    m, opt = train({"mode": "partitioned", "steps": 1})
-    m[0].frozen = True
-    try:
+    """A frozen first layer through every mode: (its weights kept
+    bitwise, the rest moved) per mode."""
+    res = {}
+    for mode in ("partitioned", "allreduce", "blockstore"):
+        m, opt = train({"mode": mode, "steps": 2, "momentum": 0.9},
+                       weights=spec["weights"])
+        m.freeze(m[0].name)
+        before = [p.detach().clone() for p in m.parameters()]
         opt.optimize()
-    except NotImplementedError as e:
-        return str(e)
-    return "no error"
+        after = list(m.parameters())
+        res[mode] = (all(torch.equal(a, b) for a, b in
+                         zip(after[:2], before[:2])),
+                     all(not torch.equal(a, b) for a, b in
+                         zip(after[2:], before[2:])))
+    return res
 
 
 class Scalars:
@@ -702,9 +710,15 @@ def test_dropout_masks_per_rank(worlds, n):
 
 @pytest.mark.parametrize("n", [2, 3])
 def test_batch_must_divide_and_frozen_raises(worlds, n):
+    """The global batch must divide the topology. A frozen layer no
+    longer raises: every mode trains the others and keeps its weights
+    bitwise (``tests/test_torch_freeze.py`` holds the modes against
+    JAX)."""
     for res in worlds[n]["ranks"]:
         assert "divide" in _ok(res, "divide")
-        assert "frozen" in _ok(res, "frozen")
+        frozen = _ok(res, "frozen")
+        assert sorted(frozen) == ["allreduce", "blockstore", "partitioned"]
+        assert all(kept and moved for kept, moved in frozen.values()), frozen
 
 
 @pytest.mark.parametrize("n", [2, 3])

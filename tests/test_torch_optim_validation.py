@@ -251,14 +251,24 @@ def test_regularizer_terms_match_jax():
 
 
 def test_frozen_layers_are_still_refused():
+    """Frozen layers are ported: ``make_train_step`` no longer refuses a
+    frozen module, and a step under weight decay leaves its weights
+    bitwise as they were (``tests/test_torch_freeze.py`` holds the
+    training against JAX)."""
     from bigdl_tpu_torch.nn import ClassNLLCriterion, Linear
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.optim.train_step import make_train_step
 
-    m = Linear(3, 2, device="cpu")
-    m.frozen = True
-    with pytest.raises(NotImplementedError, match="frozen"):
-        make_train_step(m, ClassNLLCriterion(), SGD())
+    m = Linear(3, 2, device="cpu").freeze()
+    sgd = SGD(0.1, weight_decay=0.1)
+    params = {k: p.detach().clone() for k, p in m.named_parameters()}
+    before = {k: v.clone() for k, v in params.items()}
+    params, _, _, loss = make_train_step(m, ClassNLLCriterion(), sgd)(
+        params, sgd.init_state(params), {}, None, torch.randn(4, 3),
+        torch.tensor([1.0, 2.0, 1.0, 2.0]))
+    assert torch.isfinite(loss)
+    for k, v in params.items():
+        assert torch.equal(v, before[k]), k
 
 
 # ---------------------------------------------------------------- triggers

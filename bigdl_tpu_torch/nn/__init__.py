@@ -45,7 +45,10 @@ from bigdl_tpu_torch.nn.quantized import (
     QuantizedLinear, QuantizedSpatialConvolution, Quantizer,
     quantize_symmetric,
 )
-from bigdl_tpu_torch.nn.recurrent import LSTM, BiRecurrent, Cell, Recurrent
+from bigdl_tpu_torch.nn.recurrent import (
+    GRU, LSTM, BiRecurrent, Cell, ConvLSTMPeephole, LSTMPeephole,
+    MultiRNNCell, Recurrent, RecurrentDecoder, RnnCell, TimeDistributed,
+)
 from bigdl_tpu_torch.nn.shape_ops import (
     CAddTable, CAveTable, CDivTable, CMaxTable, CMinTable, CMulTable,
     Contiguous, CSubTable, FlattenTable, JoinTable, Narrow, Padding, Reshape,
@@ -82,4 +85,10 @@ __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
            "SmoothL1Criterion", "CategoricalCrossEntropy",
            "KullbackLeiblerDivergenceCriterion", "L1HingeEmbeddingCriterion",
            "MeanAbsolutePercentageCriterion",
-           "MeanSquaredLogarithmicCriterion", "PoissonCriterion"]
+           "MeanSquaredLogarithmicCriterion", "PoissonCriterion",
+           # the recurrent family
+           "GRU", "ConvLSTMPeephole", "LSTMPeephole", "MultiRNNCell",
+           "RecurrentDecoder", "RnnCell", "TimeDistributed", "Module"]
+
+#: the JAX package's alias of the layer base
+Module = AbstractModule

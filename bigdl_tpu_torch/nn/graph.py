@@ -93,3 +93,7 @@ class Graph(Container):
                                            else args)
         outs = [values[id(n)] for n in self.output_nodes]
         return outs[0] if self._single_output else outs
+
+
+#: the reference's name for a graph whose structure is fixed when it is built
+StaticGraph = Graph

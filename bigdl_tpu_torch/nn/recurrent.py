@@ -1,32 +1,39 @@
 """Recurrent layers (``bigdl_tpu/nn/recurrent.py``): ``Cell`` (``:29``),
-``_FusedInputCell`` (``:114``), ``LSTM`` (``:165``), ``Recurrent``
-(``:419``) and ``BiRecurrent`` (``:501``).
+``_FusedInputCell`` (``:114``), ``RnnCell`` (``:127``), ``LSTM``
+(``:165``), ``LSTMPeephole`` (``:209``), ``ConvLSTMPeephole``
+(``:243``), ``GRU`` (``:356``), ``Recurrent`` (``:419``),
+``BiRecurrent`` (``:501``), ``RecurrentDecoder`` (``:562``),
+``TimeDistributed`` (``:607``) and ``MultiRNNCell`` (``:641``).
 
 Activity is ``(batch, time, feature)``. The JAX ``Recurrent`` is one
 ``lax.scan``; here it is a loop over time in Python. As in JAX, the
 input leg of every gate runs once over the whole sequence before the
-loop (``precompute_input``: one ``(B·T, I) × (I, 4H)`` product), so each
-time step launches only the hidden-to-hidden product (``addmm``, which
-adds it to the step's precomputed slice) and the gate's elementwise ops.
-A reversed ``Recurrent`` runs from the last step to the first and stores
-each output at its original time index (``:493-496``), so its
-whole-sequence state sits at ``t = 0``.
+loop (``precompute_input``: one ``(B·T, I) × (I, G·H)`` product, or one
+convolution over the ``B·T`` frames of a ``ConvLSTMPeephole``), so each
+time step launches only the hidden-to-hidden product and the gates'
+elementwise ops. A reversed ``Recurrent`` runs from the last step to the
+first and stores each output at its original time index
+(``:493-496``), so its whole-sequence state sits at ``t = 0``. The carry
+is sized by ``Cell.init_carry_for(x)`` (a ConvLSTM's state is spatial)
+and the step is ``Cell.with_masks(h_masks)`` when dropout masks are
+drawn (a ``MultiRNNCell`` binds its inter-layer input masks there).
 
-``LSTM(p=)`` is variational dropout (``:455-481``): in training mode,
+A cell's ``p`` is variational dropout (``:455-481``): in training mode,
 with a generator current (:func:`bigdl_tpu_torch.nn.module.use_rng`),
-``Recurrent`` draws one mask per sequence for the input and one for the
-hidden state, shared by every time step.
+``Recurrent`` draws one mask per sequence for the input and one for each
+hidden state, shared by every time step (a ConvLSTM's per (batch,
+channel), broadcast over the frame).
 
-Parameters are JAX's leaves (``w_ih`` ``(4H, I)``, ``w_hh`` ``(4H, H)``,
-``b_ih``, ``b_hh``; gate order i, f, g, o; ``RandomUniform`` weights and
-zero biases) and containers key their children ``"{i}:{name}"``, so
+Parameters are JAX's leaves (``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``,
+the peepholes ``w_pi``/``w_pf``/``w_po``; gate orders i, f, g, o and, for
+the GRU, r, z, n; ``RandomUniform`` weights and zero biases) and
+containers key their children ``"{i}:{name}"``, so
 :func:`bigdl_tpu_torch.utils.params_tree.load_jax_tree` carries a JAX
-tree across. The carry starts as f32 zeros, as JAX's, and a product of
-two dtypes runs in the wider one, as ``jnp.matmul`` promotes.
-
-Not ported yet (``ROADMAP.md`` A.7): ``RnnCell``, ``GRU``,
-``LSTMPeephole``, ``ConvLSTMPeephole``, ``RecurrentDecoder``,
-``TimeDistributed`` and ``MultiRNNCell``.
+tree across. ``RnnCell``'s activation is not a child: JAX keys no params
+for it. The carry starts as f32 zeros, as JAX's, and a product of two
+dtypes runs in the wider one, as ``jnp.matmul`` promotes. XLA lowers
+all of it without Pallas, so it is plain PyTorch here: cuBLAS products
+and cuDNN convolutions on the card.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import copy
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.containers import Container
 from bigdl_tpu_torch.nn.init_methods import RandomUniform, Zeros
@@ -65,6 +73,11 @@ class Cell(AbstractModule):
                                  dtype=torch.float32, device=device)
                      for _ in range(self.carry_len))
 
+    def init_carry_for(self, x) -> tuple:
+        """The zero carry for input ``x`` (a sequence ``(B, T, ...)`` or a
+        step ``(B, ...)``); a spatial cell sizes it from the frame."""
+        return self.init_carry(x.shape[0], x.device)
+
     @property
     def input_dropout_p(self) -> float:
         """Dropout of the sequence input, applied by the driving
@@ -82,6 +95,11 @@ class Cell(AbstractModule):
             return carry
         return (carry[0] * m,) + tuple(carry[1:])
 
+    def with_masks(self, h_masks):
+        """The step with per-sequence masks bound beyond what
+        :meth:`mask_carry` applies: none for a plain cell."""
+        return self.step_pre
+
     def precompute_input(self, x):
         """The input leg over a whole ``(B, T, I)`` sequence (default:
         none)."""
@@ -96,7 +114,7 @@ class Cell(AbstractModule):
     def forward(self, xs):
         x_t, carry = xs[0], tuple(xs[1:])
         if not carry:
-            carry = self.init_carry(x_t.shape[0], x_t.device)
+            carry = self.init_carry_for(x_t)
         out, new_carry = self.step(x_t, carry)
         return [out, *new_carry]
 
@@ -111,6 +129,62 @@ class _FusedInputCell(Cell):
 
     def step(self, x_t, carry):
         return self.step_pre(self.precompute_input(x_t), carry)
+
+
+def _wider(*ts) -> torch.dtype:
+    """The dtype ``jnp.matmul`` promotes ``ts`` to."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def _fill(weights, biases, generator) -> None:
+    """``RandomUniform`` weights and zero biases, JAX's cell init."""
+    for w in weights:
+        RandomUniform().fill(w.data, generator)
+    for b in biases:
+        Zeros().fill(b.data)
+
+
+class RnnCell(_FusedInputCell):
+    """Vanilla RNN (reference ``nn/RnnCell.scala``): ``h' = act(W_ih x +
+    b_ih + W_hh h + b_hh)``, both biases as torch keeps them. The
+    activation (default ``Tanh``) holds no parameters in JAX's tree, so
+    it is kept out of the module tree too."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 activation: Optional[AbstractModule] = None,
+                 w_regularizer=None, u_regularizer=None, b_regularizer=None,
+                 device=None, generator: torch.Generator = None) -> None:
+        super().__init__(hidden_size)
+        from bigdl_tpu_torch.nn.activations import Tanh
+
+        self.input_size = input_size
+        # in __dict__, not _modules: no child for named_leaves, freeze or
+        # the quantizer to see
+        self.__dict__["activation"] = activation or Tanh()
+        self.w_regularizer = w_regularizer
+        self.u_regularizer = u_regularizer
+        self.b_regularizer = b_regularizer
+        self._generator = generator
+        self.w_ih = new_param((hidden_size, input_size), device, lambda t: t)
+        self.w_hh = new_param((hidden_size, hidden_size), device, lambda t: t)
+        self.b_ih = new_param((hidden_size,), device, lambda t: t)
+        self.b_hh = new_param((hidden_size,), device, lambda t: t)
+        self.reset_parameters()
+
+    def reset_parameters(self) -> "RnnCell":
+        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh), self._generator)
+        return self
+
+    def step_pre(self, pre_t, carry):
+        (h,) = carry
+        dt = _wider(pre_t, h, self.w_hh)
+        a = torch.addmm(pre_t.to(dt), h.to(dt),
+                        self.w_hh.t().to(dt)) + self.b_hh
+        out = self.activation(a)
+        return out, (out,)
 
 
 class LSTM(_FusedInputCell):
@@ -135,15 +209,12 @@ class LSTM(_FusedInputCell):
         self.w_hh = new_param((h4, hidden_size), device, lambda t: t)
         self.b_ih = new_param((h4,), device, lambda t: t)
         self.b_hh = new_param((h4,), device, lambda t: t)
-        self.reset_parameters()
+        LSTM.reset_parameters(self)
 
     def reset_parameters(self) -> "LSTM":
         """Refill the weights (``RandomUniform``) and biases (zeros) from
         the cell's generator."""
-        for w in (self.w_ih, self.w_hh):
-            RandomUniform().fill(w.data, self._generator)
-        for b in (self.b_ih, self.b_hh):
-            Zeros().fill(b.data)
+        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh), self._generator)
         return self
 
     def step_pre(self, pre_t, carry):
@@ -157,6 +228,192 @@ class LSTM(_FusedInputCell):
         new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         new_h = torch.sigmoid(o) * torch.tanh(new_c)
         return new_h, (new_h, new_c)
+
+
+class LSTMPeephole(LSTM):
+    """LSTM with diagonal peepholes ``w_pi``, ``w_pf``, ``w_po`` (H,) from
+    the cell state into the i, f and o gates (reference
+    ``nn/LSTMPeephole.scala``): i and f read the old ``c``, o reads the
+    new one."""
+
+    def __init__(self, input_size: int, hidden_size: int, p: float = 0.0,
+                 w_regularizer=None, u_regularizer=None, b_regularizer=None,
+                 device=None, generator: torch.Generator = None) -> None:
+        super().__init__(input_size, hidden_size, p, w_regularizer,
+                         u_regularizer, b_regularizer, device, generator)
+        dev = self.w_ih.device
+        self.w_pi = new_param((hidden_size,), dev, lambda t: t)
+        self.w_pf = new_param((hidden_size,), dev, lambda t: t)
+        self.w_po = new_param((hidden_size,), dev, lambda t: t)
+        _fill((self.w_pi, self.w_pf, self.w_po), (), self._generator)
+
+    def reset_parameters(self) -> "LSTMPeephole":
+        super().reset_parameters()
+        _fill((self.w_pi, self.w_pf, self.w_po), (), self._generator)
+        return self
+
+    def step_pre(self, pre_t, carry):
+        h, c = carry
+        dt = _wider(pre_t, h, self.w_hh)
+        gates = torch.addmm(pre_t.to(dt), h.to(dt),
+                            self.w_hh.t().to(dt)) + self.b_hh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i = torch.sigmoid(i + self.w_pi * c)
+        f = torch.sigmoid(f + self.w_pf * c)
+        new_c = f * c + i * torch.tanh(g)
+        o = torch.sigmoid(o + self.w_po * new_c)
+        new_h = o * torch.tanh(new_c)
+        return new_h, (new_h, new_c)
+
+
+class ConvLSTMPeephole(Cell):
+    """Convolutional LSTM with per-channel peepholes over ``(B, C, H, W)``
+    frames (reference ``nn/ConvLSTMPeephole.scala``): the gates are
+    SAME-padded stride-1 convolutions of the input frame (``w_ih``,
+    ``b_ih``) and the hidden state (``w_hh``, no bias); the state (h, c)
+    is ``(B, output_size, H, W)``; the peepholes are ``(O, 1, 1)``.
+    Driven by ``Recurrent`` over ``(B, T, C, H, W)``, the input leg of all
+    four gates is one convolution over the ``B·T`` frames."""
+
+    carry_len = 2  # (h, c)
+    _reg_b_keys = ("b_ih",)
+
+    def __init__(self, input_size: int, output_size: int,
+                 kernel_i: int = 3, kernel_c: int = 3, stride: int = 1,
+                 p: float = 0.0, with_peephole: bool = True,
+                 w_regularizer=None, u_regularizer=None, b_regularizer=None,
+                 device=None, generator: torch.Generator = None) -> None:
+        super().__init__(output_size)
+        if stride != 1:
+            raise ValueError("ConvLSTMPeephole: state recurrence needs "
+                             "stride 1 (reference contract)")
+        self.input_size = input_size
+        self.output_size = output_size
+        self.kernel_i = kernel_i
+        self.kernel_c = kernel_c
+        self.p = p
+        self.with_peephole = with_peephole
+        self.w_regularizer = w_regularizer
+        self.u_regularizer = u_regularizer
+        self.b_regularizer = b_regularizer
+        self._generator = generator
+        o4 = 4 * output_size
+        self.w_ih = new_param((o4, input_size, kernel_i, kernel_i), device,
+                              lambda t: t)
+        self.w_hh = new_param((o4, output_size, kernel_c, kernel_c), device,
+                              lambda t: t)
+        self.b_ih = new_param((o4,), device, lambda t: t)
+        if with_peephole:
+            for name in ("w_pi", "w_pf", "w_po"):
+                setattr(self, name, new_param((output_size, 1, 1), device,
+                                              lambda t: t))
+        self.reset_parameters()
+
+    def reset_parameters(self) -> "ConvLSTMPeephole":
+        peep = ((self.w_pi, self.w_pf, self.w_po) if self.with_peephole
+                else ())
+        _fill((self.w_ih, self.w_hh) + peep, (self.b_ih,), self._generator)
+        return self
+
+    @staticmethod
+    def _conv(x, w, b=None):
+        dt = _wider(x, w)
+        out = F.conv2d(x.to(dt), w.to(dt), padding="same")
+        return out if b is None else out + b[:, None, None]
+
+    def init_carry_for(self, x) -> tuple:
+        shape = (x.shape[0], self.output_size) + tuple(x.shape[-2:])
+        return tuple(torch.zeros(shape, dtype=torch.float32, device=x.device)
+                     for _ in range(self.carry_len))
+
+    def init_carry(self, batch_size: int, device) -> tuple:
+        raise ValueError(
+            "ConvLSTMPeephole state needs the frame's spatial dims — drive "
+            "it through Recurrent (which uses init_carry_for)")
+
+    def dropout_specs(self):
+        # per-(batch, channel) masks, broadcast over the frame
+        return [(self.p, self.output_size)]
+
+    def mask_carry(self, carry, h_masks):
+        m = h_masks[0]
+        if m is None:
+            return carry
+        return (carry[0] * m[:, :, None, None],) + tuple(carry[1:])
+
+    def precompute_input(self, x):
+        """``(B, T, C, H, W)``: T folded into the batch for one gate
+        convolution."""
+        b, t = x.shape[:2]
+        pre = self._conv(x.reshape((b * t,) + tuple(x.shape[2:])),
+                         self.w_ih, self.b_ih)
+        return pre.reshape((b, t) + tuple(pre.shape[1:]))
+
+    def step_pre(self, pre_t, carry):
+        h, c = carry
+        gates = pre_t + self._conv(h, self.w_hh)
+        i, f, g, o = gates.chunk(4, dim=1)
+        if self.with_peephole:
+            i = i + self.w_pi * c
+            f = f + self.w_pf * c
+        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        if self.with_peephole:
+            o = o + self.w_po * new_c
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return new_h, (new_h, new_c)
+
+    def step(self, x_t, carry):
+        return self.step_pre(self._conv(x_t, self.w_ih, self.b_ih), carry)
+
+
+class GRU(_FusedInputCell):
+    """GRU cell (reference ``nn/GRU.scala``), gates r, z, n with separate
+    input and hidden biases: ``n = tanh(W_in x + b_in + r * (W_hn h +
+    b_hn))``, torch's form. ``reset_after=False`` is the keras-1 form,
+    ``n = tanh(W_in x + b_in + W_hn (r * h) + b_hn)``, which splits
+    ``w_hh`` into its r/z half and its n half."""
+
+    def __init__(self, input_size: int, hidden_size: int, p: float = 0.0,
+                 w_regularizer=None, u_regularizer=None, b_regularizer=None,
+                 reset_after: bool = True, device=None,
+                 generator: torch.Generator = None) -> None:
+        super().__init__(hidden_size)
+        self.input_size = input_size
+        self.p = p
+        self.reset_after = reset_after
+        self.w_regularizer = w_regularizer
+        self.u_regularizer = u_regularizer
+        self.b_regularizer = b_regularizer
+        self._generator = generator
+        h3 = 3 * hidden_size
+        self.w_ih = new_param((h3, input_size), device, lambda t: t)
+        self.w_hh = new_param((h3, hidden_size), device, lambda t: t)
+        self.b_ih = new_param((h3,), device, lambda t: t)
+        self.b_hh = new_param((h3,), device, lambda t: t)
+        self.reset_parameters()
+
+    def reset_parameters(self) -> "GRU":
+        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh), self._generator)
+        return self
+
+    def step_pre(self, pre_t, carry):
+        (h,) = carry
+        dt = _wider(pre_t, h, self.w_hh)
+        hd, w, b = h.to(dt), self.w_hh.to(dt), self.b_hh.to(dt)
+        xr, xz, xn = pre_t.to(dt).chunk(3, dim=-1)
+        if self.reset_after:
+            hr, hz, hn = F.linear(hd, w, b).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+        else:
+            H = self.hidden_size
+            hr, hz = F.linear(hd, w[:2 * H], b[:2 * H]).chunk(2, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + F.linear(r * hd, w[2 * H:], b[2 * H:]))
+        new_h = (1.0 - z) * n + z * h
+        return new_h, (new_h,)
 
 
 class Recurrent(Container):
@@ -196,13 +453,14 @@ class Recurrent(Container):
             if any(m is not None for m in masks):
                 h_masks = masks
         pre = cell.precompute_input(x)                 # (B, T, ...)
-        carry = cell.init_carry(batch, x.device)
+        carry = cell.init_carry_for(x)
+        step = cell.step_pre if h_masks is None else cell.with_masks(h_masks)
         outs: List[Optional[torch.Tensor]] = [None] * steps
         order = range(steps - 1, -1, -1) if self.reverse else range(steps)
         for t in order:
             if h_masks is not None:
                 carry = cell.mask_carry(carry, h_masks)
-            outs[t], carry = cell.step_pre(pre[:, t], carry)
+            outs[t], carry = step(pre[:, t], carry)
         return torch.stack(outs, dim=1)
 
 
@@ -233,8 +491,9 @@ class BiRecurrent(Container):
         return self[1]
 
     def add(self, cell: Cell) -> "BiRecurrent":
-        gen = getattr(cell, "_generator", None)
-        memo = {} if gen is None else {id(gen): gen}
+        # the copy draws from the cells' own generators, not copies of them
+        gens = (getattr(m, "_generator", None) for m in cell.modules())
+        memo = {id(g): g for g in gens if g is not None}
         rev = copy.deepcopy(cell, memo)
         rev.name = cell.name + "_rev"
         rev.reset_parameters()
@@ -247,3 +506,141 @@ class BiRecurrent(Container):
         if self.merge_mode == "add":
             return fo + bo
         return torch.cat([fo, bo], dim=-1)
+
+
+class RecurrentDecoder(Container):
+    """Decoder unroll (reference ``nn/RecurrentDecoder.scala``): the input
+    is the first step ``(B, F)``; each step's output is the next step's
+    input (through ``cell.step``), for ``output_length`` steps; output
+    ``(B, output_length, H)``. The cell's output size must equal its
+    input size."""
+
+    def __init__(self, output_length: int) -> None:
+        super().__init__()
+        self.output_length = output_length
+
+    def add(self, cell: Cell) -> "RecurrentDecoder":
+        if len(self):
+            raise ValueError("a RecurrentDecoder holds one cell")
+        return super().add(cell)
+
+    @property
+    def cell(self) -> Optional[Cell]:
+        return self[0] if len(self) else None
+
+    def forward(self, x):
+        cell = self.cell
+        carry = cell.init_carry_for(x)
+        outs = []
+        for _ in range(self.output_length):
+            x, carry = cell.step(x, carry)
+            outs.append(x)
+        return torch.stack(outs, dim=1)
+
+
+class TimeDistributed(Container):
+    """Its one layer applied to every time step of ``(B, T, ...)``
+    activity (reference ``nn/TimeDistributed.scala``): (B, T) folded into
+    one batch, the layer run once, the output unfolded. A container, so
+    the quantizer's walk swaps a ``Linear`` inside it."""
+
+    def __init__(self, layer: AbstractModule) -> None:
+        super().__init__()
+        self.add(layer)
+
+    @property
+    def layer(self) -> AbstractModule:
+        return self[0]
+
+    def forward(self, x):
+        b, t = x.shape[0], x.shape[1]
+        out = self[0](x.reshape((b * t,) + tuple(x.shape[2:])))
+        return out.reshape((b, t) + tuple(out.shape[1:]))
+
+
+class MultiRNNCell(Cell, Container):
+    """A stack of cells run as one cell (reference
+    ``nn/MultiRNNCell.scala``): each sub-cell's output feeds the next,
+    the carry is the sub-cells' carries laid end to end, and only the
+    first sub-cell's input leg is hoisted over the sequence. Children are
+    keyed ``"{i}:{name}"``; a cell already held by another container
+    (``examples/languagemodel.py`` stacks a trained model's cells) keeps
+    that container's key."""
+
+    def __init__(self, cells: List[Cell]) -> None:
+        super().__init__(cells[-1].hidden_size)
+        for i, c in enumerate(cells):
+            self.add_module(f"{i}:{c.name}", c)
+            if c._container_key is None:
+                c._container_key = f"{i}:{c.name}"
+        self.carry_len = sum(c.carry_len for c in cells)
+
+    @property
+    def cells(self) -> List[Cell]:
+        return self.layers()
+
+    def reset_parameters(self) -> "MultiRNNCell":
+        for c in self.cells:
+            c.reset_parameters()
+        return self
+
+    def init_carry(self, batch_size: int, device) -> tuple:
+        return tuple(t for c in self.cells
+                     for t in c.init_carry(batch_size, device))
+
+    def init_carry_for(self, x) -> tuple:
+        # stride-1 stacks keep a spatial state's frame layer to layer
+        return tuple(t for c in self.cells for t in c.init_carry_for(x))
+
+    @property
+    def input_dropout_p(self) -> float:
+        return self.cells[0].p
+
+    def _n_h_specs(self) -> int:
+        return sum(len(c.dropout_specs()) for c in self.cells)
+
+    def dropout_specs(self):
+        """The sub-cells' recurrent specs, then one input spec per later
+        sub-cell: its ``p`` drops the previous cell's per-step output."""
+        cells = self.cells
+        out = [spec for c in cells for spec in c.dropout_specs()]
+        out += [(cells[i].p, cells[i - 1].hidden_size)
+                for i in range(1, len(cells))]
+        return out
+
+    def mask_carry(self, carry, h_masks):
+        new, idx, mi = list(carry), 0, 0
+        for c in self.cells:
+            n = len(c.dropout_specs())
+            new[idx: idx + c.carry_len] = c.mask_carry(
+                tuple(new[idx: idx + c.carry_len]), h_masks[mi: mi + n])
+            idx += c.carry_len
+            mi += n
+        return tuple(new)
+
+    def with_masks(self, h_masks):
+        in_masks = h_masks[self._n_h_specs():]
+        return lambda pre_t, carry: self._run_stack(pre_t, carry, in_masks)
+
+    def precompute_input(self, x):
+        return self.cells[0].precompute_input(x)
+
+    def step_pre(self, pre_t, carry):
+        return self._run_stack(pre_t, carry, None)
+
+    def _run_stack(self, pre_t, carry, in_masks):
+        new, h, idx = [], pre_t, 0
+        for i, c in enumerate(self.cells):
+            sub = tuple(carry[idx: idx + c.carry_len])
+            idx += c.carry_len
+            if i == 0:
+                h, nc = c.step_pre(h, sub)
+            else:
+                if in_masks is not None and in_masks[i - 1] is not None:
+                    h = h * in_masks[i - 1]
+                h, nc = c.step(h, sub)
+            new.extend(nc)
+        return h, tuple(new)
+
+    def step(self, x_t, carry):
+        return self.step_pre(self.precompute_input(x_t), carry)

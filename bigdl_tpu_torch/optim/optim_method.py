@@ -34,7 +34,8 @@ leaves laid end to end, so a leaf's bits are fixed by the step and its
 place in the parameter order. JAX draws
 its noise with threefry, so the two packages round the same value with
 other bits; the rounding given the bits is :func:`_round_with_noise`,
-bitwise JAX's. L-BFGS is not ported.
+bitwise JAX's. L-BFGS, a full-batch method with no ``update``, is
+:mod:`bigdl_tpu_torch.optim.lbfgs`.
 
 Slot names are JAX's (``accum``/``delta_accum``, ``m``/``u``, ``sq``,
 ``accum``/``linear``, ``velocity``), so checkpoints and

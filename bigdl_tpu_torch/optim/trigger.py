@@ -74,3 +74,12 @@ class Trigger:
     def max_score(max_s: float) -> "Trigger":
         return Trigger(
             lambda s: s.get("score") is not None and s["score"] > max_s)
+
+
+# module-level factory aliases, the reference's ``Trigger.xxx`` style
+max_epoch = Trigger.max_epoch
+max_iteration = Trigger.max_iteration
+every_epoch = Trigger.every_epoch
+several_iteration = Trigger.several_iteration
+min_loss = Trigger.min_loss
+max_score = Trigger.max_score

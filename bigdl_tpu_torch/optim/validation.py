@@ -1,7 +1,7 @@
 """ValidationMethods and their results (``bigdl_tpu/optim/validation.py``):
-``Top1Accuracy``, ``Top5Accuracy``, ``Loss`` and ``MAE``;
-``AccuracyResult``/``LossResult`` merge with ``+``. Labels are 1-based,
-as the criteria take them.
+``Top1Accuracy``, ``Top5Accuracy``, ``TreeNNAccuracy`` (``:128``),
+``Loss`` and ``MAE``; ``AccuracyResult``/``LossResult`` merge with
+``+``. Labels are 1-based, as the criteria take them.
 
 A method takes the model's output as a tensor (on the card or the CPU)
 and the batch's target as the host array the data pipeline made. The
@@ -143,6 +143,45 @@ class Top5Accuracy(ValidationMethod):
         top5 = np.argsort(-out, axis=-1)[:, :5]
         correct = int(sum(t[i] in top5[i] for i in range(len(t))))
         return AccuracyResult(correct, len(t))
+
+
+class TreeNNAccuracy(ValidationMethod):
+    """Accuracy over a tree model's per-node outputs (reference
+    ``TreeNNAccuracy``, used by treeLSTMSentiment): ``output`` (B, N, C)
+    class scores in children-before-parent node order, ``target`` (B, N)
+    1-based labels with 0 for padding (trailing singleton dims
+    tolerated). The root is each tree's last labelled node;
+    ``all_nodes=True`` scores every labelled node."""
+
+    _result_cls = AccuracyResult
+
+    def __init__(self, all_nodes: bool = False) -> None:
+        self.all_nodes = all_nodes
+        self.name = f"TreeNNAccuracy(all={all_nodes})"
+
+    def apply(self, output, target) -> AccuracyResult:
+        out = to_host(output)
+        t = to_host(target).astype(np.int64)
+        if out.ndim == 2:
+            out, t = out[None], np.atleast_2d(t)
+        while t.ndim > out.ndim - 1 and t.shape[-1] == 1:
+            t = t[..., 0]
+        if t.shape != out.shape[:-1]:
+            raise ValueError(
+                f"TreeNNAccuracy: target shape {t.shape} does not match "
+                f"output node grid {out.shape[:-1]}")
+        pred = out.argmax(axis=-1) + 1          # 1-based
+        valid = t > 0
+        if self.all_nodes:
+            return AccuracyResult(int(((pred == t) & valid).sum()),
+                                  int(valid.sum()))
+        correct = total = 0
+        for b in range(t.shape[0]):
+            idx = np.nonzero(valid[b])[0]
+            if len(idx):
+                total += 1
+                correct += int(pred[b, idx[-1]] == t[b, idx[-1]])
+        return AccuracyResult(correct, total)
 
 
 class Loss(ValidationMethod):

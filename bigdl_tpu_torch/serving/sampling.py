@@ -267,6 +267,13 @@ def sample_rows(logp, lanes, knobs, counts, prompt_mask):
     return tok, chosen_logp, new_lanes, new_counts
 
 
+def get_sampler():
+    """The non-serving path's sampler: :func:`sample_rows` itself. JAX
+    hands out one shared ``jax.jit`` of it; the port compiles nothing, so
+    there is nothing to cache."""
+    return sample_rows
+
+
 def match_stop_sequences(output: Sequence[int],
                          stop_sequences) -> Optional[Tuple[int, ...]]:
     """The matched sequence if ``output`` (1-based ids) ends with any of

@@ -411,6 +411,51 @@ any failure raises, so the exit code is non-zero and no result prints:
               frozen parameter ``torch.equal`` to its start, the head
               moved; the same recipe unfrozen for the step p50 beside the
               frozen one;
+29d. rnn_cells — each new recurrent cell on the card against the port's
+              own CPU run from the same weights and inputs (f32, TF32
+              off), forward and backward (output, input gradient and
+              parameter gradients, each relative to its tensor's largest
+              CPU value, against ``RNN_CELLS_TOL``): ``RnnCell``, ``GRU``
+              (both forms), ``LSTMPeephole`` and a two-``LSTM``
+              ``MultiRNNCell`` at Zaremba et al.'s medium PTB width
+              (hidden 650, 35 steps, batch 20) under ``Recurrent``,
+              ``RecurrentDecoder(35)`` over ``GRU(650, 650)``,
+              ``TimeDistributed(Linear(650, 10000))`` on (20, 35, 650), and
+              a ``MultiRNNCell`` of three 5x5 ``ConvLSTMPeephole``s
+              (hidden 128, 64, 64) on Shi et al.'s Moving-MNIST patch
+              layout (10 frames of 16 x 16 x 16, batch 16; the check runs
+              2 of the 16 sequences); step p50 of forward + backward and
+              launches per time step at the full batch;
+29e. ptb — ``PTBModel`` at the PTB "small" configuration (vocabulary
+              10,000, hidden 200, 2 LSTM layers, 20 steps, batch 20)
+              through ``LocalOptimizer`` with ``Adagrad(0.1)`` for one
+              epoch of 10,000 synthetic windows (PTB's train set is about
+              929k words): its first f32 step card against CPU within
+              ``PTB_CARD_TOL``, the loss falls, step p50, words/s,
+              launches per step and per time step and layer, peak memory;
+              ``models.rnn.train_main`` on the ``-f`` corpus path (a
+              200,000-word text file of a 10,000-word vocabulary written
+              here, seqLen 20, batch 20, hidden 200, one epoch);
+              ``SimpleRNN`` at the same width five steps;
+29f. languagemodel — ``examples.languagemodel.main`` at ``--vocab 10000
+              --hidden 200 --seqLen 20 -b 20`` on a 2,000-window synthetic
+              epoch with ``--beam 4 --genLen 20``: every beam's ids in the
+              vocabulary, scores sorted; on a 2-layer ``PTBModel`` the
+              stacked-cell step fed a 20-token prompt one token at a time
+              reproduces ``model.forward``'s log-probabilities at every
+              position within ``LM_STEP_TOL``; the beam search's ms per
+              generated token;
+29g. treelstm — ``TreeLSTMSentiment(20000, 128, 128, 5)`` (JAX's
+              defaults, a Stanford Sentiment Treebank-sized vocabulary) on
+              25 synthetic binary trees of 10-56 leaves padded to 111
+              nodes: forward and backward card against CPU within
+              ``TREE_CARD_TOL``; ``TreeNNAccuracy`` (root and all nodes)
+              of the card's output equal to the CPU's; ``LBFGS(max_iter=
+              10)`` on the root loss of 256 trees lowers it, its first
+              loss and gradient card against CPU; forward + backward ms
+              per batch, launches per node and L-BFGS evaluations per
+              second. No port kernel runs on these four paths (cuBLAS
+              products, cuDNN convolutions, plain elementwise ops);
 30. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
@@ -481,6 +526,23 @@ AE_CARD_TOL = 1e-5
 #: whole chip_smoke run once parted by 5.7e-4. In float64 the two differ by
 #: rounding only (measured 1.1e-16 after 20 steps).
 LENET_CARD_TOL = {"f32_first_step": 1e-5, "f64": 1e-9}
+#: rnn_cells: each tensor's largest error relative to its largest CPU
+#: value; the dense cells' products sum K = 650 terms in other orders,
+#: then 35 steps of recurrence and their backward; the ConvLSTM stack's
+#: 5x5 convolutions sum up to K = 3,200 terms by whichever algorithm
+#: cuDNN picks.
+RNN_CELLS_TOL = {"dense": 1e-4, "conv": 1e-3}
+#: ptb: the first f32 Adagrad step card vs CPU: the loss, the
+#: accumulator g² and the parameters where |g| is clear of 0
+#: (``AE_CARD_TOL``'s reasoning).
+PTB_CARD_TOL = 1e-5
+#: languagemodel: the stacked-cell step's log-probabilities against
+#: ``model.forward``'s on the card, relative to the largest magnitude.
+LM_STEP_TOL = 1e-5
+#: treelstm: forward and backward card vs CPU, each tensor relative to
+#: its largest CPU value (111 node steps of K = 256 products whose errors
+#: feed the parents), and L-BFGS's first loss and gradient.
+TREE_CARD_TOL = 1e-4
 
 
 _T0 = time.perf_counter()
@@ -6989,6 +7051,422 @@ def finetune_phase(batch: int = 64, steps: int = 5):
          runs=out)
 
 
+def host_ms(fn, reps: int = 5) -> list:
+    """Host milliseconds of ``fn()`` to a synchronised card, ``reps``
+    times after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def fwd_bwd(module, x):
+    """A closure running ``module`` forward and backward on ``x`` (a
+    tensor or a list of them) with a ones cotangent, grad enabled (what
+    ``host_ms`` times and ``window_counts`` profiles)."""
+    import torch
+
+    params = list(module.parameters())
+
+    def run():
+        with torch.enable_grad():
+            out = module(x)
+            torch.autograd.grad(out.sum(), params)
+
+    return run
+
+
+def rnn_cell_cases(H: int = 650, T: int = 35, B: int = 20,
+                   vocab: int = 10000, frames=(16, 10, 16, 16, 16),
+                   conv_hidden=(128, 64, 64), conv_checked: int = 2):
+    """(name, kind, build(generator), input shape, CPU batch, time steps)
+    of the rnn_cells phase (see the phase list)."""
+    from bigdl_tpu_torch import nn as N
+
+    def rec(make):
+        return lambda g: N.Recurrent().add(make(g))
+
+    def conv_stack(g):
+        ins = (frames[2],) + tuple(conv_hidden[:-1])
+        return N.Recurrent().add(N.MultiRNNCell(
+            [N.ConvLSTMPeephole(i, o, 5, 5, generator=g)
+             for i, o in zip(ins, conv_hidden)]))
+
+    return [
+        ("RnnCell", "dense", rec(lambda g: N.RnnCell(H, H, generator=g)),
+         (B, T, H), B, T),
+        ("GRU", "dense", rec(lambda g: N.GRU(H, H, generator=g)),
+         (B, T, H), B, T),
+        ("GRU_reset_before", "dense", rec(lambda g: N.GRU(
+            H, H, reset_after=False, generator=g)), (B, T, H), B, T),
+        ("LSTMPeephole", "dense", rec(lambda g: N.LSTMPeephole(
+            H, H, generator=g)), (B, T, H), B, T),
+        ("MultiRNNCell_2xLSTM", "dense", rec(lambda g: N.MultiRNNCell(
+            [N.LSTM(H, H, generator=g), N.LSTM(H, H, generator=g)])),
+         (B, T, H), B, T),
+        ("RecurrentDecoder_GRU", "dense", lambda g: N.RecurrentDecoder(
+            T).add(N.GRU(H, H, generator=g)), (B, H), B, T),
+        ("TimeDistributed_Linear", "dense", lambda g: N.TimeDistributed(
+            N.Linear(H, vocab, generator=g)), (B, T, H), B, T),
+        ("MultiRNNCell_3xConvLSTMPeephole", "conv", conv_stack,
+         tuple(frames), conv_checked, frames[1]),
+    ]
+
+
+def rnn_cells_phase(**sizes):
+    """The recurrent family's cells on the card (see the phase list);
+    raises on any error beyond ``RNN_CELLS_TOL``."""
+    import copy
+
+    import torch
+
+    figures, misses = {}, {}
+    for i, (name, kind, build, shape, cpu_b, steps) in enumerate(
+            rnn_cell_cases(**sizes)):
+        cpu = build(torch.Generator().manual_seed(i))
+        x = np.random.default_rng(i).standard_normal(shape).astype(
+            np.float32)
+        c_out, c_gx, c_gp, cts, _ = tail_layer_run(cpu, x[:cpu_b], None,
+                                                   "cpu")
+        d_out, d_gx, d_gp, _, _ = tail_layer_run(cpu, x[:cpu_b], cts, "cuda")
+        err = {"output": rel_err(d_out[0], c_out[0]),
+               "input_grad": rel_err(d_gx[0], c_gx[0]),
+               "param_grads": max(rel_err(d_gp[k], v)
+                                  for k, v in c_gp.items())}
+        dev = copy.deepcopy(cpu).to("cuda")
+        del cpu
+        run = fwd_bwd(dev, torch.from_numpy(x).to("cuda"))
+        ms = host_ms(run)
+        counts = window_counts(run, f"rnn_cells_{name}", steps)
+        figures[name] = {
+            "kind": kind, "shape": list(shape), "checked_batch": cpu_b,
+            "err": err, "tol": RNN_CELLS_TOL[kind],
+            "fwd_bwd_ms_p50": float(np.median(ms)), "fwd_bwd_ms": ms,
+            "launches_per_time_step": counts["device_launches"]}
+        if max(err.values()) > RNN_CELLS_TOL[kind]:
+            misses[name] = err
+        del dev, run
+        torch.cuda.empty_cache()
+    emit("rnn_cells", card=nvidia_smi(), cells=figures, tol=RNN_CELLS_TOL,
+         misses=misses)
+    if misses:
+        raise AssertionError(f"rnn_cells card vs CPU beyond "
+                             f"{RNN_CELLS_TOL}: {misses}")
+
+
+def ptb_first_step(model, x, y, device):
+    """One ``Adagrad(0.1)`` train step of a copy of ``model`` on
+    ``device``: (loss, accumulator, params), on the CPU."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import Adagrad
+    from bigdl_tpu_torch.optim.train_step import make_train_step
+
+    m = copy.deepcopy(model).to(device)
+    opt = Adagrad(learning_rate=0.1)
+    params = {k: p.detach().clone() for k, p in m.named_parameters()}
+    params, state, _, loss = make_train_step(
+        m, TimeDistributedCriterion(ClassNLLCriterion()), opt)(
+        params, opt.init_state(params), {}, None,
+        torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+    return (float(loss), {k: v.cpu() for k, v in state["accum"].items()},
+            {k: v.cpu() for k, v in params.items()})
+
+
+def first_step_errors(cpu, card):
+    """The loss's, the accumulator's and the parameters' (where |g| is
+    above 1% of its tensor's largest) relative errors of a first Adagrad
+    step, card vs CPU."""
+    (lc, ac, pc), (ld, ad, pd) = cpu, card
+    param_err = 0.0
+    for k, v in pc.items():
+        clear = ac[k].sqrt() > 1e-2 * ac[k].sqrt().max()
+        param_err = max(param_err, rel_err(pd[k][clear], v[clear]))
+    return {"loss_rel_err": abs(ld - lc) / abs(lc),
+            "accum_rel_err": max(rel_err(ad[k], v) for k, v in ac.items()),
+            "param_rel_err": param_err, "cpu_loss": lc, "card_loss": ld}
+
+
+def optimizer_run(model, samples, criterion, method, batch, epochs=1):
+    """``Optimizer`` on the card for ``epochs`` with a ``TrainSummary``:
+    (wall s, step seconds from the ``Throughput`` scalars, losses, peak
+    GiB)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.optim import Optimizer, Trigger
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    summary = tempfile.mkdtemp(prefix="summary_")
+    opt = Optimizer(model, samples, criterion, batch_size=batch,
+                    end_trigger=Trigger.max_epoch(epochs))
+    opt.set_optim_method(method)
+    opt.set_train_summary(TrainSummary(summary, "train"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ts = TrainSummary(summary, "train")
+    losses = [v for _, v in ts.read_scalar("Loss")]
+    step_s = [batch / v for _, v in ts.read_scalar("Throughput")]
+    ts.close()
+    shutil.rmtree(summary, ignore_errors=True)
+    return wall, step_s, losses, peak
+
+
+def markov_corpus(path: str, words: int, vocab: int, seed: int = 0) -> str:
+    """A text file of ``words`` words over ``vocab`` distinct ones, each
+    next word 1-2 places after the previous (mod ``vocab``)."""
+    rng = np.random.default_rng(seed)
+    ids = np.cumsum(rng.integers(1, 3, words)) % vocab
+    with open(path, "w") as f:
+        f.write(" ".join(f"w{i}" for i in ids))
+    return path
+
+
+def falls(losses, k: int = 20) -> bool:
+    """The mean of the last ``k`` losses below the mean of the first."""
+    return bool(np.isfinite(losses).all()
+                and np.mean(losses[-k:]) < np.mean(losses[:k]))
+
+
+def ptb_phase(vocab: int = 10000, hidden: int = 200, steps: int = 20,
+              batch: int = 20, windows: int = 10000,
+              corpus_words: int = 200000):
+    """The PTB language model at the PTB-small configuration (see the
+    phase list)."""
+    import copy
+    import os
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.models.rnn import (
+        PTBModel, SimpleRNN, synthetic_samples, train_main,
+    )
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import Adagrad
+
+    crit = TimeDistributedCriterion(ClassNLLCriterion())
+    samples = synthetic_samples(windows, vocab, steps)
+    x = np.stack([s.features[0] for s in samples[:batch]])
+    y = np.stack([s.labels[0] for s in samples[:batch]])
+    cpu = PTBModel(vocab, hidden, num_layers=2, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    check = first_step_errors(ptb_first_step(cpu, x, y, "cpu"),
+                              ptb_first_step(cpu, x, y, "cuda"))
+    model = copy.deepcopy(cpu).to("cuda")
+    window = optimizer_window(model, samples[:3 * batch], crit,
+                              Adagrad(0.1), batch, 2)
+    window()
+    counts = window_counts(window, "ptb_train", 2)
+    counts["per_time_step_and_layer"] = counts["device_launches"] / (
+        steps * 2)
+    wall, step_s, losses, peak = optimizer_run(model, samples, crit,
+                                               Adagrad(0.1), batch)
+    p50 = float(np.median(step_s[1:]))
+    with tempfile.TemporaryDirectory() as d:
+        corpus = markov_corpus(os.path.join(d, "ptb.train.txt"),
+                               corpus_words, vocab - 1)
+        m, c_wall, c_step, c_losses, c_peak = main_run(
+            train_main, ["-f", corpus, "--seqLen", str(steps), "-b",
+                         str(batch), "--hidden", str(hidden),
+                         "--maxEpoch", "1"], batch)
+    c_vocab = m[0].n_index
+    del m
+    rng = np.random.default_rng(1)
+    rnn_batches = [(rng.integers(1, vocab + 1, (batch, steps)).astype(
+        np.float32), rng.integers(1, vocab + 1, (batch, steps)).astype(
+        np.float32)) for _ in range(5)]
+    rnn_losses, _ = train_steps(
+        SimpleRNN(vocab, hidden, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(2)),
+        rnn_batches, crit, Adagrad(0.1))
+    emit("ptb", card=nvidia_smi(),
+         what=f"PTBModel(vocab {vocab}, hidden {hidden}, 2 LSTM layers), "
+         f"{steps} steps, batch {batch}, LocalOptimizer + Adagrad 0.1, "
+         f"one epoch of {windows} synthetic windows (a time cut: PTB's "
+         "train set is about 929k words)", wall_s=wall, steps=len(step_s),
+         step_ms_p50=p50 * 1e3, words_per_s=batch * steps / p50,
+         first_loss=losses[0], last_loss=losses[-1], peak_mem_gib=peak,
+         per_step=counts, card_vs_cpu=check, tol=PTB_CARD_TOL,
+         corpus={"words": corpus_words, "vocab": c_vocab, "wall_s": c_wall,
+                 "steps": len(c_step),
+                 "step_ms_p50": float(np.median(c_step[1:])) * 1e3,
+                 "first_loss": c_losses[0], "last_loss": c_losses[-1],
+                 "peak_mem_gib": c_peak},
+         simple_rnn_losses=rnn_losses)
+    if max(check["loss_rel_err"], check["accum_rel_err"],
+           check["param_rel_err"]) > PTB_CARD_TOL:
+        raise AssertionError(f"ptb first step card vs CPU {check}")
+    if not (falls(losses) and falls(c_losses) and c_vocab == vocab
+            and np.isfinite(rnn_losses).all()):
+        raise AssertionError(
+            f"ptb losses {losses[:3]}...{losses[-3:]}, corpus "
+            f"{c_losses[:3]}...{c_losses[-3:]} (vocab {c_vocab}), "
+            f"SimpleRNN {rnn_losses}")
+
+
+def languagemodel_phase(vocab: int = 10000, hidden: int = 200,
+                        steps: int = 20, batch: int = 20,
+                        windows: int = 2000, beam: int = 4,
+                        gen_len: int = 20):
+    """The language-model example on the card (see the phase list)."""
+    import io
+
+    import torch
+
+    from bigdl_tpu_torch.examples.languagemodel import (
+        generate, lm_step_fn, main,
+    )
+    from bigdl_tpu_torch.models.rnn import PTBModel
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        model = main(["--vocab", str(vocab), "--hidden", str(hidden),
+                      "--seqLen", str(steps), "-b", str(batch),
+                      "--synthetic", str(windows), "--maxEpoch", "1",
+                      "--beam", str(beam), "--genLen", str(gen_len)])
+    lines = [ln for ln in log.getvalue().splitlines()
+             if ln.startswith("beam ")]
+    ids = [[int(t) for t in ln.split()[4:]] for ln in lines]
+    scores = [float(ln.split()[3]) for ln in lines]
+    beams_ok = (len(lines) == beam and scores == sorted(scores, reverse=True)
+                and all(len(r) == gen_len and all(1 <= t <= vocab for t in r)
+                        for r in ids))
+    ms = host_ms(lambda: generate(model, beam, gen_len), reps=3)
+    two = PTBModel(vocab, hidden, num_layers=2, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(3))
+    prompt = torch.randint(0, vocab, (beam, steps), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(4))
+    step, cell = lm_step_fn(two)
+    with torch.no_grad():
+        want = two((prompt + 1).float())
+        carry = cell.init_carry(beam, "cuda")
+        step_err = 0.0
+        for t in range(steps):
+            logits, carry = step(None, prompt[:, t], carry)
+            step_err = max(step_err, rel_err(torch.log_softmax(logits, -1),
+                                             want[:, t]))
+    emit("languagemodel", card=nvidia_smi(),
+         what=f"examples.languagemodel.main --vocab {vocab} --hidden "
+         f"{hidden} --seqLen {steps} -b {batch} on {windows} synthetic "
+         f"windows, one epoch, --beam {beam} --genLen {gen_len}",
+         beams=lines, beams_ok=beams_ok,
+         beam_ms_per_token=float(np.median(ms)) / gen_len, beam_ms=ms,
+         stacked_step_err=step_err, tol=LM_STEP_TOL)
+    if not beams_ok or step_err > LM_STEP_TOL:
+        raise AssertionError(f"languagemodel beams {lines}, stacked-step "
+                             f"error {step_err}")
+
+
+def treelstm_phase(vocab: int = 20000, batch: int = 25,
+                   lbfgs_trees: int = 256, n_nodes: int = 111,
+                   leaves=(10, 57)):
+    """The binary TreeLSTM sentiment net on the card (see the phase
+    list)."""
+    import copy
+
+    import torch
+    from torch.func import functional_call
+
+    from bigdl_tpu_torch.models.treelstm import (
+        TreeLSTMSentiment, synthetic_trees,
+    )
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import LBFGS, TreeNNAccuracy
+
+    cpu = TreeLSTMSentiment(vocab, 128, 128, 5, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    word, left, right, labels = synthetic_trees(batch, vocab, leaves,
+                                                n_nodes, seed=0)
+    xs = [word, left, right]
+    c_out, _, c_gp, cts, _ = tail_layer_run(cpu, xs, None, "cpu")
+    d_out, _, d_gp, _, _ = tail_layer_run(cpu, xs, cts, "cuda")
+    err = {"output": rel_err(d_out[0], c_out[0]),
+           "param_grads": max(rel_err(d_gp[k], v) for k, v in c_gp.items())}
+    acc = {}
+    for all_nodes in (False, True):
+        got = TreeNNAccuracy(all_nodes).apply(d_out[0], labels)
+        want = TreeNNAccuracy(all_nodes).apply(c_out[0], labels)
+        acc["all" if all_nodes else "root"] = {
+            "card": [got.correct, got.count],
+            "cpu": [want.correct, want.count]}
+    acc_equal = all(v["card"] == v["cpu"] for v in acc.values())
+    dev = copy.deepcopy(cpu).to("cuda")
+    run = fwd_bwd(dev, [torch.from_numpy(a).to("cuda") for a in xs])
+    ms = host_ms(run)
+    counts = window_counts(run, "treelstm_fwd_bwd", n_nodes)
+    # L-BFGS on the root loss of a larger forest
+    t_word, t_left, t_right, t_labels = synthetic_trees(
+        lbfgs_trees, vocab, leaves, n_nodes, seed=1)
+    roots = (((t_word > 0) | (t_left > 0)) * np.arange(n_nodes)).argmax(1)
+    crit = ClassNLLCriterion()
+    evals = [0]
+
+    def feval_on(model, device):
+        ins = [torch.from_numpy(a).to(device)
+               for a in (t_word, t_left, t_right)]
+        r = torch.from_numpy(roots).to(device)
+        tgt = torch.from_numpy(
+            t_labels[np.arange(lbfgs_trees), roots]).to(device)
+        rows = torch.arange(lbfgs_trees, device=device)
+
+        def feval(params):
+            evals[0] += 1
+            ps = {k: v.detach().requires_grad_() for k, v in params.items()}
+            with torch.enable_grad():
+                loss = crit.apply(functional_call(model, ps, (ins,))[rows, r],
+                                  tgt)
+                grads = torch.autograd.grad(loss, list(ps.values()))
+            return loss.detach(), dict(zip(ps, grads))
+
+        return feval
+
+    lc, gc = feval_on(cpu, "cpu")({k: p.detach()
+                                   for k, p in cpu.named_parameters()})
+    feval = feval_on(dev, "cuda")
+    dparams = {k: p.detach() for k, p in dev.named_parameters()}
+    ld, gd = feval(dparams)
+    first = {"loss_rel_err": abs(float(ld) - float(lc)) / abs(float(lc)),
+             "grad_rel_err": max(rel_err(gd[k], v) for k, v in gc.items())}
+    evals[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = LBFGS(max_iter=10).optimize(feval, dparams)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    emit("treelstm", card=nvidia_smi(),
+         what=f"TreeLSTMSentiment({vocab}, 128, 128, 5), {batch} synthetic "
+         f"binary trees of {leaves[0]}-{leaves[1] - 1} leaves padded to "
+         f"{n_nodes} nodes; LBFGS(max_iter=10) on the root loss of "
+         f"{lbfgs_trees} trees", err=err, tol=TREE_CARD_TOL,
+         tree_nn_accuracy=acc, fwd_bwd_ms_p50=float(np.median(ms)),
+         fwd_bwd_ms=ms, launches_per_node=counts["device_launches"],
+         lbfgs_first=first, lbfgs_losses=losses, lbfgs_evals=evals[0],
+         lbfgs_wall_s=wall, lbfgs_evals_per_s=evals[0] / wall)
+    if max(list(err.values()) + list(first.values())) > TREE_CARD_TOL:
+        raise AssertionError(f"treelstm card vs CPU {err}, {first}")
+    if not (acc_equal and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"treelstm accuracy {acc}, L-BFGS {losses}")
+
+
 def main() -> int:
     import torch
 
@@ -7077,6 +7555,10 @@ def main() -> int:
     nn_tail_phase()
     autoencoder_phase()
     finetune_phase()
+    rnn_cells_phase()
+    ptb_phase()
+    languagemodel_phase()
+    treelstm_phase()
     conv = conv3x3_phase()
     emit("timing_guard", guard_ms=guard_ms(),
          host_enqueue_ms_max=HOST_ENQUEUE["max_ms"],

@@ -4,7 +4,8 @@ import importlib
 
 #: the models this package exports, by module; imported on first use,
 #: so that ``python -m bigdl_tpu_torch.models.rnn`` runs its module once
-_EXPORTS = {"PTBModel": "rnn", "SimpleRNN": "rnn",
+_EXPORTS = {"AlexNet": "alexnet", "AlexNet_OWT": "alexnet",
+            "PTBModel": "rnn", "SimpleRNN": "rnn",
             "BinaryTreeLSTM": "treelstm", "TreeLSTMSentiment": "treelstm"}
 
 __all__ = list(_EXPORTS)

@@ -23,10 +23,38 @@ from bigdl_tpu_torch.nn.criterion_more import (
     MeanAbsolutePercentageCriterion, MeanSquaredLogarithmicCriterion,
     PoissonCriterion, TimeDistributedMaskCriterion,
 )
-from bigdl_tpu_torch.nn.graph import Graph, Input, ModuleNode
+from bigdl_tpu_torch.nn.criterion_extra import (
+    ClassSimplexCriterion, CosineDistanceCriterion, CosineEmbeddingCriterion,
+    CosineProximityCriterion, DiceCoefficientCriterion, GaussianCriterion,
+    HingeEmbeddingCriterion, KLDCriterion, L1Cost, MarginRankingCriterion,
+    MultiCriterion, MultiLabelMarginCriterion, MultiMarginCriterion,
+    SoftMarginCriterion, SoftmaxWithCriterion,
+)
+from bigdl_tpu_torch.nn.graph import Graph, Input, ModuleNode, StaticGraph
 from bigdl_tpu_torch.nn.init_methods import (
     BilinearFiller, ConstInitMethod, InitializationMethod, MsraFiller, Ones,
     RandomNormal, RandomUniform, Xavier, Zeros,
+)
+from bigdl_tpu_torch.nn.layers_extra import (
+    Bilinear, Cosine, CosineDistance, DotProduct, Euclidean, GaussianDropout,
+    GaussianNoise, GaussianSampler, GradientReversal, HardShrink, HardSigmoid,
+    Index, L1Penalty, LogSigmoid, Masking, NarrowTable, Negative,
+    PairwiseDistance, Replicate, RReLU, Scale, SelectTable, SoftMin,
+    SoftShrink, SpatialDilatedConvolution, SpatialUpSamplingBilinear,
+    SpatialUpSamplingNearest, SpatialZeroPadding, TanhShrink,
+    TemporalConvolution, Threshold, VolumetricAveragePooling,
+    VolumetricConvolution, VolumetricMaxPooling,
+)
+from bigdl_tpu_torch.nn.layers_more import (
+    BifurcateSplitTable, Cropping2D, Cropping3D, DenseToSparse, InferReshape,
+    LocallyConnected1D, LocallyConnected2D, MaskedSelect, Maxout,
+    MixtureTable, NegativeEntropyPenalty, Pack, Reverse, SReLU,
+    SpatialContrastiveNormalization, SpatialConvolutionMap,
+    SpatialDivisiveNormalization, SpatialDropout1D, SpatialDropout2D,
+    SpatialDropout3D, SpatialSeparableConvolution, SpatialShareConvolution,
+    SpatialSubtractiveNormalization, SpatialWithinChannelLRN,
+    TemporalAveragePooling, TemporalMaxPooling, Tile, UpSampling1D,
+    UpSampling3D, VolumetricFullConvolution, VolumetricZeroPadding,
 )
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.misc import (
@@ -49,6 +77,9 @@ from bigdl_tpu_torch.nn.recurrent import (
     GRU, LSTM, BiRecurrent, Cell, ConvLSTMPeephole, LSTMPeephole,
     MultiRNNCell, Recurrent, RecurrentDecoder, RnnCell, TimeDistributed,
 )
+from bigdl_tpu_torch.nn.sparse import (
+    LookupTableSparse, SparseJoinTable, SparseLinear,
+)
 from bigdl_tpu_torch.nn.shape_ops import (
     CAddTable, CAveTable, CDivTable, CMaxTable, CMinTable, CMulTable,
     Contiguous, CSubTable, FlattenTable, JoinTable, Narrow, Padding, Reshape,
@@ -57,7 +88,8 @@ from bigdl_tpu_torch.nn.shape_ops import (
 
 __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
            "Sequential", "Concat", "ConcatTable", "Remat", "Graph", "Input",
-           "ModuleNode", "Linear", "LookupTable", "Dropout", "LogSoftMax",
+           "ModuleNode", "StaticGraph", "Linear", "LookupTable", "Dropout",
+           "LogSoftMax",
            "ReLU", "Tanh", "MultiHeadAttention", "SpatialConvolution",
            "BatchNormalization", "SpatialBatchNormalization",
            "SpatialCrossMapLRN", "SpatialMaxPooling",
@@ -88,7 +120,41 @@ __all__ = ["AbstractModule", "TensorModule", "Identity", "Container",
            "MeanSquaredLogarithmicCriterion", "PoissonCriterion",
            # the recurrent family
            "GRU", "ConvLSTMPeephole", "LSTMPeephole", "MultiRNNCell",
-           "RecurrentDecoder", "RnnCell", "TimeDistributed", "Module"]
+           "RecurrentDecoder", "RnnCell", "TimeDistributed", "Module",
+           # layers_extra
+           "Bilinear", "Cosine", "CosineDistance", "DotProduct", "Euclidean",
+           "GaussianDropout", "GaussianNoise", "GaussianSampler",
+           "GradientReversal", "HardShrink", "HardSigmoid", "Index",
+           "L1Penalty", "LogSigmoid", "Masking", "NarrowTable", "Negative",
+           "PairwiseDistance", "Replicate", "RReLU", "Scale", "SelectTable",
+           "SoftMin", "SoftShrink", "SpatialDilatedConvolution",
+           "SpatialUpSamplingBilinear", "SpatialUpSamplingNearest",
+           "SpatialZeroPadding", "TanhShrink", "TemporalConvolution",
+           "Threshold", "VolumetricAveragePooling", "VolumetricConvolution",
+           "VolumetricMaxPooling",
+           # layers_more
+           "BifurcateSplitTable", "Cropping2D", "Cropping3D",
+           "DenseToSparse", "InferReshape", "LocallyConnected1D",
+           "LocallyConnected2D", "MaskedSelect", "Maxout", "MixtureTable",
+           "NegativeEntropyPenalty", "Pack", "Reverse", "SReLU",
+           "SpatialContrastiveNormalization", "SpatialConvolutionMap",
+           "SpatialDivisiveNormalization", "SpatialDropout1D",
+           "SpatialDropout2D", "SpatialDropout3D",
+           "SpatialSeparableConvolution", "SpatialShareConvolution",
+           "SpatialSubtractiveNormalization", "SpatialWithinChannelLRN",
+           "TemporalAveragePooling", "TemporalMaxPooling", "Tile",
+           "UpSampling1D", "UpSampling3D", "VolumetricFullConvolution",
+           "VolumetricZeroPadding",
+           # sparse
+           "LookupTableSparse", "SparseJoinTable", "SparseLinear",
+           # criterion_extra
+           "ClassSimplexCriterion", "CosineDistanceCriterion",
+           "CosineEmbeddingCriterion", "CosineProximityCriterion",
+           "DiceCoefficientCriterion", "GaussianCriterion",
+           "HingeEmbeddingCriterion", "KLDCriterion", "L1Cost",
+           "MarginRankingCriterion", "MultiCriterion",
+           "MultiLabelMarginCriterion", "MultiMarginCriterion",
+           "SoftMarginCriterion", "SoftmaxWithCriterion"]
 
 #: the JAX package's alias of the layer base
 Module = AbstractModule

@@ -29,7 +29,10 @@ from bigdl_tpu_torch.nn.activations import clip
 
 
 def _as_tensor(x, like: torch.Tensor = None) -> torch.Tensor:
-    """numpy/scalars → tensor (on ``like``'s device when given)."""
+    """numpy/scalars → tensor (on ``like``'s device when given); ``None``
+    stays ``None`` (a criterion that ignores its target)."""
+    if x is None:
+        return None
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     return t if like is None else t.to(like.device)
 

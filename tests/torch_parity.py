@@ -2,8 +2,11 @@
 JAX TransformerLM and its port twin holding the same weights, carried
 across with ``load_jax_params``, numpy conversions, the top-2 gap
 check that decides which greedy streams may be compared token for
-token, ``numpy_trees`` (a JAX model's trees drawn without its init), and
-``one_torch_thread``, a fixture a test module takes up by importing it. No test functions; imported by the test files."""
+token, ``numpy_trees`` (a JAX model's trees drawn without its init),
+``one_torch_thread``, a fixture a test module takes up by importing it,
+and the layer harness ``layer_vjp_refs`` / ``check_layer`` (a JAX
+layer's vector-Jacobian product held against the port layer's). No test
+functions; imported by the test files."""
 
 import jax
 import numpy as np
@@ -107,3 +110,97 @@ def numpy_trees(jm, seed):
     state = jax.tree_util.tree_map_with_path(state_leaf,
                                              jax.device_get(jm.init_state()))
     return params, state
+
+
+def _flat_tensors(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def max_rel_err(got, want) -> float:
+    """max |got - want| over max |want| (1 where want is all zeros and got
+    is not)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    diff = float(np.abs(got - want).max()) if got.size else 0.0
+    scale = float(np.abs(want).max()) if want.size else 0.0
+    return diff / scale if scale > 0 else diff
+
+
+def layer_vjp_refs(cases, seed: int = 11):
+    """For each ``name → (JAX layer, port layer, input, tol)``: the JAX
+    layer's params (``numpy_trees``), its training-mode output without a
+    key (a random layer is then deterministic), a numpy cotangent (seed
+    99) and the vector-Jacobian product: ``name → (params, output,
+    cotangent, [input grads of the float32 inputs], param grads)``. An
+    input that is not float32 (ids, indices, masks) is held fixed."""
+    import jax.numpy as jnp
+
+    out = {}
+    for name, (jl, _, x, _) in cases.items():
+        params, _ = numpy_trees(jl, seed)
+        table = isinstance(x, list)
+        xs = _flat_tensors(x)
+        diff = [i for i, v in enumerate(xs)
+                if np.asarray(v).dtype == np.float32]
+
+        def f(p, *dx, xs=xs, diff=diff, table=table, jl=jl):
+            full = [jnp.asarray(v) for v in xs]
+            for i, v in zip(diff, dx):
+                full[i] = v
+            return jl.apply(p, full if table else full[0], {},
+                            training=True)[0]
+
+        dx = [jnp.asarray(xs[i]) for i in diff]
+        rng = np.random.default_rng(99)
+        ct = jax.tree_util.tree_map(
+            lambda a: rng.standard_normal(a.shape).astype(np.float32),
+            jax.eval_shape(f, params, *dx))
+
+        def fwd_bwd(p, ct, *dx, f=f):
+            y, pull = jax.vjp(f, p, *dx)
+            return y, pull(ct)
+
+        y, grads = jax.device_get(jax.jit(fwd_bwd)(params, ct, *dx))
+        out[name] = (params, y, ct, [np.asarray(g) for g in grads[1:]],
+                     grads[0])
+    return out
+
+
+def check_layer(name, layer, x, ref, tol: float) -> None:
+    """The port's ``layer`` (in training mode, no generator current)
+    against ``layer_vjp_refs``'s ``ref``: the output, each float32
+    input's gradient and each parameter's gradient, every tensor within
+    ``tol`` of the JAX one relative to its largest magnitude."""
+    from bigdl_tpu_torch.utils.params_tree import load_jax_tree, named_leaves
+
+    params, want, ct, gx_want, gp_want = ref
+    if params:
+        load_jax_tree(layer, params)
+    layer.train()
+    table = isinstance(x, list)
+    xs = [torch.from_numpy(np.array(v)) for v in _flat_tensors(x)]
+    diff = [v.requires_grad_() for v in xs if v.dtype == torch.float32]
+    out = layer(xs if table else xs[0])
+    outs, wants = _flat_tensors(out), _flat_tensors(want)
+    assert len(outs) == len(wants), name
+    for i, (o, w) in enumerate(zip(outs, wants)):
+        err = max_rel_err(o.detach().numpy(), w)
+        assert err <= tol, f"{name} output {i}: {err} > {tol}"
+    leaves = dict(layer.named_parameters())
+    wrt = list(leaves.values()) + diff
+    if not wrt:
+        return
+    grads = torch.autograd.grad(
+        outs, wrt, [torch.from_numpy(np.array(c)) for c in _flat_tensors(ct)],
+        allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(wrt, grads)]
+    if params:
+        by_name = named_leaves(layer, gp_want)
+        for k, g in zip(leaves, grads):
+            err = max_rel_err(g.numpy(), by_name[k])
+            assert err <= tol, f"{name}.{k} grad: {err} > {tol}"
+    for i, (g, w) in enumerate(zip(grads[len(leaves):], gx_want)):
+        err = max_rel_err(g.numpy(), w)
+        assert err <= tol, f"{name} input {i} grad: {err} > {tol}"

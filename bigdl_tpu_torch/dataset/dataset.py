@@ -33,6 +33,10 @@ class AbstractDataSet:
     def size(self) -> int:
         raise NotImplementedError
 
+    def shuffle(self) -> None:
+        """The reference hook; the port's datasets shuffle inside
+        ``data(train=True)``, so it does nothing (as in JAX)."""
+
     def transform(self, transformer: Transformer) -> "AbstractDataSet":
         raise NotImplementedError
 

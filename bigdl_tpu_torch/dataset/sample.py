@@ -57,6 +57,17 @@ class MiniBatch:
     def get_target(self):
         return self.target
 
+    def slice(self, offset: int, length: int) -> "MiniBatch":
+        """``length`` rows from the 1-based ``offset``, reference-style."""
+        s = slice(offset - 1, offset - 1 + length)
+
+        def cut(x):
+            if isinstance(x, (list, tuple)):
+                return [v[s] for v in x]
+            return x[s] if x is not None else None
+
+        return MiniBatch(cut(self.input), cut(self.target))
+
     def __repr__(self) -> str:
         return f"MiniBatch(size={self.size()})"
 

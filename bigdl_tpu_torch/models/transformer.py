@@ -62,6 +62,7 @@ from torch.func import functional_call
 from bigdl_tpu_torch.nn.activations import LogSoftMax
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.containers import Container, Remat, Sequential
+from bigdl_tpu_torch.nn.init_methods import Ones, RandomNormal, Zeros
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.misc import LookupTable
 from bigdl_tpu_torch.nn.module import AbstractModule, new_param
@@ -94,8 +95,9 @@ class LayerNorm(AbstractModule):
         super().__init__()
         self.hidden_size = hidden_size
         self.eps = eps
-        self.weight = new_param((hidden_size,), device, torch.nn.init.ones_)
-        self.bias = new_param((hidden_size,), device, torch.nn.init.zeros_)
+        self.weight_init, self.bias_init = Ones(), Zeros()
+        self.weight = new_param((hidden_size,), device, self.weight_init)
+        self.bias = new_param((hidden_size,), device, self.bias_init)
 
     def forward(self, x):
         return layer_norm(x, self.weight, self.bias, self.eps)
@@ -115,9 +117,10 @@ class PositionEmbedding(AbstractModule):
         self.max_len = max_len
         self.hidden_size = hidden_size
         self.sp_axis = sp_axis
-        self.pos = new_param((max_len, hidden_size), device,
-                             lambda t: t.normal_(std=0.02,
-                                                 generator=generator))
+        self._generator = generator
+        self.pos_init = RandomNormal(0.0, 0.02)
+        self.pos = new_param((max_len, hidden_size), device, self.pos_init,
+                             generator)
 
     def forward(self, x):
         T = x.shape[1]

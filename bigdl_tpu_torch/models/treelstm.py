@@ -49,17 +49,25 @@ class BinaryTreeLSTM(AbstractModule):
         self.weight_init = init_weight or RandomUniform(-0.1, 0.1)
         dev = resolve_device(device)
         E, D, H = vocab_size, embedding_dim, hidden_size
-
-        def init(t):
-            self.weight_init.fill(t, generator)
-
-        self.embedding = new_param((E, D), dev, init)
+        self._generator = generator
+        self.embedding = new_param((E, D), dev)
         # leaf: word embedding → (i, o, u) gates
-        self.w_leaf = new_param((D, 3 * H), dev, init)
-        self.b_leaf = new_param((3 * H,), dev, torch.Tensor.zero_)
+        self.w_leaf = new_param((D, 3 * H), dev)
+        self.b_leaf = new_param((3 * H,), dev)
         # composition: [h_l, h_r] → (i, o, u, f_l, f_r) gates
-        self.w_comp = new_param((2 * H, 5 * H), dev, init)
-        self.b_comp = new_param((5 * H,), dev, torch.Tensor.zero_)
+        self.w_comp = new_param((2 * H, 5 * H), dev)
+        self.b_comp = new_param((5 * H,), dev)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> "BinaryTreeLSTM":
+        """The embedding and gate weights by ``weight_init``, the gate
+        biases zero."""
+        g = self._draws(generator)
+        for w in (self.embedding, self.w_leaf, self.w_comp):
+            self.weight_init.fill(w.data, g)
+        for b in (self.b_leaf, self.b_comp):
+            b.data.zero_()
+        return self
 
     def forward(self, xs):
         dev = self.w_leaf.device

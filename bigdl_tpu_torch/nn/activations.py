@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from bigdl_tpu_torch.nn.init_methods import ConstInitMethod
 from bigdl_tpu_torch.nn.module import AbstractModule, TensorModule, new_param
 
 
@@ -85,7 +86,8 @@ class PReLU(TensorModule):
         super().__init__()
         self.n_output_plane = n_output_plane
         n = n_output_plane if n_output_plane > 0 else 1
-        self.weight = new_param((n,), device, lambda t: t.fill_(0.25))
+        self.weight_init = ConstInitMethod(0.25)
+        self.weight = new_param((n,), device, self.weight_init)
 
     def forward(self, x):
         w = self.weight

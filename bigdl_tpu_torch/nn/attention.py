@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.nn.init_methods import RandomUniform, Zeros
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import AbstractModule
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
@@ -65,14 +66,10 @@ class MultiHeadAttention(AbstractModule):
         self.head_dim = hidden_size // n_heads
         self.causal = causal
         bound = (6.0 / (2 * hidden_size)) ** 0.5     # Xavier (Glorot) uniform
-
-        def xavier(t):
-            t.uniform_(-bound, bound, generator=generator)
-
         for name in ("wq", "wk", "wv", "wo"):
-            self.add_module(name, Linear(hidden_size, hidden_size,
-                                         device=device, weight_init=xavier,
-                                         bias_init=torch.nn.init.zeros_))
+            self.add_module(name, Linear(
+                hidden_size, hidden_size, device=device, generator=generator,
+                init_weight=RandomUniform(-bound, bound), init_bias=Zeros()))
 
     def forward(self, x):
         B, T, _ = x.shape

@@ -60,10 +60,10 @@ class SpatialConvolution(TensorModule):
         self.bias_init = init_bias or RandomUniform()
         shape = (n_output_plane, n_input_plane // n_group, kernel_h, kernel_w)
         self.weight = new_param(shape, device,
-                                lambda t: self.weight_init.fill(t, generator))
+                                self.weight_init, generator)
         if with_bias:
             self.bias = new_param((n_output_plane,), device,
-                                  lambda t: self.bias_init.fill(t, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 
@@ -129,10 +129,10 @@ class SpatialFullConvolution(TensorModule):
         self.bias_init = init_bias or RandomUniform()
         shape = (n_input_plane, n_output_plane // n_group, kernel_h, kernel_w)
         self.weight = new_param(shape, device,
-                                lambda t: self.weight_init.fill(t, generator))
+                                self.weight_init, generator)
         if self.with_bias:
             self.bias = new_param((n_output_plane,), device,
-                                  lambda t: self.bias_init.fill(t, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 

@@ -75,6 +75,13 @@ class AbstractCriterion:
         self.grad_input = grads if isinstance(x, list) else grads[0]
         return self.grad_input
 
+    # reference aliases
+    def update_output(self, input, target) -> float:
+        return self.forward(input, target)
+
+    def update_grad_input(self, input, target):
+        return self.backward(input, target)
+
 
 class ClassNLLCriterion(AbstractCriterion):
     """Negative log-likelihood over log-probability input (N, C) with

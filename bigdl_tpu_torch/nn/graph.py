@@ -79,6 +79,30 @@ class Graph(Container):
                     f"input node {inp} is not connected to any output")
         return order
 
+    def __getstate__(self):
+        """The DAG as a flat table, ``(module, [indices of prev])`` in
+        topological order: a deep copy, a pickle or ``save_module`` of a
+        deep graph would otherwise recurse once per node along ``prev``
+        (ResNet-50's Keras graph passes Python's recursion limit)."""
+        d = super().__getstate__()
+        index = {id(n): i for i, n in enumerate(self.topo)}
+        d["topo"] = [(n.module, [index[id(p)] for p in n.prev])
+                     for n in self.topo]
+        d["input_nodes"] = [index[id(n)] for n in self.input_nodes]
+        d["output_nodes"] = [index[id(n)] for n in self.output_nodes]
+        return d
+
+    def __setstate__(self, state) -> None:
+        super().__setstate__(state)
+        if self.topo and isinstance(self.topo[0], ModuleNode):
+            return                               # a snapshot of old
+        nodes: List[ModuleNode] = []
+        for module, prev in self.topo:
+            nodes.append(ModuleNode(module, [nodes[i] for i in prev]))
+        self.topo = nodes
+        self.input_nodes = [nodes[i] for i in self.input_nodes]
+        self.output_nodes = [nodes[i] for i in self.output_nodes]
+
     def forward(self, x):
         inputs = [x] if self._single_input else _as_list(x)
         if len(inputs) != len(self.input_nodes):

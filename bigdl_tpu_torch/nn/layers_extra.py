@@ -43,15 +43,12 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.activations import clip
-from bigdl_tpu_torch.nn.init_methods import InitializationMethod, RandomUniform
+from bigdl_tpu_torch.nn.init_methods import (
+    InitializationMethod, Ones, RandomUniform, Zeros)
 from bigdl_tpu_torch.nn.module import (
     AbstractModule, TensorModule, current_rng, new_param,
 )
 from bigdl_tpu_torch.nn.shape_ops import _axis
-
-
-def _init(method: InitializationMethod, generator):
-    return lambda t: method.fill(t, generator)
 
 
 def _batched(x: torch.Tensor, ndim: int):
@@ -88,9 +85,10 @@ class Cosine(TensorModule):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
+        self._generator = generator
         self.weight_init = init_weight or RandomUniform()
         self.weight = new_param((output_size, input_size), device,
-                                _init(self.weight_init, generator))
+                                self.weight_init, generator)
 
     def forward(self, x):
         return torch.matmul(l2_normalize(x), l2_normalize(self.weight).T)
@@ -105,9 +103,10 @@ class Euclidean(TensorModule):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
+        self._generator = generator
         self.weight_init = init_weight or RandomUniform()
         self.weight = new_param((output_size, input_size), device,
-                                _init(self.weight_init, generator))
+                                self.weight_init, generator)
 
     def forward(self, x):
         diff = x[..., None, :] - self.weight                # (N, out, in)
@@ -323,8 +322,9 @@ class Scale(TensorModule):
     def __init__(self, size: Sequence[int], device=None) -> None:
         super().__init__()
         self.size = tuple(size)
-        self.weight = new_param(self.size, device, lambda t: t.fill_(1.0))
-        self.bias = new_param(self.size, device, lambda t: t.zero_())
+        self.weight_init, self.bias_init = Ones(), Zeros()
+        self.weight = new_param(self.size, device, self.weight_init)
+        self.bias = new_param(self.size, device, self.bias_init)
 
     def _broadcast(self, p, ndim):
         return p.reshape((1,) + self.size + (1,) * (ndim - 1 - len(self.size)))
@@ -425,13 +425,14 @@ class TemporalConvolution(TensorModule):
         self.output_frame_size = output_frame_size
         self.kernel_w = kernel_w
         self.stride_w = stride_w
+        self._generator = generator
         self.weight_init = init_weight or RandomUniform()
         self.bias_init = init_bias or RandomUniform()
         self.weight = new_param(
             (output_frame_size, input_frame_size, kernel_w), device,
-            _init(self.weight_init, generator))
+            self.weight_init, generator)
         self.bias = new_param((output_frame_size,), device,
-                              _init(self.bias_init, generator))
+                              self.bias_init, generator)
 
     def forward(self, x):
         x, squeeze = _batched(x, 3)
@@ -459,13 +460,14 @@ class VolumetricConvolution(TensorModule):
         self.d = (d_t, d_h, d_w)
         self.pad = (pad_t, pad_h, pad_w)
         self.with_bias = with_bias
+        self._generator = generator
         self.weight_init = init_weight or RandomUniform()
         self.bias_init = init_bias or RandomUniform()
         self.weight = new_param((n_output_plane, n_input_plane) + self.k,
-                                device, _init(self.weight_init, generator))
+                                device, self.weight_init, generator)
         if with_bias:
             self.bias = new_param((n_output_plane,), device,
-                                  _init(self.bias_init, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 
@@ -530,13 +532,14 @@ class SpatialDilatedConvolution(TensorModule):
         self.pad_w, self.pad_h = pad_w, pad_h
         self.dilation_w, self.dilation_h = dilation_w, dilation_h
         self.with_bias = with_bias
+        self._generator = generator
         self.weight_init = init_weight or RandomUniform()
         self.bias_init = init_bias or RandomUniform()
         self.weight = new_param((n_output_plane, n_input_plane, kh, kw),
-                                device, _init(self.weight_init, generator))
+                                device, self.weight_init, generator)
         if with_bias:
             self.bias = new_param((n_output_plane,), device,
-                                  _init(self.bias_init, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 
@@ -648,12 +651,14 @@ class Bilinear(AbstractModule):
         self.input_size2 = input_size2
         self.output_size = output_size
         self.bias_res = bias_res
-        self.weight_init = init_weight or RandomUniform()
+        self._generator = generator
+        # the bias is drawn by the weight's law, as JAX's is
+        self.weight_init = self.bias_init = init_weight or RandomUniform()
         self.weight = new_param((output_size, input_size1, input_size2),
-                                device, _init(self.weight_init, generator))
+                                device, self.weight_init, generator)
         if bias_res:
             self.bias = new_param((output_size,), device,
-                                  _init(self.weight_init, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 

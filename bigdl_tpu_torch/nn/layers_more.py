@@ -58,9 +58,9 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.init_methods import (
-    InitializationMethod, RandomUniform, Xavier, Zeros,
+    InitializationMethod, Ones, RandomUniform, Xavier, Zeros,
 )
-from bigdl_tpu_torch.nn.layers_extra import _batched, _init
+from bigdl_tpu_torch.nn.layers_extra import _batched
 from bigdl_tpu_torch.nn.misc import keep_mask
 from bigdl_tpu_torch.nn.module import (
     AbstractModule, TensorModule, current_rng, new_param,
@@ -208,10 +208,13 @@ class SReLU(TensorModule):
         self.shape = tuple(int(s) for s in shape)
         self.shared_axes = tuple(shared_axes or ())
         shp = self._param_shape()
-        self.t_left = new_param(shp, device, lambda t: t.zero_())
-        self.a_left = new_param(shp, device, lambda t: t.zero_())
-        self.t_right = new_param(shp, device, _init(Xavier(), generator))
-        self.a_right = new_param(shp, device, lambda t: t.fill_(1.0))
+        self._generator = generator
+        self.t_left_init, self.a_left_init = Zeros(), Zeros()
+        self.t_right_init, self.a_right_init = Xavier(), Ones()
+        for name in ("t_left", "a_left", "t_right", "a_right"):
+            setattr(self, name, new_param(shp, device,
+                                          getattr(self, name + "_init"),
+                                          generator))
 
     def _param_shape(self) -> Tuple[int, ...]:
         return tuple(1 if (i + 1) in self.shared_axes else s
@@ -237,14 +240,15 @@ class Maxout(TensorModule):
         self.output_size = output_size
         self.maxout_number = maxout_number
         self.with_bias = with_bias
+        self._generator = generator
         self.weight_init = init_weight or Xavier()
         self.bias_init = init_bias or Zeros()
         n = output_size * maxout_number
         self.weight = new_param((n, input_size), device,
-                                _init(self.weight_init, generator))
+                                self.weight_init, generator)
         if with_bias:
             self.bias = new_param((n,), device,
-                                  _init(self.bias_init, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 
@@ -415,14 +419,15 @@ class VolumetricFullConvolution(TensorModule):
         self.adj = (adj_t, adj_h, adj_w)
         self.n_group = n_group
         self.with_bias = not no_bias
+        self._generator = generator
         self.weight_init = init_weight or RandomUniform()
         self.bias_init = init_bias or RandomUniform()
         self.weight = new_param(
             (n_input_plane, n_output_plane // n_group) + self.k, device,
-            _init(self.weight_init, generator))
+            self.weight_init, generator)
         if self.with_bias:
             self.bias = new_param((n_output_plane,), device,
-                                  _init(self.bias_init, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 
@@ -458,6 +463,7 @@ class LocallyConnected2D(TensorModule):
         self.pad_w = pad_w
         self.pad_h = pad_h
         self.with_bias = with_bias
+        self._generator = generator
         self.weight_init = init_weight or Xavier()
         self.bias_init = init_bias or Zeros()
         self.out_h = (input_height + 2 * pad_h - kernel_h) // stride_h + 1
@@ -465,10 +471,10 @@ class LocallyConnected2D(TensorModule):
         kdim = n_input_plane * kernel_h * kernel_w
         self.weight = new_param(
             (self.out_h * self.out_w, n_output_plane, kdim), device,
-            _init(self.weight_init, generator))
+            self.weight_init, generator)
         if with_bias:
             self.bias = new_param((n_output_plane, self.out_h, self.out_w),
-                                  device, _init(self.bias_init, generator))
+                                  device, self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 
@@ -502,15 +508,16 @@ class LocallyConnected1D(TensorModule):
         self.kernel_w = kernel_w
         self.stride_w = stride_w
         self.with_bias = with_bias
+        self._generator = generator
         self.weight_init = init_weight or Xavier()
         self.bias_init = init_bias or Zeros()
         self.out_t = (n_input_frame - kernel_w) // stride_w + 1
         self.weight = new_param(
             (self.out_t, output_frame_size, input_frame_size * kernel_w),
-            device, _init(self.weight_init, generator))
+            device, self.weight_init, generator)
         if with_bias:
             self.bias = new_param((self.out_t, output_frame_size), device,
-                                  _init(self.bias_init, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 
@@ -552,18 +559,28 @@ class SpatialSeparableConvolution(TensorModule):
         self.s = (s_h, s_w)
         self.p = (p_h, p_w)
         self.with_bias = with_bias
+        self._generator = generator
         self.weight_init = init_weight or Xavier()
         self.bias_init = init_bias or Zeros()
         mid = n_input_channel * depth_multiplier
         self.depth_weight = new_param((mid, 1, k_h, k_w), device,
-                                      _init(self.weight_init, generator))
+                                      self.weight_init, generator)
         self.point_weight = new_param((n_output_channel, mid, 1, 1), device,
-                                      _init(self.weight_init, generator))
+                                      self.weight_init, generator)
         if with_bias:
             self.bias = new_param((n_output_channel,), device,
-                                  _init(self.bias_init, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
+
+    def reset_parameters(self, generator=None):
+        """Both weights by ``weight_init``, the bias by ``bias_init``."""
+        g = self._draws(generator)
+        for w in (self.depth_weight, self.point_weight):
+            self.weight_init.fill(w.data, g)
+        if self.bias is not None:
+            self.bias_init.fill(self.bias.data, g)
+        return self
 
     def forward(self, x):
         x, squeeze = _batched(x, 4)
@@ -803,12 +820,13 @@ class SpatialConvolutionMap(TensorModule):
         self.stride_h = stride_h
         self.pad_w = pad_w
         self.pad_h = pad_h
+        self._generator = generator
         self.weight_init = init_weight or Xavier()
         self.bias_init = init_bias or Zeros()
         self.weight = new_param((table.shape[0], kernel_h, kernel_w), device,
-                                _init(self.weight_init, generator))
+                                self.weight_init, generator)
         self.bias = new_param((self.n_output_plane,), device,
-                              _init(self.bias_init, generator))
+                              self.bias_init, generator)
 
     # the reference's connection tables
     @staticmethod

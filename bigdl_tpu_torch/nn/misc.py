@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.activations import clip
-from bigdl_tpu_torch.nn.init_methods import InitializationMethod, RandomNormal
+from bigdl_tpu_torch.nn.init_methods import (
+    InitializationMethod, RandomNormal, RandomUniform, Zeros)
 from bigdl_tpu_torch.nn.module import (
     AbstractModule, TensorModule, current_rng, new_param,
 )
@@ -115,8 +116,17 @@ class LookupTable(AbstractModule):
         self.grad_via_matmul = grad_via_matmul
         # the reference's default RandomNormal(0, 1)
         self.weight_init = init_weight or RandomNormal(0.0, 1.0)
+        self._generator = generator
         self.weight = new_param((n_index, n_output), device,
-                                lambda t: self.weight_init.fill(t, generator))
+                                self.weight_init, generator)
+
+    def set_init_method(self, weight_init=None, bias_init=None):
+        """Set the weight's init method and refill it (a lookup table
+        has no bias)."""
+        if weight_init is not None:
+            self.weight_init = weight_init
+            weight_init.fill(self.weight.data, self._generator)
+        return self
 
     def forward(self, ids):
         w = self.weight
@@ -274,8 +284,9 @@ class Mul(TensorModule):
 
     def __init__(self, device=None, generator: torch.Generator = None) -> None:
         super().__init__()
-        self.weight = new_param((), device, lambda t: t.uniform_(
-            -1.0, 1.0, generator=generator))
+        self._generator = generator
+        self.weight_init = RandomUniform(-1.0, 1.0)
+        self.weight = new_param((), device, self.weight_init, generator)
 
     def forward(self, x):
         return x * self.weight
@@ -287,7 +298,8 @@ class Add(TensorModule):
     def __init__(self, input_size: int, device=None) -> None:
         super().__init__()
         self.input_size = input_size
-        self.bias = new_param((input_size,), device, lambda t: t.zero_())
+        self.bias_init = Zeros()
+        self.bias = new_param((input_size,), device, self.bias_init)
 
     def forward(self, x):
         return x + self.bias
@@ -302,8 +314,9 @@ class CMul(TensorModule):
         super().__init__()
         self.size = tuple(size)
         bound = 1.0 / np.sqrt(max(int(np.prod(self.size)), 1))
-        self.weight = new_param(self.size, device, lambda t: t.uniform_(
-            -bound, bound, generator=generator))
+        self._generator = generator
+        self.weight_init = RandomUniform(-bound, bound)
+        self.weight = new_param(self.size, device, self.weight_init, generator)
 
     def forward(self, x):
         return x * self.weight
@@ -316,7 +329,8 @@ class CAdd(TensorModule):
     def __init__(self, size, device=None) -> None:
         super().__init__()
         self.size = tuple(size)
-        self.bias = new_param(self.size, device, lambda t: t.zero_())
+        self.bias_init = Zeros()
+        self.bias = new_param(self.size, device, self.bias_init)
 
     def forward(self, x):
         return x + self.bias

@@ -22,7 +22,14 @@ the layer's computation. What carries over from the JAX base:
 * ``evaluate()`` (eval mode) and ``evaluate(dataset, methods,
   batch_size)``, ``predict``/``predict_class`` through
   :mod:`bigdl_tpu_torch.optim.evaluator`;
-* ``save``/``load`` (:mod:`bigdl_tpu_torch.utils.file_io`);
+* ``save``/``load`` (:mod:`bigdl_tpu_torch.utils.file_io`), the
+  structured ``save_module``/``load_module``
+  (:mod:`bigdl_tpu_torch.utils.serializer`) and ``load_keras``
+  (:mod:`bigdl_tpu_torch.utils.keras_loader`);
+* ``reset(generator)`` (``:149``) re-draws every parameter through each
+  layer's ``reset_parameters(generator)``, which refills parameter ``p``
+  by its init method ``p_init`` (a layer with another rule overrides
+  it), and resets running statistics; ``is_training()``;
 * ``freeze``/``unfreeze``/``frozen_flag``/``is_frozen`` (``:199-252``,
   the reference's transfer-learning freeze): a tri-state flag per module
   (``None`` inherits the parent's, ``True``/``False`` are explicit, so an
@@ -115,6 +122,9 @@ class AbstractModule(nn.Module):
     def get_name(self) -> str:
         return self.name
 
+    def is_training(self) -> bool:
+        return self.training
+
     def evaluate(self, dataset=None, methods=None, batch_size: int = 32):
         """No dataset: switch to eval mode (the reference's
         ``evaluate()``). With a dataset and ValidationMethods: run batched
@@ -204,6 +214,41 @@ class AbstractModule(nn.Module):
     def zero_grad_parameters(self) -> None:
         for p in self.parameters():
             p.grad = torch.zeros_like(p)
+
+    def reset(self, generator: Optional[torch.Generator] = None
+              ) -> "AbstractModule":
+        """Re-draw every parameter by its layer's init methods (the JAX
+        ``reset``, which re-runs ``init_params``) and reset running
+        statistics: :meth:`reset_parameters` of every module in the tree.
+        With ``generator`` (on the parameters' device) every draw comes
+        from it, so one seed gives one tree; without, each layer draws
+        from the generator it was built with."""
+        for m in self.modules():
+            if isinstance(m, AbstractModule):
+                m.reset_parameters(generator)
+        return self
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> "AbstractModule":
+        """Refill each parameter ``p`` this module owns (not its
+        children's) by its init method, the attribute ``p_init``, drawing
+        from ``generator`` or else the module's own. A layer whose
+        parameters follow another rule overrides this."""
+        g = self._draws(generator)
+        for name, p in self.named_parameters(recurse=False):
+            law = getattr(self, name + "_init", None)
+            if law is None:
+                raise ValueError(
+                    f"reset: {self.name}.{name} has no init method "
+                    f"({name}_init); build the layer anew")
+            law.fill(p.data, g)
+        return self
+
+    def _draws(self, generator: Optional[torch.Generator]
+               ) -> Optional[torch.Generator]:
+        """``generator``, else the one the module was built with."""
+        return (generator if generator is not None
+                else getattr(self, "_generator", None))
 
     def n_parameters(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))
@@ -393,6 +438,47 @@ class AbstractModule(nn.Module):
                     t.copy_(tree[k])
         return m.to(dev)
 
+    def save_module(self, path: str, over_write: bool = False
+                    ) -> "AbstractModule":
+        """Versioned structured snapshot (reference ``saveModule``;
+        :func:`bigdl_tpu_torch.utils.serializer.save_module`)."""
+        from bigdl_tpu_torch.utils.serializer import save_module
+
+        save_module(self, path, over_write=over_write)
+        return self
+
+    @staticmethod
+    def load_module(path: str, device=None) -> "AbstractModule":
+        """A :meth:`save_module` snapshot placed on ``device`` (default
+        ``cuda``; raises without a card unless ``device="cpu"``)."""
+        from bigdl_tpu_torch.utils.serializer import load_module
+
+        return load_module(path, device=device)
+
+    @staticmethod
+    def load_keras(json_path: str = None, hdf5_path: str = None,
+                   device=None, generator: torch.Generator = None
+                   ) -> "AbstractModule":
+        """Reference pyspark ``Model.load_keras(json_path, hdf5_path)``:
+        a Keras-1.2 architecture (and HDF5 weights, read with h5py) as a
+        port model (:mod:`bigdl_tpu_torch.utils.keras_loader`)."""
+        from bigdl_tpu_torch.utils.keras_loader import load_keras
+
+        return load_keras(json_path, hdf5_path, device=device,
+                          generator=generator)
+
+    @staticmethod
+    def load_caffe_model(def_path: str, model_path=None, match_all=True):
+        raise NotImplementedError(
+            "load_caffe_model (utils/caffe_loader.py) is not ported yet: "
+            "ROADMAP.md A.7 group 5")
+
+    @staticmethod
+    def load_tf(path, inputs, outputs):
+        raise NotImplementedError(
+            "load_tf (utils/tf_loader.py, with nn/ops.py) is not ported "
+            "yet: ROADMAP.md A.7 group 5")
+
     def __getstate__(self):
         d = dict(self.__dict__)
         # activations are not part of a snapshot
@@ -422,10 +508,12 @@ class Echo(TensorModule):
         return x
 
 
-def new_param(shape, device, init) -> nn.Parameter:
-    """An f32 parameter of ``shape`` on ``device``, filled in place by
-    ``init(tensor)`` under ``torch.no_grad()``."""
+def new_param(shape, device, init=None, generator=None) -> nn.Parameter:
+    """An f32 parameter of ``shape`` on ``device``, filled in place by the
+    :class:`~bigdl_tpu_torch.nn.init_methods.InitializationMethod`
+    ``init`` drawing from ``generator`` (left unfilled without ``init``,
+    for a layer that fills it in ``reset_parameters``)."""
     p = torch.empty(shape, dtype=torch.float32, device=device)
-    with torch.no_grad():
-        init(p)
+    if init is not None:
+        init.fill(p, generator)
     return nn.Parameter(p)

@@ -76,12 +76,10 @@ class BatchNormalization(TensorModule):
         self.weight_init = init_weight or Ones()
         self.bias_init = init_bias or Zeros()
         if affine:
-            self.weight = new_param(
-                (n_output,), device,
-                lambda t: self.weight_init.fill(t, generator))
-            self.bias = new_param(
-                (n_output,), device,
-                lambda t: self.bias_init.fill(t, generator))
+            self.weight = new_param((n_output,), device, self.weight_init,
+                                    generator)
+            self.bias = new_param((n_output,), device, self.bias_init,
+                                  generator)
         else:
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)
@@ -89,6 +87,13 @@ class BatchNormalization(TensorModule):
             n_output, dtype=torch.float32, device=device))
         self.register_buffer("running_var", torch.ones(
             n_output, dtype=torch.float32, device=device))
+
+    def reset_parameters(self, generator=None):
+        """Zero mean and unit variance, and the affine parameters refilled
+        by their init methods."""
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+        return super().reset_parameters(generator)
 
     def set_init_method(self, weight_init=None, bias_init=None):
         """Set the init methods and refill the parameters with them."""

@@ -168,14 +168,15 @@ class RnnCell(_FusedInputCell):
         self.u_regularizer = u_regularizer
         self.b_regularizer = b_regularizer
         self._generator = generator
-        self.w_ih = new_param((hidden_size, input_size), device, lambda t: t)
-        self.w_hh = new_param((hidden_size, hidden_size), device, lambda t: t)
-        self.b_ih = new_param((hidden_size,), device, lambda t: t)
-        self.b_hh = new_param((hidden_size,), device, lambda t: t)
+        self.w_ih = new_param((hidden_size, input_size), device)
+        self.w_hh = new_param((hidden_size, hidden_size), device)
+        self.b_ih = new_param((hidden_size,), device)
+        self.b_hh = new_param((hidden_size,), device)
         self.reset_parameters()
 
-    def reset_parameters(self) -> "RnnCell":
-        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh), self._generator)
+    def reset_parameters(self, generator=None) -> "RnnCell":
+        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh),
+              self._draws(generator))
         return self
 
     def step_pre(self, pre_t, carry):
@@ -205,16 +206,17 @@ class LSTM(_FusedInputCell):
         self.b_regularizer = b_regularizer
         self._generator = generator
         h4 = 4 * hidden_size
-        self.w_ih = new_param((h4, input_size), device, lambda t: t)
-        self.w_hh = new_param((h4, hidden_size), device, lambda t: t)
-        self.b_ih = new_param((h4,), device, lambda t: t)
-        self.b_hh = new_param((h4,), device, lambda t: t)
+        self.w_ih = new_param((h4, input_size), device)
+        self.w_hh = new_param((h4, hidden_size), device)
+        self.b_ih = new_param((h4,), device)
+        self.b_hh = new_param((h4,), device)
         LSTM.reset_parameters(self)
 
-    def reset_parameters(self) -> "LSTM":
+    def reset_parameters(self, generator=None) -> "LSTM":
         """Refill the weights (``RandomUniform``) and biases (zeros) from
-        the cell's generator."""
-        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh), self._generator)
+        ``generator``, else the cell's own."""
+        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh),
+              self._draws(generator))
         return self
 
     def step_pre(self, pre_t, carry):
@@ -242,14 +244,14 @@ class LSTMPeephole(LSTM):
         super().__init__(input_size, hidden_size, p, w_regularizer,
                          u_regularizer, b_regularizer, device, generator)
         dev = self.w_ih.device
-        self.w_pi = new_param((hidden_size,), dev, lambda t: t)
-        self.w_pf = new_param((hidden_size,), dev, lambda t: t)
-        self.w_po = new_param((hidden_size,), dev, lambda t: t)
+        self.w_pi = new_param((hidden_size,), dev)
+        self.w_pf = new_param((hidden_size,), dev)
+        self.w_po = new_param((hidden_size,), dev)
         _fill((self.w_pi, self.w_pf, self.w_po), (), self._generator)
 
-    def reset_parameters(self) -> "LSTMPeephole":
-        super().reset_parameters()
-        _fill((self.w_pi, self.w_pf, self.w_po), (), self._generator)
+    def reset_parameters(self, generator=None) -> "LSTMPeephole":
+        super().reset_parameters(generator)
+        _fill((self.w_pi, self.w_pf, self.w_po), (), self._draws(generator))
         return self
 
     def step_pre(self, pre_t, carry):
@@ -298,21 +300,19 @@ class ConvLSTMPeephole(Cell):
         self.b_regularizer = b_regularizer
         self._generator = generator
         o4 = 4 * output_size
-        self.w_ih = new_param((o4, input_size, kernel_i, kernel_i), device,
-                              lambda t: t)
-        self.w_hh = new_param((o4, output_size, kernel_c, kernel_c), device,
-                              lambda t: t)
-        self.b_ih = new_param((o4,), device, lambda t: t)
+        self.w_ih = new_param((o4, input_size, kernel_i, kernel_i), device)
+        self.w_hh = new_param((o4, output_size, kernel_c, kernel_c), device)
+        self.b_ih = new_param((o4,), device)
         if with_peephole:
             for name in ("w_pi", "w_pf", "w_po"):
-                setattr(self, name, new_param((output_size, 1, 1), device,
-                                              lambda t: t))
+                setattr(self, name, new_param((output_size, 1, 1), device))
         self.reset_parameters()
 
-    def reset_parameters(self) -> "ConvLSTMPeephole":
+    def reset_parameters(self, generator=None) -> "ConvLSTMPeephole":
         peep = ((self.w_pi, self.w_pf, self.w_po) if self.with_peephole
                 else ())
-        _fill((self.w_ih, self.w_hh) + peep, (self.b_ih,), self._generator)
+        _fill((self.w_ih, self.w_hh) + peep, (self.b_ih,),
+              self._draws(generator))
         return self
 
     @staticmethod
@@ -386,14 +386,15 @@ class GRU(_FusedInputCell):
         self.b_regularizer = b_regularizer
         self._generator = generator
         h3 = 3 * hidden_size
-        self.w_ih = new_param((h3, input_size), device, lambda t: t)
-        self.w_hh = new_param((h3, hidden_size), device, lambda t: t)
-        self.b_ih = new_param((h3,), device, lambda t: t)
-        self.b_hh = new_param((h3,), device, lambda t: t)
+        self.w_ih = new_param((h3, input_size), device)
+        self.w_hh = new_param((h3, hidden_size), device)
+        self.b_ih = new_param((h3,), device)
+        self.b_hh = new_param((h3,), device)
         self.reset_parameters()
 
-    def reset_parameters(self) -> "GRU":
-        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh), self._generator)
+    def reset_parameters(self, generator=None) -> "GRU":
+        _fill((self.w_ih, self.w_hh), (self.b_ih, self.b_hh),
+              self._draws(generator))
         return self
 
     def step_pre(self, pre_t, carry):
@@ -496,7 +497,7 @@ class BiRecurrent(Container):
         memo = {id(g): g for g in gens if g is not None}
         rev = copy.deepcopy(cell, memo)
         rev.name = cell.name + "_rev"
-        rev.reset_parameters()
+        rev.reset()
         self.fwd.add(cell)
         self.bwd.add(rev)
         return self
@@ -578,11 +579,6 @@ class MultiRNNCell(Cell, Container):
     @property
     def cells(self) -> List[Cell]:
         return self.layers()
-
-    def reset_parameters(self) -> "MultiRNNCell":
-        for c in self.cells:
-            c.reset_parameters()
-        return self
 
     def init_carry(self, batch_size: int, device) -> tuple:
         return tuple(t for c in self.cells

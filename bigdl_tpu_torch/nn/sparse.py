@@ -41,13 +41,14 @@ class SparseLinear(AbstractModule):
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
+        self._generator = generator
         self.weight_init = init_weight or RandomUniform()
         self.bias_init = init_bias or RandomUniform()
         self.weight = new_param((output_size, input_size), device,
-                                lambda t: self.weight_init.fill(t, generator))
+                                self.weight_init, generator)
         if with_bias:
             self.bias = new_param((output_size,), device,
-                                  lambda t: self.bias_init.fill(t, generator))
+                                  self.bias_init, generator)
         else:
             self.register_parameter("bias", None)
 
@@ -95,9 +96,10 @@ class LookupTableSparse(AbstractModule):
         self.n_index = n_index
         self.n_output = n_output
         self.combiner = combiner
+        self._generator = generator
         self.weight_init = init_weight or RandomUniform()
         self.weight = new_param((n_index, n_output), device,
-                                lambda t: self.weight_init.fill(t, generator))
+                                self.weight_init, generator)
 
     def forward(self, x):
         if isinstance(x, (list, tuple)):

@@ -151,6 +151,9 @@ class FusedGraph(AbstractModule):
     """Drop-in wrapper of ``graph``: same parameters and buffers, NHWC
     fused execution."""
 
+    #: params_tree walks the wrapped graph's tree as this module's
+    _tree_through = "graph"
+
     def __init__(self, graph: Graph) -> None:
         super().__init__()
         self.graph = graph

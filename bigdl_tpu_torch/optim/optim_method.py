@@ -44,7 +44,7 @@ Slot names are JAX's (``accum``/``delta_accum``, ``m``/``u``, ``sq``,
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -217,7 +217,27 @@ class OptimMethod:
                params: Tensors) -> Tuple[Tensors, Dict]:
         raise NotImplementedError
 
+    def optimize(self, feval: Callable, x):
+        """The reference contract: ``feval(x) -> (loss, grad)``, then one
+        update of ``x`` (a tensor, or a dict of named tensors, updated in
+        place); returns ``(x, [loss])``. The method's slots live between
+        calls until :meth:`clear_history`."""
+        loss, grad = feval(x)
+        named = isinstance(x, dict)
+        params = x if named else {"x": x}
+        grads = grad if named else {"x": grad}
+        if getattr(self, "_facade_state", None) is None:
+            self._facade_state = self.init_state(params)
+        new, self._facade_state = self.update(grads, self._facade_state,
+                                              params)
+        self.state["neval"] = self.state.get("neval", 1) + 1
+        return (new if named else new["x"]), [float(loss)]
+
+    def get_learning_rate(self) -> float:
+        return getattr(self, "learning_rate", 0.0)
+
     def clear_history(self) -> "OptimMethod":
+        self._facade_state = None
         self.state = {"epoch": 1, "neval": 1}
         return self
 

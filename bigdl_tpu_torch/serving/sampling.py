@@ -108,6 +108,10 @@ class SamplingParams:
     def is_greedy(self) -> bool:
         return self.temperature <= 0.0
 
+    @classmethod
+    def greedy(cls) -> "SamplingParams":
+        return cls()
+
 
 # -- counter-based RNG lanes -----------------------------------------------
 

@@ -9,8 +9,9 @@ tree of that shape (numpy leaves, e.g. ``jax.device_get(lm.params)`` or
 one slot tree of an Adam state) onto ``model.named_parameters()`` names,
 or, with ``kind="buffers"``, a state tree (``g.state``: BatchNorm running
 statistics) onto ``model.named_buffers()``. A ``Graph`` is a container
-(children by index); a ``FusedGraph`` shares its wrapped graph's tree, as
-in JAX. :func:`load_jax_tree` copies both trees into a model.
+(children by index); a module naming a child in ``_tree_through`` shares
+that child's tree, as in JAX (a ``FusedGraph`` its wrapped graph, a Keras
+layer its core). :func:`load_jax_tree` copies both trees into a model.
 """
 
 from __future__ import annotations
@@ -28,15 +29,17 @@ def named_leaves(model: nn.Module, tree: Dict,
                  kind: str = "parameters") -> Dict[str, np.ndarray]:
     """``{parameter (or buffer) name: array}`` for every leaf of ``tree``.
     Every leaf must exist on both sides with equal shape."""
-    from bigdl_tpu_torch.nn.tpu_fusion import FusedGraph
-
     if kind not in ("parameters", "buffers"):
         raise ValueError(f"kind must be 'parameters' or 'buffers', not {kind!r}")
     out: Dict[str, np.ndarray] = {}
 
     def walk(m: nn.Module, t: Dict, prefix: str) -> None:
-        if isinstance(m, FusedGraph):
-            walk(m.graph, t, f"{prefix}graph.")
+        leaves = m.parameters() if kind == "parameters" else m.buffers()
+        if not t and next(iter(leaves), None) is None:
+            return     # an empty JAX subtree, a port subtree with no leaves
+        through = getattr(m, "_tree_through", None)
+        if through is not None:      # a wrapper whose tree is its child's
+            walk(getattr(m, through), t, f"{prefix}{through}.")
             return
         own = dict(m.named_parameters(recurse=False) if kind == "parameters"
                    else m.named_buffers(recurse=False))

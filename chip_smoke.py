@@ -493,6 +493,34 @@ any failure raises, so the exit code is non-zero and no result prints:
               against CPU at batch 4 (``ALEXNET_CARD_TOL``). No port
               kernel runs on these two paths either (cuDNN convolutions,
               cuBLAS products, ``index_add``);
+29j. keras_resnet50 — Keras 1.2.2's ``applications/resnet50.py::
+              ResNet50(include_top=True)``, ``th`` ordering, built with the
+              port's Keras functional API
+              (``examples/keras_apps.py::resnet50``: the 7x7 stem, [3, 4,
+              6, 3] conv/identity blocks ending in ``Merge(mode="sum")``,
+              ``AveragePooling2D((7, 7))``, ``Flatten``, ``Dense(1000)``,
+              the head ``log_softmax``): its parameter count against
+              Keras's published 25,636,712 (53,120 BatchNormalization
+              running statistics); ``Optimizer`` at batch 64, 224², f32,
+              SGD 0.1 / 0.9 on ``synthetic_imagenet_samples``: step p50,
+              images/s, peak memory, launches per step over 4 steps; the
+              eval f32 output (``KERAS_CARD_TOL``), the first f32 loss and
+              2 float64 steps card against CPU at batch 2
+              (``BASELINE_CARD_TOL``); ``save_module`` of the trained model
+              and ``load_module`` back onto the card, outputs bitwise
+              equal;
+29k. keras_imdb — Keras 1.2.2's ``examples/imdb_cnn_lstm.py`` at its
+              widths (Embedding 20,000 x 128 on maxlen 100, Dropout 0.25,
+              Convolution1D 64 x 5, MaxPooling1D 4, LSTM 70, Dense 1,
+              sigmoid) written as its Keras-1.2 ``to_json()`` text, built
+              by ``load_keras_json`` and filled by ``load_keras_weights``
+              from seeded keras-1 arrays (the card's machine has no h5py;
+              the LSTM states ``inner_activation: "sigmoid"``, as the
+              importer refuses the example's default ``hard_sigmoid``);
+              ``Optimizer`` at batch 30, ``BCECriterion``, Adam 1e-3 on
+              seeded ids: step p50, sequences/s, launches per step; card
+              against CPU at batch 4 as above; the ``save_module`` round
+              trip on the card. No port kernel runs on either Keras path;
 30. conv3x3 — the twin of ``benchmarks/pallas_conv3x3_experiment.py``'s
               ``main()``, the one path of its TPU kernel: the 3x3 stride-1
               conv kernel at ResNet-50's four 3x3 shapes (batch 256, 56² x
@@ -527,6 +555,7 @@ The last lines are the ``{"kernels": [...]}`` summary, the card's
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -601,6 +630,13 @@ NN_EXTRA_TOL = {"elementwise": 1e-5, "reduction": 1e-5, "product": 1e-4,
 #: reasoning; on an H100 at 700 W one f32 weight gradient parted by
 #: 1.2e-3 of its largest value while the f32 output agreed to 1.4e-7).
 ALEXNET_CARD_TOL = {"f32_output": 1e-5, "f64": 1e-9}
+#: keras_resnet50 / keras_imdb: the eval-mode f32 output card vs CPU at
+#: the check batch, relative to the largest CPU value. ResNet-50 stacks 53
+#: convolutions (sums of up to 4,608 products each, taken by cuDNN in
+#: another order and algorithm), so its output is held to 1e-4; the IMDB
+#: model (one convolution, one LSTM) to 1e-5. Losses and float64 steps go
+#: through ``BASELINE_CARD_TOL``.
+KERAS_CARD_TOL = {"keras_resnet50": 1e-4, "keras_imdb": 1e-5}
 
 
 _T0 = time.perf_counter()
@@ -4556,6 +4592,9 @@ def serve_generate_phase():
 #: run parts from float64 by 3.6e-7 in three steps on the CPU).
 BASELINE_CARD_TOL = {"vgg": {"f32_loss": 1e-5, "f64": 1e-9},
                      "alexnet": {"f32_loss": 1e-5, "f64": 1e-9},
+                     "keras_resnet50": {"f32_loss": 1e-5, "f64": 1e-9},
+                     "keras_imdb": {"f32_loss": 1e-5, "f32_param": 1e-5,
+                                    "f64": 1e-9},
                      "inception": {"f32_loss": 1e-5, "f64": 1e-9},
                      "textclassifier": {"f32_loss": 1e-5, "f32_param": 1e-5,
                                         "f64": 1e-9}}
@@ -8074,6 +8113,204 @@ def alexnet_phase(batch: int = 128, steps: int = 8, check_batch: int = 4):
     return {"alexnet_step_ms_p50": p50 * 1e3}
 
 
+def keras_output_err(build, x) -> float:
+    """The eval-mode f32 output of ``build()`` (a CPU model) on ``x`` on
+    the card against the CPU, relative to the CPU's largest value."""
+    import copy
+
+    import torch
+
+    cpu = build().evaluate()
+    dev = copy.deepcopy(cpu).to("cuda")
+    with torch.no_grad():
+        want = cpu(torch.from_numpy(x))
+        got = dev(torch.from_numpy(x).to("cuda")).cpu()
+    return rel_err(got, want)
+
+
+def keras_round_trip(model, x) -> dict:
+    """``save_module`` the card's ``model`` and ``load_module`` it back
+    onto the card: the file's size and the seconds of both, and whether
+    the eval-mode outputs on ``x`` are bitwise equal."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.nn.module import AbstractModule
+
+    root = tempfile.mkdtemp(prefix="keras_")
+    path = os.path.join(root, "model.bigdl")
+    try:
+        model.evaluate()
+        xs = torch.as_tensor(x).to("cuda")
+        with torch.no_grad():
+            before = model(xs)
+        t0 = time.perf_counter()
+        model.save_module(path)
+        t1 = time.perf_counter()
+        loaded = AbstractModule.load_module(path, device="cuda").evaluate()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            after = loaded(xs)
+        on_card = all(p.is_cuda for p in loaded.parameters())
+        return {"bitwise_equal": bool(torch.equal(before, after))
+                and on_card, "save_s": t1 - t0, "load_s": t2 - t1,
+                "file_mib": os.path.getsize(path) / 2 ** 20}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def keras_resnet50_phase(batch: int = 64, steps: int = 6,
+                         check_batch: int = 2):
+    """Keras 1.2.2's ResNet50 through the port's Keras API (see the phase
+    list). No port kernel runs on this path: its convolutions are cuDNN's
+    ``F.conv2d``."""
+    import torch
+
+    from bigdl_tpu_torch.examples.keras_apps import (
+        RESNET50_PARAMS, RESNET50_RUNNING_STATS, resnet50,
+    )
+    from bigdl_tpu_torch.models.utils import synthetic_imagenet_samples
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.nn import keras as K
+    from bigdl_tpu_torch.optim import SGD
+
+    def build(device="cpu"):
+        gen = torch.Generator(device).manual_seed(5)
+        return resnet50(K, K.Input((3, 224, 224), device=device,
+                                   generator=gen))
+
+    model = build("cuda")
+    learnable = sum(p.numel() for p in model.parameters())
+    stats = sum(b.numel() for n, b in model.named_buffers()
+                if n.endswith(("running_mean", "running_var")))
+    samples = synthetic_imagenet_samples(batch * steps, seed=7)
+    wall, step_s, losses, peak = optimizer_run(
+        model, samples, ClassNLLCriterion(), SGD(0.1, momentum=0.9), batch)
+    window = optimizer_window(model, samples[:batch * 4],
+                              ClassNLLCriterion(), SGD(0.1, momentum=0.9),
+                              batch, 4)
+    window()                                   # warm
+    counts = window_counts(window, "keras_resnet50_train", 4)
+    del samples, window
+    torch.cuda.empty_cache()
+    trip = keras_round_trip(model, np.random.default_rng(8).standard_normal(
+        (8, 3, 224, 224)).astype(np.float32))
+    # a Graph's nodes link both ways: its parameters go at a collection
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(43)
+    batches = [(rng.standard_normal((check_batch, 3, 224, 224)).astype(
+        np.float32), rng.integers(1, 1001, check_batch).astype(np.float32))
+        for _ in range(2)]
+    out_err = keras_output_err(build, batches[0][0])
+    check, ok = held_on_card("keras_resnet50", build, batches,
+                             ClassNLLCriterion(),
+                             lambda: SGD(0.1, momentum=0.9))
+    check["f32_output_rel_err"] = out_err
+    p50 = baseline_emit(
+        "keras_resnet50", "Keras 1.2.2 applications ResNet50(include_top, "
+        "th) built with the port's Keras functional API (Merge sum, head "
+        f"log_softmax), Optimizer at batch {batch}, 224², f32, SGD "
+        f"0.1/0.9, {steps} iterations on {batch * steps} synthetic images; "
+        f"card vs CPU at batch {check_batch}: eval f32 output, 1 f32 step, "
+        "2 f64 steps; save_module/load_module round trip on the card",
+        batch, wall, step_s, losses, peak, counts,
+        (check, ok and out_err <= KERAS_CARD_TOL["keras_resnet50"]))
+    emit("keras_resnet50", card=nvidia_smi(), learnable_params=learnable,
+         running_stats=stats, total=learnable + stats,
+         published_total=RESNET50_PARAMS,
+         published_running_stats=RESNET50_RUNNING_STATS,
+         matches_published=(learnable + stats, stats)
+         == (RESNET50_PARAMS, RESNET50_RUNNING_STATS),
+         f32_output_tol=KERAS_CARD_TOL["keras_resnet50"],
+         round_trip=trip)
+    if (learnable + stats, stats) != (RESNET50_PARAMS,
+                                      RESNET50_RUNNING_STATS):
+        raise AssertionError(f"keras ResNet50 has {learnable} + {stats} "
+                             f"parameters, Keras publishes "
+                             f"{RESNET50_PARAMS} ({RESNET50_RUNNING_STATS} "
+                             "running statistics)")
+    if not trip["bitwise_equal"]:
+        raise AssertionError(f"keras ResNet50 load_module round trip {trip}")
+    return {"keras_resnet50_step_ms_p50": p50 * 1e3}
+
+
+def keras_imdb_phase(batch: int = 30, steps: int = 8, check_batch: int = 4):
+    """Keras 1.2.2's IMDB CNN-LSTM from its Keras-1.2 JSON through the
+    port's importer (see the phase list). No port kernel runs on this path
+    (cuDNN's convolution, cuBLAS products, the port's LSTM cell in plain
+    ops)."""
+    import torch
+
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.examples.keras_apps import (
+        imdb_cnn_lstm_json, imdb_cnn_lstm_weights,
+    )
+    from bigdl_tpu_torch.nn import BCECriterion
+    from bigdl_tpu_torch.optim import SGD, Adam
+    from bigdl_tpu_torch.utils.keras_loader import (
+        load_keras_json, load_keras_weights,
+    )
+
+    js = imdb_cnn_lstm_json()
+    weights = imdb_cnn_lstm_weights(js, seed=9)
+    maxlen = json.loads(js)["config"][0]["config"]["input_length"]
+    vocab = json.loads(js)["config"][0]["config"]["input_dim"]
+
+    def build(device="cpu"):
+        gen = torch.Generator(device).manual_seed(6)
+        return load_keras_weights(
+            load_keras_json(js, device=device, generator=gen), js, weights)
+
+    t0 = time.perf_counter()
+    model = build("cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    rng = np.random.default_rng(10)
+    ids = rng.integers(0, vocab, (batch * steps, maxlen)).astype(np.int32)
+    labels = rng.integers(0, 2, batch * steps).astype(np.float32)
+    samples = [Sample(i, np.float32([y])) for i, y in zip(ids, labels)]
+    wall, step_s, losses, peak = optimizer_run(
+        model, samples, BCECriterion(), Adam(1e-3), batch)
+    window = optimizer_window(model, samples[:batch * 4], BCECriterion(),
+                              Adam(1e-3), batch, 4)
+    window()                                   # warm
+    counts = window_counts(window, "keras_imdb_train", 4)
+    trip = keras_round_trip(model, ids[:batch])
+    del model, window
+    batches = [(ids[i * check_batch:(i + 1) * check_batch],
+                labels[i * check_batch:(i + 1) * check_batch, None])
+               for i in range(3)]
+    out_err = keras_output_err(build, batches[0][0])
+    check, ok = held_on_card("keras_imdb", build, batches, BCECriterion(),
+                             lambda: SGD(0.05, momentum=0.9))
+    check["f32_output_rel_err"] = out_err
+    p50 = baseline_emit(
+        "keras_imdb", "Keras 1.2.2 examples/imdb_cnn_lstm.py (Embedding "
+        f"{vocab}x128 on maxlen {maxlen}, Dropout 0.25, Convolution1D 64x5 "
+        "relu, MaxPooling1D 4, LSTM 70, Dense 1, sigmoid) from its "
+        "Keras-1.2 to_json() through load_keras_json, keras-1 weight "
+        "arrays from a seed through load_keras_weights; the LSTM's "
+        "inner_activation is stated 'sigmoid', not the example's default "
+        "hard_sigmoid, which the importer refuses; Optimizer at batch "
+        f"{batch}, BCECriterion, Adam 1e-3, {steps} iterations on seeded "
+        f"ids; card vs CPU at batch {check_batch} (dropout off): eval f32 "
+        "output, 3 f32 and 3 f64 SGD 0.05/0.9 steps",
+        batch, wall, step_s, losses, peak, counts,
+        (check, ok and out_err <= KERAS_CARD_TOL["keras_imdb"]),
+        unit="sequences")
+    emit("keras_imdb", card=nvidia_smi(), import_s=import_s,
+         f32_output_tol=KERAS_CARD_TOL["keras_imdb"], round_trip=trip)
+    if not trip["bitwise_equal"]:
+        raise AssertionError(f"keras IMDB load_module round trip {trip}")
+    return {"keras_imdb_step_ms_p50": p50 * 1e3}
+
+
 def main() -> int:
     import torch
 
@@ -8168,6 +8405,8 @@ def main() -> int:
     treelstm_phase()
     nn_extra_phase()
     alexnet_phase()
+    keras_resnet50_phase()
+    keras_imdb_phase()
     conv = conv3x3_phase()
     emit("timing_guard", guard_ms=guard_ms(),
          host_enqueue_ms_max=HOST_ENQUEUE["max_ms"],

@@ -1528,3 +1528,41 @@ def test_u8_fed_fused_bottleneck_steps_on_the_card_match_the_cpu(
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
     for a, b_ in zip(gpu.parameters(), cpu.parameters()):
         assert float((a.detach().cpu() - b_.detach()).abs().max()) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_keras_model_on_the_card_round_trips_through_save_module(
+        card, tmp_path):
+    """A small Keras model (Convolution2D, BatchNormalization, Merge(sum)
+    through ``Model``) built on the card: its eval-mode output
+    within 1e-5 of the same weights' on the CPU (TF32 off), and bitwise
+    after ``save_module`` / ``load_module(device="cuda")``."""
+    import copy
+
+    from bigdl_tpu_torch.nn import keras as K
+    from bigdl_tpu_torch.nn.module import AbstractModule
+
+    torch.backends.cudnn.allow_tf32 = False
+    inp = K.Input((3, 12, 12), device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(4))
+    a = K.Activation("relu")(K.BatchNormalization()(
+        K.Convolution2D(6, 3, 3, border_mode="same")(inp)))
+    b = K.Convolution2D(6, 1, 1)(inp)
+    out = K.Dense(5, activation="log_softmax")(K.Flatten()(
+        K.MaxPooling2D((2, 2))(K.Merge(mode="sum")([a, b]))))
+    model = K.Model(input=inp, output=out)
+    assert all(p.is_cuda for p in model.parameters())
+    model.evaluate()
+    x = torch.randn(4, 3, 12, 12, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        got = model(x.to(card))
+        cpu = copy.deepcopy(model).to("cpu")
+        want = cpu(x)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    path = str(tmp_path / "keras.bigdl")
+    model.save_module(path)
+    loaded = AbstractModule.load_module(path, device="cuda")
+    loaded.evaluate()
+    assert all(p.is_cuda for p in loaded.parameters())
+    with torch.no_grad():
+        assert torch.equal(loaded(x.to(card)), got)

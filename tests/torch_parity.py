@@ -127,28 +127,31 @@ def max_rel_err(got, want) -> float:
     return diff / scale if scale > 0 else diff
 
 
-def layer_vjp_refs(cases, seed: int = 11):
+def layer_vjp_refs(cases, seed: int = 11, with_state: bool = False):
     """For each ``name → (JAX layer, port layer, input, tol)``: the JAX
     layer's params (``numpy_trees``), its training-mode output without a
     key (a random layer is then deterministic), a numpy cotangent (seed
     99) and the vector-Jacobian product: ``name → (params, output,
     cotangent, [input grads of the float32 inputs], param grads)``. An
-    input that is not float32 (ids, indices, masks) is held fixed."""
+    input that is not float32 (ids, indices, masks) is held fixed.
+    ``with_state`` hands the layer its ``numpy_trees`` state tree (a
+    training-mode BatchNorm reads it) in place of ``{}``."""
     import jax.numpy as jnp
 
     out = {}
     for name, (jl, _, x, _) in cases.items():
-        params, _ = numpy_trees(jl, seed)
+        params, state = numpy_trees(jl, seed)
+        state = state if with_state else {}
         table = isinstance(x, list)
         xs = _flat_tensors(x)
         diff = [i for i, v in enumerate(xs)
                 if np.asarray(v).dtype == np.float32]
 
-        def f(p, *dx, xs=xs, diff=diff, table=table, jl=jl):
+        def f(p, *dx, xs=xs, diff=diff, table=table, jl=jl, state=state):
             full = [jnp.asarray(v) for v in xs]
             for i, v in zip(diff, dx):
                 full[i] = v
-            return jl.apply(p, full if table else full[0], {},
+            return jl.apply(p, full if table else full[0], state,
                             training=True)[0]
 
         dx = [jnp.asarray(xs[i]) for i in diff]
